@@ -32,10 +32,6 @@ from ..curve.points import G1
 from .kzg import KZGSRS, eval_as_univariate, kzg_commit
 
 
-def _msm_batch_packed(prep, packed: list[bytes]):
-    return prep.msm_batch_packed(packed)
-
-
 class HyperKZGProof:
     def __init__(self, com: list[G1], w: list[G1], v: list[list[Fr]]):
         self.com = com  # ell - 1 fold commitments
@@ -97,14 +93,18 @@ class HyperKZG:
 
     @staticmethod
     def open(srs: KZGSRS, coeffs, point: list[Fr], transcript,
-             dev=None) -> HyperKZGProof:
+             dev=None, gate=None) -> HyperKZGProof:
         """coeffs: FrArray (native fast path) or list[Fr] (fallback).
 
         ``dev``: the port's device MSM engine (device/msm.py DeviceBases)
-        or None for the host engine. With it, all fold commitments go
-        through one batched device call and the n-point witness MSM
-        through one more; an MSM whose digit grid would be skewed takes
-        the host engine (counted in telemetry)."""
+        or None for the host engine; ``gate`` (device/gate.py) routes the
+        MSMs when ``dev`` is given. The fold commitments go through one
+        batched device call when the gate gives the device the whole
+        batch; otherwise the largest fold's device share, if the gate
+        splits it, is queued first and the host runs its prefix and the
+        other folds meanwhile. The n-point witness MSM goes to the device,
+        a split or the host by the gate. An MSM whose digit grid would be
+        skewed takes the host engine (counted in telemetry)."""
         from ..field.frvec import FrArray
         ell = len(point)
         n = len(coeffs)
@@ -131,14 +131,10 @@ class HyperKZG:
         prep = srs.prepared_bases()
         if native and prep is not None and len(polys) > 1:
             # all folds exist before any is absorbed: one batched MSM call
-            from ..device.msm import host_fill
-            packed = [p.canonical().tobytes() for p in polys[1:]]
-            com = [None] * len(packed)
-            if dev is not None:
-                com = dev.try_msm_batch(packed, [len(p) for p in polys[1:]],
-                                        "hyperkzg_fold")
-            com = host_fill(com, lambda ix: _msm_batch_packed(
-                prep, [packed[i] for i in ix]))
+            from ..device import split
+            com = split.msm_fold_batch(
+                dev, gate, prep, [p.canonical().tobytes() for p in polys[1:]],
+                [len(p) for p in polys[1:]], "hyperkzg_fold")
         else:
             com = [kzg_commit(srs, p) for p in polys[1:]]
         transcript.append_points(com)
@@ -174,16 +170,15 @@ class HyperKZG:
         # BDFG20 batch KZG with [Z_S(tau)]_2 from the extended G2 powers).
         assert u[0] != u[1] and u[0] != u[2] and u[1] != u[2]
         if native and prep is not None:
+            from ..device import split
             from ..field import frvec
             h = b
             for ui in u:
                 h = frvec.syndiv(h, ui)
             # the n-point witness MSM is the single biggest MSM of the open
-            hb = h.canonical().tobytes()
-            w = [None]
-            if dev is not None:
-                w = dev.try_msm_batch([hb], [len(h)], "hyperkzg_witness")
-            w = host_fill(w, lambda ix: [prep.msm_packed(hb, len(h))])
+            w = split.msm_batch_routed(dev, gate, prep,
+                                       [h.canonical().tobytes()], [len(h)],
+                                       "hyperkzg_witness")
         else:
             h = list(b)
             for ui in u:

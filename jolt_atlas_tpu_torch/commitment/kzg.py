@@ -100,20 +100,29 @@ class KZGSRS:
                 self._prepared_failed = True
         return self._prepared
 
-    def device_bases(self, device, c: int = 0):
-        """Device-resident bases for the port's MSM engine
-        (device/msm.py) on ``device``, uploaded once per SRS and device and
-        reused by every MSM. The engine engages whenever the prover was
-        given a device; the decision lands in telemetry. ``c`` forces the
-        window size (0: chosen per MSM size)."""
+    def device_bases(self, device, gate=None, c: int = 0):
+        """Device-resident bases for the port's MSM engine (device/msm.py)
+        on ``device``, uploaded once per SRS, device and window and reused
+        by every MSM; or None when the MSM gate says that neither the device
+        alone nor a host+device split pays at this SRS's size. ``gate``
+        defaults to the card's measured gate (device/gate.py for_device,
+        which measures it here at first use). The decision lands in
+        telemetry. ``c`` forces the window size (0: chosen per MSM size)."""
+        from ..device import gate as dgate
         from ..device import msm as dmsm
         from ..device import telemetry
+        if gate is None:
+            gate = dgate.for_device(device)
+        prep = self.prepared_bases()
         cache = self.__dict__.setdefault("_device", {})
         key = (str(device), c)
+        ok, why = gate.wants_bases(prep.n, resident=key in cache)
+        if not ok:
+            telemetry.decide("msm", f"declined on {device}: {why}")
+            return None
         if key not in cache:
-            prep = self.prepared_bases()
             cache[key] = dmsm.DeviceBases(prep.buf.raw, prep.n, device, c=c)
-            telemetry.decide("msm", f"ENGAGED on {device} (explicit device)")
+        telemetry.decide("msm", f"ENGAGED on {device}: {why}")
         return cache[key]
 
     @classmethod

@@ -5,8 +5,8 @@ Two kinds of shared library, both loaded with ctypes:
 - the host C++ engines from the repo's ``csrc/`` (``msm.cpp``,
   ``frvec.cpp``), compiled with g++ for the CPU this process runs on;
 - the port's CUDA kernels, ``jolt_atlas_tpu_torch/csrc/*.cu``, compiled
-  with nvcc for Hopper (``sm_90a``) into one library with a plain C
-  interface.
+  with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
+  started together, and linked into one library with a plain C interface.
 
 Everything lands in ``jolt_atlas_tpu_torch/_build/`` (git-ignored), never in
 ``csrc/``. Each output is named by a hash of its sources, its compiler
@@ -89,17 +89,24 @@ def _build(name: str, out: str, cmd_for) -> str:
                                    f"{r.stdout}\n{r.stderr}")
             os.replace(tmp, out)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            for f in [tmp] + glob.glob(tmp + ".*.o"):
+                if os.path.exists(f):
+                    os.unlink(f)
     return out
+
+
+def host_tag(name: str) -> str:
+    """Digest of csrc/<name>.cpp, its headers, flags and CPU: names the
+    library built from them."""
+    src = os.path.join(HOST_SRC, f"{name}.cpp")
+    deps = [src] + sorted(glob.glob(os.path.join(HOST_SRC, "*.h")))
+    return _digest(deps, HOST_FLAGS + [_cpu_tag()])
 
 
 def host_library(name: str) -> str:
     """Path of lib<name>.so built from the repo's csrc/<name>.cpp."""
     src = os.path.join(HOST_SRC, f"{name}.cpp")
-    deps = [src] + sorted(glob.glob(os.path.join(HOST_SRC, "*.h")))
-    tag = _digest(deps, HOST_FLAGS + [_cpu_tag()])
-    out = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}-{host_tag(name)}.so")
     return _build(name, out,
                   lambda tmp: ["g++", *HOST_FLAGS, "-o", tmp, src])
 
@@ -115,16 +122,40 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _nvcc_objects(nvcc: str, srcs: list[str], tmp: str) -> list[str]:
+    """Compile each source to an object next to `tmp`, one nvcc process per
+    source, all started together; the link command for them."""
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    compile_flags = [f for f in CUDA_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-I", CUDA_SRC, "-c",
+                               src, "-o", obj], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    failed = [f"{src}:\n{log}" for src, p, log in zip(srcs, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
+        raise RuntimeError("building jolt_cuda failed:\n" + "\n".join(failed))
+    return [nvcc, *CUDA_FLAGS, "-o", tmp, *objs]
+
+
+def cuda_tag() -> str:
+    """Digest of the kernels' sources and flags: names their library."""
+    deps = sorted(glob.glob(os.path.join(CUDA_SRC, "*.cu"))
+                  + glob.glob(os.path.join(CUDA_SRC, "*.cuh")))
+    return _digest(deps, CUDA_FLAGS)
+
+
 def cuda_library_path() -> str:
     """Path of the kernels library built from jolt_atlas_tpu_torch/csrc."""
     srcs = sorted(glob.glob(os.path.join(CUDA_SRC, "*.cu")))
-    deps = srcs + sorted(glob.glob(os.path.join(CUDA_SRC, "*.cuh")))
     nvcc = nvcc_path()
-    tag = _digest(deps, CUDA_FLAGS)
-    out = os.path.join(BUILD_DIR, f"libjolt_cuda-{tag}.so")
+    out = os.path.join(BUILD_DIR, f"libjolt_cuda-{cuda_tag()}.so")
     return _build("jolt_cuda", out,
-                  lambda tmp: [nvcc, *CUDA_FLAGS, "-I", CUDA_SRC,
-                               "-o", tmp, *srcs])
+                  lambda tmp: _nvcc_objects(nvcc, srcs, tmp))
 
 
 _CUDA = None
@@ -141,5 +172,8 @@ def cuda_library():
         lib.jolt_bucket_accumulate.argtypes = [vp] * 4 + [i64, i64] \
             + [vp] * 3 + [vp]
         lib.jolt_bucket_accumulate.restype = ctypes.c_int
+        lib.jolt_bucket_combine.argtypes = [vp] * 3 + [
+            i64, ctypes.c_int, ctypes.c_int, i64, ctypes.c_int] + [vp] * 4
+        lib.jolt_bucket_combine.restype = ctypes.c_int
         _CUDA = lib
     return _CUDA

@@ -109,7 +109,7 @@ def pp_add(P, Q):
                 n, stream)
         if rc != 0:
             raise RuntimeError(f"pp_add kernel launch failed: CUDA error {rc}")
-        telemetry.launch("pp_add")
+        telemetry.launch("pp_add", n)
     return tuple(t.reshape(shape) for t in outs)
 
 

@@ -10,11 +10,10 @@ Counterpart of jolt_atlas_tpu/tpu/msm.py, with the same structure:
   sub-lanes by local point index, and a stable sort feeds a scatter into a
   (rows, W * 2^c) grid of absolute base indices (-1 = empty slot).
 - ``bucket_accumulate`` (kernel 2, csrc/msm.cu) adds each lane's column of
-  bases into its bucket. The top window's S sub-lanes are folded with
-  log2(S) halving ``pp_add`` launches.
-- The bucket combine sum_b b * S_b writes b = h * 2^ch + l and reduces the
-  buckets along each half by loops of ``pp_add`` launches, batched over all
-  MSMs of a call (batch padded to a power of two).
+  bases into its bucket.
+- ``bucket_combine`` (kernel 3, csrc/combine.cu) folds the top window's
+  sub-lanes and computes sum_b b * S_b per (MSM, window), for all MSMs of
+  a call in one launch.
 - The window sums come back to the host, where a Horner loop in Python
   point arithmetic gives the affine result.
 
@@ -22,9 +21,11 @@ A host counting pass (csrc ``msm_digit_grid``, the same digit semantics)
 sizes the grid's row budget first and raises ``_GridSkewError`` on
 pathologically skewed scalars, before any device work; ``try_msm_batch``
 refuses such MSMs one by one and ``host_fill`` gives them to the host
-engine.
+engine. ``DeviceBases.start`` returns as soon as the kernels are queued;
+``finish`` is the only synchronisation, so the host can work meanwhile
+(device/split.py).
 
-On a CUDA device the two kernels run; on the CPU their plain versions do.
+On a CUDA device the kernels run; on the CPU their plain versions do.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from . import curve, field, telemetry
-from .curve import pp_add, pp_add_plain, pp_identity
+from .curve import pp_add_plain, pp_identity
 
 
 class _GridSkewError(RuntimeError):
@@ -131,7 +132,10 @@ def digit_grid(sc: torch.Tensor, c: int, rows: int,
         lanes.append(torch.where(d != 0, lane, L))
     lane_f = torch.cat(lanes)                 # (W*n,) window-major
     pt_f = idx.repeat(W)
-    counts = torch.bincount(lane_f, minlength=L + 1)
+    # scatter_add, not bincount: bincount reads its maximum back to the
+    # host, a synchronisation
+    counts = torch.zeros(L + 1, dtype=torch.int64, device=device)
+    counts.scatter_add_(0, lane_f, torch.ones_like(lane_f))
     starts = torch.zeros(L + 1, dtype=torch.int64, device=device)
     starts[1:] = torch.cumsum(counts[:L], 0)
     lane_s, order = torch.sort(lane_f, stable=True)
@@ -168,24 +172,37 @@ def bucket_accumulate_plain(bases, grid: torch.Tensor):
     return tuple(acc)
 
 
-def bucket_accumulate(bases, grid: torch.Tensor):
+def bucket_accumulate(bases, grid: torch.Tensor, out=None):
     """(X, Y, Z) bases (N, 4) and a (rows, L) int32 index grid -> the L
-    bucket sums (L, 4) each. CUDA tensors run kernel 2, CPU tensors its
-    plain version."""
+    bucket sums (L, 4) each, written into ``out`` when given (three
+    contiguous (L, 4) int64 tensors, e.g. one MSM's rows of a batch's
+    stack). CUDA tensors run kernel 2, CPU tensors its plain version."""
     device = grid.device
     curve.check_points(bases, device)
     if grid.dtype != torch.int32 or grid.dim() != 2:
         raise ValueError("grid must be a 2-D int32 tensor")
+    rows, L = grid.shape
+    if out is not None:
+        curve.check_points(out, device)
+        if out[0].shape != (L, 4) or not all(
+                t.is_contiguous() and t.data_ptr() % 16 == 0 for t in out):
+            raise ValueError("out must be contiguous, 16-byte aligned "
+                             f"(L, 4) tensors, L={L}")
     if device.type == "cpu":
-        return bucket_accumulate_plain(bases, grid)
+        got = bucket_accumulate_plain(bases, grid)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return tuple(out)
     if device.type != "cuda":
         raise ValueError(f"bucket_accumulate: no kernel for device {device}")
     from . import build
-    rows, L = grid.shape
     grid = grid.contiguous()
     bx, by, bz = (curve._flat(b) for b in bases)
-    outs = [torch.empty((L, 4), dtype=torch.int64, device=device)
-            for _ in range(3)]
+    outs = list(out) if out is not None else [
+        torch.empty((L, 4), dtype=torch.int64, device=device)
+        for _ in range(3)]
     if L:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -195,89 +212,123 @@ def bucket_accumulate(bases, grid: torch.Tensor):
         if rc != 0:
             raise RuntimeError("bucket_accumulate kernel launch failed: "
                                f"CUDA error {rc}")
-        telemetry.launch("bucket_accumulate")
+        telemetry.launch("bucket_accumulate", L)
     return tuple(outs)
 
 
 # ---------------------------------------------------------------------------
-# top-window fold and bucket combine: loops of pp_add launches
+# kernel 3: bucket combine
 # ---------------------------------------------------------------------------
 
-def fold_top(acc, c: int):
-    """Fold the top window's S sub-lanes of each bucket by halving adds;
-    the top window's lanes then hold its 2^topbits buckets, identity after."""
-    W, B, S = window_shape(c)
-    if S == 1:
-        return acc
-    base = (W - 1) * B
-    top = tuple(p[base:].reshape(B // S, S, 4) for p in acc)
-    s = S
-    while s > 1:
-        s //= 2
-        top = pp_add(tuple(t[:, :s] for t in top),
-                     tuple(t[:, s:2 * s] for t in top))
-    ident = pp_identity(B - B // S, acc[0].device)
-    return tuple(torch.cat([p[:base], t.reshape(B // S, 4), i1])
-                 for p, t, i1 in zip(acc, top, ident))
+COMBINE_MAX_THREADS = 256
 
 
-def _reduce0(P):
-    """Sum a point batch over its leading axis by R-1 pp_add launches."""
-    acc = tuple(p[0] for p in P)
-    for j in range(1, P[0].shape[0]):
-        acc = pp_add(acc, tuple(p[j] for p in P))
-    return acc
+def combine_threads(c: int) -> int:
+    """Threads per (MSM, window) of kernel 3: a power of two, at most 256,
+    at most half the buckets. It fixes the partition of the buckets and so
+    the order of the adds, which the plain version follows."""
+    return min(COMBINE_MAX_THREADS, (1 << c) >> 1)
 
 
-def _weighted(P):
-    """sum_b b * P[b] over the leading axis, by running suffix sums."""
-    R = P[0].shape[0]
-    shape = P[0].shape[1:]
-    n = int(np.prod(shape[:-1]))
-    zero = tuple(t.reshape(shape) for t in pp_identity(n, P[0].device))
-    S, T = zero, zero
-    for j in range(R - 1):
-        T = pp_add(T, tuple(p[R - 1 - j] for p in P))
-        S = pp_add(S, T)
-    return S
+def _combine_ranges(c: int, device):
+    """Per (window, thread): the bucket range [lo, hi) the thread walks,
+    the window's sub-lanes per bucket S (lane j has weight j // S), and the
+    range's lowest weight wlo (0 for an empty range)."""
+    W, B, s_top = window_shape(c)
+    T = combine_threads(c)
+    S = torch.ones((W, 1), dtype=torch.int64, device=device)
+    S[-1] = s_top
+    chunk = (B - S + T - 1) // T
+    t = torch.arange(T, dtype=torch.int64, device=device)
+    hi = torch.clamp(S + (t + 1) * chunk, max=B)
+    lo = torch.minimum(S + t * chunk, hi)
+    wlo = torch.where(lo < hi, lo // S, 0)
+    return lo, hi, S, wlo, int(chunk.max())
 
 
-def combine(acc, c: int):
-    """Bucket sums (k, L, 4) x 3 -> window sums (k, W, 4) x 3.
+def _where(mask, P, Q):
+    """Points of P where mask, of Q elsewhere (mask over the leading axes)."""
+    m = mask.unsqueeze(-1)
+    return tuple(torch.where(m, p, q) for p, q in zip(P, Q))
 
-    sum_b b*S_b with b = h*Gl + l splits into Gl * sum_h h*U_h +
-    sum_l l*V_l, U_h = sum_l S_{h,l}, V_l = sum_h S_{h,l}: two plain
-    reductions and two running-sum weighted reductions, O(sqrt B) batched
-    launches instead of O(B) sequential adds."""
-    W, _, _ = window_shape(c)
+
+def bucket_combine_plain(acc, c: int):
+    """Plain version of kernel 3, with the kernel's own order of adds, so
+    the two are bit-equal: one (MSM, window) is a row of T "threads", each
+    walking its bucket range from high to low with a running sum and a
+    weighted sum, multiplying in its lowest weight by double-and-add; the T
+    partials are then added by halving, as the kernel's shared-memory
+    tree does."""
     k = acc[0].shape[0]
-    ch = c // 2
-    Gh, Gl = 1 << (c - ch), 1 << ch
-    S = tuple(p.reshape(k, W, Gh, Gl, 4) for p in acc)
-    U = _reduce0(tuple(p.movedim(3, 0) for p in S))     # (k, W, Gh, 4)
-    V = _reduce0(tuple(p.movedim(2, 0) for p in S))     # (k, W, Gl, 4)
-    Wh = _weighted(tuple(p.movedim(2, 0) for p in U))   # (k, W, 4)
-    Wl = _weighted(tuple(p.movedim(2, 0) for p in V))   # (k, W, 4)
-    for _ in range(ch):  # Gl is a power of two: ch doublings
-        Wh = pp_add(Wh, Wh)
-    return pp_add(Wh, Wl)
-
-
-def _pow2_pad(x: int) -> int:
-    return 1 << max(x - 1, 1).bit_length()
-
-
-def combine_batch(accs: list, c: int):
-    """Stack the bucket sums of k MSMs, pad the batch to a power of two
-    with identity lanes, and combine: window sums (k_pad, W, 4) x 3."""
     W, B, _ = window_shape(c)
-    device = accs[0][0].device
-    accs = list(accs)
-    k = len(accs)
-    while len(accs) < _pow2_pad(k):
-        accs.append(pp_identity(W * B, device))
-    return combine(tuple(torch.stack([a[i] for a in accs])
-                         for i in range(3)), c)
+    device = acc[0].device
+    lo, hi, S, wlo, steps = _combine_ranges(c, device)
+    T = lo.shape[1]
+    win = torch.arange(W, dtype=torch.int64, device=device)[:, None] * B
+    shape = (k, W, T, 4)
+
+    def ident():
+        return tuple(t.reshape(shape) for t in pp_identity(k * W * T, device))
+
+    run, wsum = ident(), ident()
+    for i in range(steps):
+        j = hi - 1 - i
+        live = j >= lo
+        jc = torch.where(live, j, 0)
+        lane = (win + jc).reshape(-1)
+        P = tuple(a.index_select(1, lane).reshape(shape) for a in acc)
+        run = _where(live, pp_add_plain(run, P), run)
+        hit = live & (jc % S == 0) & (jc // S > lo // S)
+        wsum = _where(hit, pp_add_plain(wsum, run), wsum)
+    R = ident()
+    started = torch.zeros_like(wlo, dtype=torch.bool)
+    for bit in reversed(range(c)):
+        R = _where(started, pp_add_plain(R, R), R)
+        b = ((wlo >> bit) & 1) == 1
+        R = _where(b & started, pp_add_plain(R, run), _where(b, run, R))
+        started = started | b
+    P = _where(started, pp_add_plain(wsum, R), wsum)
+    s = T >> 1
+    while s:
+        top = pp_add_plain(tuple(p[:, :, :s] for p in P),
+                           tuple(p[:, :, s:2 * s] for p in P))
+        P = tuple(torch.cat([a, p[:, :, s:]], dim=2) for a, p in zip(top, P))
+        s >>= 1
+    return tuple(p[:, :, 0].contiguous() for p in P)
+
+
+def bucket_combine(acc, c: int):
+    """Bucket sums (k, W * 2^c, 4) x 3, the top window still spread over
+    its sub-lanes, as ``bucket_accumulate`` leaves them -> window sums
+    (k, W, 4) x 3, sum_b b * S_b per (MSM, window); digit 0 is dropped.
+    CUDA tensors run kernel 3 (one launch for the whole batch), CPU tensors
+    its plain version."""
+    device = acc[0].device
+    curve.check_points(acc, device)
+    W, B, s_top = window_shape(c)
+    if acc[0].dim() != 3 or acc[0].shape[1] != W * B:
+        raise ValueError(f"bucket sums must be (k, {W * B}, 4) for c={c}; "
+                         f"got {tuple(acc[0].shape)}")
+    if device.type == "cpu":
+        return bucket_combine_plain(acc, c)
+    if device.type != "cuda":
+        raise ValueError(f"bucket_combine: no kernel for device {device}")
+    from . import build
+    k = acc[0].shape[0]
+    ins = [curve._flat(a) for a in acc]
+    outs = [torch.empty((k, W, 4), dtype=torch.int64, device=device)
+            for _ in range(3)]
+    if k:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = build.cuda_library().jolt_bucket_combine(
+                *(t.data_ptr() for t in ins), k, c, W, s_top,
+                combine_threads(c), *(t.data_ptr() for t in outs), stream)
+        if rc != 0:
+            raise RuntimeError("bucket_combine kernel launch failed: "
+                               f"CUDA error {rc}")
+        telemetry.launch("bucket_combine", W * B)
+    return tuple(outs)
 
 
 def _combine_windows(window_points: list, c: int):
@@ -335,22 +386,32 @@ class DeviceBases:
                                  f"engine holds {self.n} bases")
 
     def _launch(self, packed, counts, offsets, rows, c: int, site: str):
-        accs = []
-        for raw, count, off, r in zip(packed, counts, offsets, rows):
-            grid = digit_grid(scalars_tensor(raw, count, self.device), c, r,
-                              off)
-            accs.append(fold_top(bucket_accumulate(self.bases, grid), c))
+        """Queue the batch: upload every MSM's scalars first (a copy from
+        pageable host memory may wait for the stream's earlier work), then
+        per MSM its digit grid and kernel 2 into its rows of one (k, L, 4)
+        stack, then kernel 3 once. Nothing after the uploads waits for the
+        device."""
+        W, B, _ = window_shape(c)
+        k = len(packed)
+        scalars = [scalars_tensor(raw, count, self.device)
+                   for raw, count in zip(packed, counts)]
+        acc = tuple(torch.empty((k, W * B, 4), dtype=torch.int64,
+                                device=self.device) for _ in range(3))
+        for i, (sc, off, r) in enumerate(zip(scalars, offsets, rows)):
+            bucket_accumulate(self.bases, digit_grid(sc, c, r, off),
+                              out=tuple(a[i] for a in acc))
             telemetry.count(site)
-        R = combine_batch(accs, c)
+        R = bucket_combine(acc, c)
         telemetry.count(site)
-        return (R, len(accs), c)
+        return (R, k, c)
 
     def start(self, packed: list[bytes], counts: list[int],
               offsets: list[int] | None = None, site: str = "msm"):
-        """Enqueue a batch of MSMs (canonical 32-byte LE scalars against
-        base ranges [offset, offset + count)); pair with ``finish()``.
-        One accumulation per MSM, then one batched combine. Raises
-        _GridSkewError before any device work if a grid would be skewed."""
+        """Queue a batch of MSMs (canonical 32-byte LE scalars against
+        base ranges [offset, offset + count)) and return without waiting
+        for the device; pair with ``finish()``. One accumulation per MSM,
+        then one combine for the batch. Raises _GridSkewError before any
+        device work if a grid would be skewed."""
         c = self.c or _pick_c(max(counts))
         offsets = offsets or [0] * len(packed)
         self._check(packed, counts, offsets)
@@ -358,9 +419,10 @@ class DeviceBases:
         return self._launch(packed, counts, offsets, rows, c, site)
 
     def finish(self, handle) -> list:
-        """Collect a ``start()`` batch: list of affine G1 (host)."""
+        """Collect a ``start()`` batch (waits for the device): list of
+        affine G1, the window sums combined by a host Horner loop."""
         R, k, c = handle
-        host = tuple(t[:k].cpu() for t in R)
+        host = tuple(t.cpu() for t in R)
         return [_combine_windows(curve.tensors_to_points(
             tuple(t[i] for t in host)), c) for i in range(k)]
 

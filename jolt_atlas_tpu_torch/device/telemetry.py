@@ -1,11 +1,13 @@
 """Device-path telemetry: which engines engaged, why the others declined,
 how many device dispatches each issued, and how many times each CUDA
-kernel was launched.
+kernel was launched, and at which widths.
 
 Counterpart of jolt_atlas_tpu/tpu/telemetry.py. ``launches`` is new: each
 kernel wrapper adds one where it launches its kernel (and nowhere else),
 so a run can show that its main path really went through the kernels.
-The plain PyTorch versions count nothing.
+``lanes`` keeps the lane counts each kernel was launched at (the shape its
+threads walk), so a run can check that each one was held against the
+plain version. The plain PyTorch versions count nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 _COUNTS: dict[str, int] = {}
 _DECISIONS: dict[str, str] = {}
 _LAUNCHES: dict[str, int] = {}
+_LANES: dict[str, set[int]] = {}
 
 
 def count(engine: str, n: int = 1) -> None:
@@ -25,9 +28,11 @@ def decide(engine: str, decision: str) -> None:
     _DECISIONS[engine] = decision
 
 
-def launch(kernel: str) -> None:
-    """Record one launch of a CUDA kernel (called by its wrapper only)."""
+def launch(kernel: str, lanes: int) -> None:
+    """Record one launch of a CUDA kernel over ``lanes`` lanes (called by
+    its wrapper only)."""
     _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+    _LANES.setdefault(kernel, set()).add(int(lanes))
 
 
 def launches() -> dict[str, int]:
@@ -36,17 +41,16 @@ def launches() -> dict[str, int]:
 
 def snapshot() -> dict:
     """{"dispatches": {engine: n}, "decisions": {engine: reason},
-    "launches": {kernel: n}}."""
+    "launches": {kernel: n}, "lanes": {kernel: sorted lane counts}}."""
     return {"dispatches": dict(_COUNTS), "decisions": dict(_DECISIONS),
-            "launches": dict(_LAUNCHES)}
-
-
-def reset_counts() -> None:
-    """Zero the dispatch and launch counts; decisions stay."""
-    _COUNTS.clear()
-    _LAUNCHES.clear()
+            "launches": dict(_LAUNCHES),
+            "lanes": {k: sorted(v) for k, v in _LANES.items()}}
 
 
 def reset() -> None:
-    reset_counts()
+    """Zero the dispatch and launch counts and forget the decisions and
+    the launch widths."""
+    _COUNTS.clear()
+    _LAUNCHES.clear()
+    _LANES.clear()
     _DECISIONS.clear()

@@ -92,23 +92,34 @@ def _maybe_device_iop_scope():
 class AtlasProver:
     def __init__(self, preprocessing: AtlasPreprocessing,
                  transcript_factory=Blake2bTranscript, device=None,
-                 msm_window: int = 0):
+                 msm_window: int = 0, msm_gate=None):
         # transcript_factory: Blake2bTranscript (default, matching the
         # reference) or transcripts.KeccakTranscript — must match verifier
         # device: None proves on the host (the reference's own path); a
-        # torch.device engages the device MSM engine (device/msm.py) for
-        # the dense witness commits and the HyperKZG opening.
+        # torch.device offers the device MSM engine (device/msm.py) to the
+        # dense witness commits and the HyperKZG opening.
+        # msm_gate: the MSM gate (device/gate.py) that routes each MSM to
+        # the device, a host+device split or the host; None loads the
+        # device's measured calibration here (measuring it at first use),
+        # never inside prove().
         # msm_window: forced MSM window size c (0: chosen per MSM size)
         self.pp = preprocessing
         self.transcript_factory = transcript_factory
         self.device = device
         self.msm_window = msm_window
+        self.uses_msm_engine = (device is not None and self.pp.srs is not None
+                                and self.pp.pcs != "dory")
+        if self.uses_msm_engine and msm_gate is None:
+            from .device import gate as dgate
+            msm_gate = dgate.for_device(device)
+        self.msm_gate = msm_gate
 
-    def _device_msm(self):
-        """The device MSM engine, or None on the host path."""
-        if self.device is None or self.pp.srs is None:
-            return None
-        return self.pp.srs.device_bases(self.device, c=self.msm_window)
+    def _msm_engine(self):
+        """(the device MSM engine or None, the gate that routes the MSMs)."""
+        if not self.uses_msm_engine:
+            return None, None
+        return (self.pp.srs.device_bases(self.device, self.msm_gate,
+                                         c=self.msm_window), self.msm_gate)
 
     def prove_zk(self, inputs: list[np.ndarray]):
         """Zero-knowledge prove: identical pipeline, but every sumcheck's
@@ -165,6 +176,7 @@ class AtlasProver:
                 ctx.chunks.update(chunks)
         commitments = {}
         with span("commit"):
+            dev, gate = self._msm_engine()
             pids = sorted(poly_map)
             if self.pp.pcs == "dory":
                 from .commitment.dory import DoryPC
@@ -199,20 +211,17 @@ class AtlasProver:
                         sc.process(ints[off:off + STREAM_MIN])
                     commitments[pid] = sc.finalize()
                 if dn_pids:
-                    # dense witness commits ride the device Pippenger when
-                    # the prover was given a device; a commit whose digit
-                    # grid would be skewed (low-entropy windows) takes the
-                    # host batch-affine engine, counted in telemetry
-                    from .device.msm import host_fill
-                    dev = self._device_msm()
-                    pts = [None] * len(dn_pids)
-                    if dev is not None:
-                        from .curve.native import pack_scalars
-                        pts = dev.try_msm_batch(
-                            [pack_scalars(poly_map[p].ints) for p in dn_pids],
-                            [len(poly_map[p]) for p in dn_pids], "commit")
-                    pts = host_fill(pts, lambda ix: prep.msm_batch(
-                        [poly_map[dn_pids[i]].ints for i in ix]))
+                    # dense witness commits, each by the gate's route: the
+                    # device, a host+device split or the host batch-affine
+                    # engine, which also takes any commit whose digit grid
+                    # would be skewed (low-entropy windows); all counted in
+                    # telemetry
+                    from .curve.native import pack_scalars
+                    from .device.split import msm_batch_routed
+                    pts = msm_batch_routed(
+                        dev, gate, prep,
+                        [pack_scalars(poly_map[p].ints) for p in dn_pids],
+                        [len(poly_map[p]) for p in dn_pids], "commit")
                     commitments.update(zip(dn_pids, pts))
             else:
                 for pid in pids:
@@ -295,8 +304,8 @@ class AtlasProver:
                     else:
                         hk_proof = HyperKZG.open(self.pp.srs, joint,
                                                  list(r_sumcheck),
-                                                 transcript,
-                                                 dev=self._device_msm())
+                                                 transcript, dev=dev,
+                                                 gate=gate)
         else:  # no committed polynomials (pure claim-plumbing graph)
             bo_proof, reduced_claims, hk_proof = None, [], None
 

@@ -7,7 +7,7 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Without a CUDA device every test skips. Tolerance: exact (bit-equal limbs,
-equal affine points).
+equal affine points). A forced gate (device/gate.py) picks each MSM path.
 """
 
 import numpy as np
@@ -16,7 +16,7 @@ import torch
 
 from jolt_atlas_tpu_torch.commitment.kzg import KZGSRS
 from jolt_atlas_tpu_torch.curve.native import pack_scalars
-from jolt_atlas_tpu_torch.device import curve
+from jolt_atlas_tpu_torch.device import curve, gate, split
 from jolt_atlas_tpu_torch.device import msm as dmsm, telemetry
 from jolt_atlas_tpu_torch.field.constants import FR_MODULUS
 
@@ -43,7 +43,7 @@ def _equal(got, want):
 
 
 def test_pp_add_kernel_matches_plain(gpu, srs):
-    bases = srs.device_bases(gpu).bases
+    bases = srs.device_bases(gpu, gate.forced("device")).bases
     rng = np.random.default_rng(11)
     i1, i2 = (torch.from_numpy(rng.integers(0, N, size=4096)).to(gpu)
               for _ in range(2))
@@ -60,12 +60,12 @@ def test_pp_add_kernel_matches_plain(gpu, srs):
     assert telemetry.launches()["pp_add"] - before == 4
 
 
-def test_bucket_kernel_matches_plain(gpu, srs):
-    bases = srs.device_bases(gpu).bases
+@pytest.mark.parametrize("c", [6, 12])
+def test_bucket_kernel_matches_plain(gpu, srs, c):
+    bases = srs.device_bases(gpu, gate.forced("device")).bases
     rng = np.random.default_rng(12)
     packed = pack_scalars([int.from_bytes(rng.bytes(32), "little")
                            % FR_MODULUS for _ in range(N)])
-    c = 6
     grid = dmsm.digit_grid(dmsm.scalars_tensor(packed, N, gpu), c,
                            dmsm.rows_for(packed, N, c))
     assert bool((grid < 0).any())  # empty slots are exercised
@@ -85,7 +85,55 @@ def test_device_msm_matches_host_on_gpu(gpu, srs, kind):
         c = 8  # divides 16: a window straddling bit 16 would be skewed
     packed = pack_scalars(scalars)
     want = srs.prepared_bases().msm_packed(packed, N)
-    before = telemetry.launches().get("bucket_accumulate", 0)
-    got = srs.device_bases(gpu, c=c).msm_packed(packed, N)
+    before = telemetry.launches()
+    got = srs.device_bases(gpu, gate.forced("device"), c=c).msm_packed(
+        packed, N)
     assert (got.infinity, got.x, got.y) == (want.infinity, want.x, want.y)
-    assert telemetry.launches()["bucket_accumulate"] - before == 1
+    for k in ("bucket_accumulate", "bucket_combine"):
+        assert telemetry.launches()[k] - before.get(k, 0) == 1
+
+
+@pytest.mark.parametrize("k,c", [(3, 6), (1, 12), (2, 14)])
+def test_combine_kernel_matches_plain(gpu, srs, k, c):
+    """Kernel 3 against its plain version: projective bucket sums, a fifth
+    of them the identity, and the add's edge cases (doubling, P + (-P),
+    coordinates near p) in the first lanes of every MSM."""
+    bases = srs.device_bases(gpu, gate.forced("device")).bases
+    W, B, _ = dmsm.window_shape(c)
+    L = W * B
+    rng = np.random.default_rng(14)
+    i1, i2 = (torch.from_numpy(rng.integers(0, N, size=k * L)).to(gpu)
+              for _ in range(2))
+    acc = curve.pp_add(tuple(b[i1] for b in bases),
+                       tuple(b[i2] for b in bases))
+    acc = tuple(t.reshape(k, L, 4).clone() for t in acc)
+    ident = torch.from_numpy(rng.random((k, L)) < 0.2).to(gpu)
+    for a, o in zip(acc, curve.pp_identity(1, gpu)):
+        a[ident] = o[0]
+    Pe, Qe = curve.edge_case_pairs(gpu)
+    m = Pe[0].shape[0]
+    for a, p, q in zip(acc, Pe, Qe):
+        a[:, 1:1 + m] = p
+        a[:, B + 1:B + 1 + m] = q
+    before = telemetry.launches().get("bucket_combine", 0)
+    got = dmsm.bucket_combine(acc, c)
+    assert telemetry.launches()["bucket_combine"] - before == 1
+    assert L in telemetry.snapshot()["lanes"]["bucket_combine"]
+    assert got[0].shape == (k, W, 4)
+    assert _equal(got, dmsm.bucket_combine_plain(acc, c))
+
+
+def test_split_msm_matches_host_on_gpu(gpu, srs):
+    rng = np.random.default_rng(15)
+    packed = pack_scalars([int.from_bytes(rng.bytes(32), "little")
+                           % FR_MODULUS for _ in range(N)])
+    prep = srs.prepared_bases()
+    dev = srs.device_bases(gpu, gate.forced("split"))
+    want = prep.msm_packed(packed, N)
+    for n_dev in (N // 2, N // 8, N):
+        got = split.msm_packed_split(dev, prep, packed, N, n_dev, "test")
+        assert (got.infinity, got.x, got.y) == (want.infinity, want.x, want.y)
+    folds = [packed[:32 * 1000], packed[32 * 1000:32 * 1500], packed[:64]]
+    got = split.msm_batch_split_first(dev, prep, folds, [1000, 500, 2], 512,
+                                      "test")
+    assert got == prep.msm_batch_packed(folds)

@@ -21,7 +21,7 @@ from jolt_atlas_tpu.curve.native import pack_scalars
 from jolt_atlas_tpu.field.constants import FR_MODULUS
 from jolt_atlas_tpu.tpu import msm as tmsm
 from jolt_atlas_tpu_torch import convert
-from jolt_atlas_tpu_torch.device import msm as dmsm, telemetry
+from jolt_atlas_tpu_torch.device import curve, gate, msm as dmsm, telemetry
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -45,7 +45,8 @@ def port_srs(ref):
 def setup():
     ref = RefSRS.setup(N - 1)
     srs = port_srs(ref)
-    return ref, ref.prepared_bases(), srs.device_bases("cpu", c=C)
+    return ref, ref.prepared_bases(), srs.device_bases(
+        "cpu", gate.forced("device"), c=C)
 
 
 def _case(name):
@@ -114,7 +115,7 @@ def test_skewed_scalars_are_refused(setup):
     one bucket: refused by the host count before any device work."""
     ref, _, _ = setup
     equal = pack_scalars([FR_MODULUS - 3] * N)
-    adaptive = port_srs(ref).device_bases("cpu")
+    adaptive = port_srs(ref).device_bases("cpu", gate.forced("device"))
     with pytest.raises(dmsm._GridSkewError):
         adaptive.msm_batch_packed([equal], [N])
     # the callers' form: None (take the host engine), refusal counted
@@ -172,4 +173,146 @@ def test_window_and_budget_rules_match_reference():
         assert dmsm._pick_c(n) == tmsm._pick_c(n)
         for c in (4, 8, 12, 14, 16):
             assert dmsm.grid_rows_for(n, c) == tmsm.grid_rows_for(n, c)
-    assert dmsm._pow2_pad(17) == tmsm._pow2_pad(17) == 32
+    for c in (4, 6, 12, 14, 16):
+        W, B, S = dmsm.window_shape(c)
+        assert (W, B) == ((tmsm._NBITS + c - 1) // c, 1 << c)
+        assert S == B >> (tmsm._NBITS - (W - 1) * c)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: bucket combine (its plain version here; the kernel on the card in
+# tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+def _loop_combine(acc, c):
+    """The combine of the port's first slice, kept as a reference: fold
+    the top window's sub-lanes by halving adds, then sum_b b * S_b as
+    Gl * sum_h h * U_h + sum_l l * V_l (b = h * Gl + l) by loops of adds,
+    the order of tpu/msm.py:_combine_kernel."""
+    add = curve.pp_add_plain
+    k = acc[0].shape[0]
+    W, B, S = dmsm.window_shape(c)
+    base = (W - 1) * B
+    top = tuple(p[:, base:].reshape(k, B // S, S, 4) for p in acc)
+    s = S
+    while s > 1:
+        s //= 2
+        top = add(tuple(t[:, :, :s] for t in top),
+                  tuple(t[:, :, s:2 * s] for t in top))
+    ident = curve.pp_identity(k * (B - B // S), "cpu")
+    acc = tuple(torch.cat([p[:, :base], t.reshape(k, B // S, 4),
+                           i.reshape(k, B - B // S, 4)], dim=1)
+                for p, t, i in zip(acc, top, ident))
+
+    def reduce0(P):
+        out = tuple(p[0] for p in P)
+        for j in range(1, P[0].shape[0]):
+            out = add(out, tuple(p[j] for p in P))
+        return out
+
+    def weighted(P):
+        R, shape = P[0].shape[0], P[0].shape[1:]
+        zero = tuple(t.reshape(shape) for t in curve.pp_identity(
+            int(np.prod(shape[:-1])), "cpu"))
+        wsum, run = zero, zero
+        for j in range(R - 1):
+            run = add(run, tuple(p[R - 1 - j] for p in P))
+            wsum = add(wsum, run)
+        return wsum
+
+    ch = c // 2
+    Gh, Gl = 1 << (c - ch), 1 << ch
+    Sp = tuple(p.reshape(k, W, Gh, Gl, 4) for p in acc)
+    U = reduce0(tuple(p.movedim(3, 0) for p in Sp))
+    V = reduce0(tuple(p.movedim(2, 0) for p in Sp))
+    Wh = weighted(tuple(p.movedim(2, 0) for p in U))
+    Wl = weighted(tuple(p.movedim(2, 0) for p in V))
+    for _ in range(ch):
+        Wh = add(Wh, Wh)
+    return add(Wh, Wl)
+
+
+def _affine(P):
+    return curve.tensors_to_points(tuple(t.reshape(-1, 4) for t in P))
+
+
+def _bucket_sums(dev, k, c, seed):
+    """(k, L, 4) x 3 bucket sums: projective sums of two random bases, a
+    fifth of the lanes the identity, and in window 0 of every MSM the add's
+    edge cases within one thread's range (lanes 1 and 2): A + A, and in
+    window 1 A + (-A)."""
+    W, B, _ = dmsm.window_shape(c)
+    L = W * B
+    rng = np.random.default_rng(seed)
+    idx = [torch.from_numpy(rng.integers(0, N, size=k * L)) for _ in range(2)]
+    acc = curve.pp_add_plain(*(tuple(b[i] for b in dev.bases) for i in idx))
+    acc = tuple(t.reshape(k, L, 4).clone() for t in acc)
+    ident = torch.from_numpy(rng.random((k, L)) < 0.2)
+    one = curve.pp_identity(1, "cpu")
+    for a, o in zip(acc, one):
+        a[ident] = o[0]
+    Pe, Qe = curve.edge_case_pairs("cpu")  # Pe[0] = A, Qe[1] = -A
+    for a, p, q in zip(acc, Pe, Qe):
+        a[:, 1] = p[0]
+        a[:, 2] = p[0]
+        a[:, B + 1] = q[1]
+        a[:, B + 2] = p[0]
+    return acc
+
+
+def _oracle(acc, c):
+    """sum_b b * S_b per (MSM, window) in big-int point arithmetic, the top
+    window's sub-lanes summed into their bucket."""
+    from jolt_atlas_tpu_torch.curve.points import G1
+    k = acc[0].shape[0]
+    W, B, S = dmsm.window_shape(c)
+    pts = _affine(acc)
+    out = []
+    for m in range(k):
+        for w in range(W):
+            s = S if w == W - 1 else 1
+            total = G1.identity()
+            for j in range(s, B):
+                total = total + pts[(m * W + w) * B + j] * (j // s)
+            out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("k,c", [(1, 4), (3, 5), (17, 4)])
+def test_bucket_combine_plain_matches_oracle_and_loop(setup, k, c):
+    _, _, dev = setup
+    acc = _bucket_sums(dev, k, c, seed=k * 100 + c)
+    got = dmsm.bucket_combine_plain(acc, c)
+    W, _, _ = dmsm.window_shape(c)
+    assert got[0].shape == (k, W, 4)  # no padding of the batch
+    pts = _affine(got)
+    assert pts == _affine(_loop_combine(acc, c))
+    assert pts == _oracle(acc, c)
+
+
+def test_bucket_combine_wrapper_and_identity(setup):
+    """On CPU tensors the wrapper is the plain version, launches nothing,
+    and checks the shape; all-identity buckets give identity windows."""
+    W, B, _ = dmsm.window_shape(C)
+    ident = tuple(t.reshape(2, W * B, 4)
+                  for t in curve.pp_identity(2 * W * B, "cpu"))
+    telemetry.reset()
+    got = dmsm.bucket_combine(ident, C)
+    assert all(p.infinity for p in _affine(got))
+    assert telemetry.launches() == {}
+    with pytest.raises(ValueError):
+        dmsm.bucket_combine(tuple(t[:, :-1] for t in ident), C)
+
+
+def test_telemetry_keeps_launch_lanes():
+    """Each recorded launch keeps its lane count, per kernel, until reset."""
+    telemetry.reset()
+    for lanes in (90112, 311296, 90112):
+        telemetry.launch("bucket_combine", lanes)
+    telemetry.launch("pp_add", 1 << 17)
+    snap = telemetry.snapshot()
+    assert snap["launches"] == {"bucket_combine": 3, "pp_add": 1}
+    assert snap["lanes"] == {"bucket_combine": [90112, 311296],
+                             "pp_add": [1 << 17]}
+    telemetry.reset()
+    assert telemetry.snapshot()["lanes"] == {}

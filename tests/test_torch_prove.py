@@ -28,7 +28,7 @@ from jolt_atlas_tpu.prover import AtlasProver as RefProver
 from jolt_atlas_tpu.verifier import AtlasVerifier as RefVerifier
 from jolt_atlas_tpu_torch import convert, models, serde
 from jolt_atlas_tpu_torch.curve.points import g1_generator
-from jolt_atlas_tpu_torch.device import telemetry
+from jolt_atlas_tpu_torch.device import gate, telemetry
 from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
@@ -61,7 +61,8 @@ def _both(ref_model, inputs, msm_window):
     pp = _port_pp(ref_model, ref_pp)
     telemetry.reset()
     proof, io = AtlasProver(pp, device=torch.device("cpu"),
-                            msm_window=msm_window).prove(inputs)
+                            msm_window=msm_window,
+                            msm_gate=gate.forced("device")).prove(inputs)
     return ref_pp, ref_serde.serialize_proof(ref_proof), pp, proof, io
 
 
@@ -164,13 +165,15 @@ def test_port_prove_imports_no_jax():
         from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
         from jolt_atlas_tpu_torch.prover import AtlasProver
         from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+        from jolt_atlas_tpu_torch.device.gate import forced
         b = ModelBuilder()
         x = b.input([8])
         b.output(b.relu(b.add(x, b.constant(np.arange(8, dtype=np.int32)))))
         pp = AtlasPreprocessing.preprocess(b.build())
         xs = np.array([3, -4, 5, -6, 7, -8, 9, -10], dtype=np.int32)
         proof, io = AtlasProver(pp, device=torch.device("cpu"),
-                                msm_window=4).prove([xs])
+                                msm_window=4,
+                                msm_gate=forced("device")).prove([xs])
         assert AtlasVerifier(pp).verify(proof, io)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
