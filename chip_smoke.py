@@ -7,18 +7,23 @@ script exits non-zero when any phase fails:
 
   1. device   a CUDA device is present; its name and power limit
   2. build    the CUDA kernels (sm_90a, one nvcc per source, in parallel)
-              and the host C++ engines, from source
+              and the host C++ engines, from source; ptxas's registers,
+              spills and shared memory per kernel, and the SASS of one
+              fq_mul (device/kernel_report.py)
   3. pp_add   kernel 1 against its plain PyTorch version on the card: 2^16
               random pairs plus doubling, P + (-P), the identity on either
               side and coordinates near p; bit-equal, timed at the gate's
               2^17 lanes
-  4. bucket   kernel 2 against its plain version on a small grid with empty
-              (-1) slots and on the grids of a 2^16-point (c = 12) and a
-              2^17-point (c = 14) MSM; bit-equal. Both timed at 2^17
+  4. bucket   kernel 2 against its plain version on the digit lanes of
+              4096 scalars at c = 6 (runs of 1, 5, 16 and 64 entries) and
+              of a 2^16-point (c = 12), a 2^17-point and a 2^18 - 3 point
+              (c = 14) MSM; bit-equal, each of the latter timed (2^17
+              also at runs of 8 and 32 entries)
   5. combine  kernel 3 against its plain version on the real bucket sums
-              of phase 4 (one MSM at c = 12 and at c = 14) and at the fold
-              batch's shape (17 MSMs, c = 14) with identity buckets and
-              the add's edge cases; bit-equal, both timed at the latter
+              of phase 4 (k = 1 at c = 12 and 14), at the fold batch's two
+              launches (1 MSM at c = 14, 16 at c = 12) and at 17 MSMs at
+              c = 14, with identity buckets and the add's edge cases;
+              bit-equal, each timed
   6. msm      the device MSM against the host csrc MSM at n = 2^17: random
               254-bit scalars (adaptive window) and 16-bit scalars; affine
               points equal; the stage breakdown of one MSM
@@ -29,19 +34,28 @@ script exits non-zero when any phase fails:
               and split at device shares 2^15, 2^16, 2^17: all equal the
               host point; medians of 3, alternated
   9. prove    the bench nanoGPT (4 blocks, 4 heads, d64, seq 64, vocab 65,
-              random weights from seed 1234) proved on the gate's routes,
-              with a forced split and on the host; proof bytes equal; the
-              port's verifier accepts it and rejects a flipped commitment
+              random weights from seed 1234) proved by AtlasProver(pp)
+              with no device argument (the card, on the gate's routes),
+              with a forced split and on the host (device="cpu"); proof
+              bytes equal; the port's verifier accepts it and rejects a
+              flipped commitment
  10. trace    one more gate-path prove under torch.profiler (the device's
-              idle share, its busiest kernels), and one split MSM whose
-              host prefix must overlap its device kernels.
+              idle share, kernels 2 and 3's device ms and launches, the
+              busiest kernels), and one split MSM whose host prefix must
+              overlap its device kernels.
+
+Each timed kernel shape is printed beside its bound: the larger of the
+bytes it must move over the HBM rate and its 32-bit multiplies over the
+card's IMAD peak (``bound``).
 
 Each path (gate calibration, split, the two device proves) runs with the
 launch counts set to 0 just before it and read just after; the kernels
-JSON sums them. Every lane count a path launched a kernel at must be one
-that phases 3-5 held against the plain version, or the run fails. The
-second line from the end is that JSON, the last line {"ok": true,
-"device": {...}}. Imports nothing of JAX or jolt_atlas_tpu.
+JSON sums them, and gives the traced prove's own launches. Every shape a
+path launched a kernel at (its lane count; for kernel 3 also its blocks
+per window) must be one that phases 3-5 held against the plain version,
+or the run fails. The second line from the end is that JSON, the last
+line {"ok": true, "device": {...}}. Imports nothing of JAX or
+jolt_atlas_tpu.
 """
 
 from __future__ import annotations
@@ -98,11 +112,52 @@ def require_equal(what: str, got, want) -> float:
     return err
 
 
-def checked(results, kernel: str, lanes: int) -> None:
+def checked(results, kernel: str, lanes) -> None:
     """Note that ``kernel`` was held bit-equal to its plain version at a
-    launch over ``lanes`` lanes."""
+    launch of shape ``lanes`` (as its wrapper records it in telemetry)."""
     results.setdefault("checked_lanes", {}).setdefault(kernel, set()).add(
-        int(lanes))
+        lanes)
+
+
+# The least time the card could take (bound_ms): the larger of the bytes the
+# function must move (each input read once, each output written once) over
+# the HBM rate and its 32-bit integer multiplies over the IMAD peak. The
+# kernels are complete projective adds, 12 Montgomery products of 264
+# 32-bit multiplies each (csrc/fq.cuh); Hopper issues 64 IMADs per clock per
+# SM (CUDA C Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0), at the card's maximum SM clock (nvidia-smi).
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak (NVIDIA datasheet)
+IMADS_PER_ADD = 12 * 264
+POINT_BYTES = 3 * 32
+
+
+def imad_peak() -> float:
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 64 * sms * mhz * 1e6
+
+
+def bound(adds: int, nbytes: int, peak: float) -> tuple:
+    """(bound ms, "operations" or "bytes") of ``adds`` complete adds that
+    must move ``nbytes``."""
+    ops_ms = adds * IMADS_PER_ADD / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                               "bytes")
+
+
+def timed(results, kernel: str, shape: str, ms: float, adds: int,
+          nbytes: int) -> str:
+    """Record one timed shape of a kernel beside its bound; its line."""
+    b, by = bound(adds, nbytes, results["imad_peak"])
+    results.setdefault("timed", {}).setdefault(kernel, []).append({
+        "shape": shape, "ms": ms, "bound_ms": b, "bound_by": by,
+        "share": b / ms, "adds": adds})
+    return (f"{shape}: kernel {ms:.4f} ms, bound {b:.4f} ms ({by}), share "
+            f"{b / ms:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +175,14 @@ def phase_build() -> None:
     build.cuda_library()
     say("build", f"CUDA kernels and host engines built in "
         f"{time.time() - t0:.3f} s")
+    from jolt_atlas_tpu_torch.device import kernel_report
+    for name, r in sorted(kernel_report.parse_ptxas(
+            build.ptxas_report()).items()):
+        say("build", f"ptxas -v {name}: {r['registers']} registers, spill "
+            f"stores/loads {r['spill_stores']}/{r['spill_loads']} bytes, "
+            f"{r['smem']} bytes smem")
+    say("build", "one fq_mul in SASS (cuobjdump): " + json.dumps(
+        kernel_report.fq_mul_sass(build.CUDA_SRC)))
 
 
 def phase_pp_add(dev, bases, results) -> None:
@@ -152,82 +215,107 @@ def phase_pp_add(dev, bases, results) -> None:
     err = max(err, require_equal(f"pp_add ({m} lanes)", got, want))
     for lanes in (n, Pe[0].shape[0], m):
         checked(results, "pp_add", lanes)
+    line = timed(results, "pp_add", f"{m} lanes", ms, m, m * 3 * POINT_BYTES)
     results["pp_add"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "shape": m}
+                         **results["timed"]["pp_add"][-1]}
     say("pp_add", f"bit-equal to the plain version on {n} random pairs, "
         f"their projective sums and doublings, {Pe[0].shape[0]} edge "
-        f"cases and the {m} timed lanes; {m} lanes: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms")
+        f"cases and the {m} timed lanes; {line}; plain {plain_ms:.3f} ms")
+
+
+def accumulate_work(lanes, n: int) -> tuple:
+    """(complete adds, bytes) kernel 2 needs for these digit lanes of an
+    n-point MSM: a lane of d entries takes d - 1 adds; the entries and lane
+    starts are read once, each base once, each bucket written once."""
+    lane, _, starts = lanes
+    L = starts.shape[0] - 1
+    E = int(starts[L])
+    nonempty = int((starts[1:] > starts[:-1]).sum())
+    nbytes = 8 * lane.shape[0] + 4 * (L + 1) + (n + L) * POINT_BYTES
+    return E - nonempty, nbytes
 
 
 def phase_bucket(dev, bases, results,
-                 sizes=(1 << 16, 1 << 17)) -> dict:
-    """Kernel 2 against its plain version on a small grid with empty slots,
-    then on the grid of one MSM of each size in ``sizes`` at the window the
-    device MSM picks for it (c = 12 and 14: every window the driven paths
-    use), timed at the last. Returns {c: the kernel's bucket sums}."""
+                 sizes=(1 << 16, 1 << 17, (1 << 18) - 3)) -> dict:
+    """Kernel 2 against its plain version on the digit lanes of 4096
+    scalars at c = 6 with several run lengths, then on those of one MSM of
+    each size in ``sizes`` at the window the device MSM picks for it (c =
+    12 and 14: every window the driven paths use), each timed beside its
+    bound, and at 2^17 points also timed at runs of 8 and 32. Returns
+    {c: the kernel's bucket sums} of the first MSM at each window."""
     from jolt_atlas_tpu_torch.device import msm as dmsm
     from jolt_atlas_tpu_torch.device.gate import random_scalars
-    # small grid: 4096 random 254-bit scalars, window 6 (-1 padded rows)
     n, c = 4096, 6
     raw = random_scalars(n, 77)
-    small_rows = dmsm.rows_for(raw, n, c)
-    grid = dmsm.digit_grid(dmsm.scalars_tensor(raw, n, dev), c, small_rows)
-    if not bool((grid < 0).any()):
-        raise AssertionError("bucket check grid has no empty slots")
-    err = require_equal("bucket_accumulate",
-                        dmsm.bucket_accumulate(bases, grid),
-                        dmsm.bucket_accumulate_plain(bases, grid))
-    checked(results, "bucket_accumulate", grid.shape[1])
+    lanes = dmsm.digit_lanes(dmsm.scalars_tensor(raw, n, dev), c)
+    err = 0.0
+    main = 1 << 17 if 1 << 17 in sizes else sizes[-1]  # the kernels JSON's
+    for run in (1, 5, dmsm.ACCUM_RUN, 64):
+        err = max(err, require_equal(
+            f"bucket_accumulate (c=6, run={run})",
+            dmsm.bucket_accumulate(bases, lanes, run=run),
+            dmsm.bucket_accumulate_plain(bases, lanes, run)))
+    checked(results, "bucket_accumulate", lanes[2].shape[0] - 1)
     sums, shapes = {}, []
     for i, n in enumerate(sizes):
         c = dmsm._pick_c(n)
         raw = random_scalars(n, 78 + i)
-        grid = dmsm.digit_grid(dmsm.scalars_tensor(raw, n, dev), c,
-                               dmsm.rows_for(raw, n, c))
-        ms, got = cuda_ms(lambda: dmsm.bucket_accumulate(bases, grid), 5)
+        lanes = dmsm.digit_lanes(dmsm.scalars_tensor(raw, n, dev), c)
+        dmsm.rows_for(raw, n, c)  # the reference's skew gate passes
+        ms, got = cuda_ms(lambda: dmsm.bucket_accumulate(bases, lanes), 5)
         plain_ms, want = cuda_ms(
-            lambda: dmsm.bucket_accumulate_plain(bases, grid), 1,
+            lambda: dmsm.bucket_accumulate_plain(bases, lanes), 1,
             warmup=False)
-        err = max(err, require_equal(f"bucket_accumulate (n={n}, c={c}, "
-                                     f"grid {tuple(grid.shape)})", got, want))
-        checked(results, "bucket_accumulate", grid.shape[1])
-        sums[c] = got
-        shapes.append(f"{n} scalars at c={c}, grid {tuple(grid.shape)}: "
-                      f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-    results["bucket_accumulate"] = {"max_abs_err": err, "ms": ms,
-                                    "plain_ms": plain_ms,
-                                    "shape": list(grid.shape)}
-    say("bucket", f"bit-equal to the plain version on a {small_rows}-row "
-        f"grid (4096 scalars, c=6) and on " + "; ".join(shapes))
+        L = lanes[2].shape[0] - 1
+        err = max(err, require_equal(
+            f"bucket_accumulate (n={n}, c={c}, {L} lanes)", got, want))
+        checked(results, "bucket_accumulate", L)
+        sums.setdefault(c, got)
+        adds, nbytes = accumulate_work(lanes, n)
+        shapes.append(timed(results, "bucket_accumulate",
+                            f"n={n} c={c}", ms, adds, nbytes)
+                      + f", plain {plain_ms:.1f} ms")
+        if n == main:
+            results["bucket_accumulate"] = {
+                "ms": ms, "plain_ms": plain_ms,
+                **results["timed"]["bucket_accumulate"][-1]}
+            for run in (8, 32):  # the run length against its neighbours
+                rms, got = cuda_ms(lambda: dmsm.bucket_accumulate(
+                    bases, lanes, run=run), 5)
+                err = max(err, require_equal(
+                    f"bucket_accumulate (n={n}, run={run})", got,
+                    dmsm.bucket_accumulate_plain(bases, lanes, run)))
+                shapes.append(f"run {run}: kernel {rms:.4f} ms")
+    results["bucket_accumulate"]["max_abs_err"] = err
+    say("bucket", f"bit-equal to the plain version on 4096 scalars at c=6 "
+        f"(runs of 1, 5, {dmsm.ACCUM_RUN} and 64 entries) and at every "
+        f"timed shape, runs of {dmsm.ACCUM_RUN}; " + "; ".join(shapes))
     return sums
 
 
-def phase_combine(dev, bases, results, sums: dict, k: int = 17,
-                  c: int = 14) -> None:
-    """Kernel 3 against its plain version on one MSM's real bucket sums at
-    each window of ``sums`` (phase_bucket's), then, timed, at the largest
-    shape the prove gives it: the fold batch of 17 MSMs at c = 14."""
+def combine_work(k: int, c: int) -> tuple:
+    """(complete adds, bytes) kernel 3 needs for k MSMs at window c: a
+    running add per lane of weight >= 1 and a weighted add per weight; the
+    bucket sums read once, the window sums written once."""
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    W, B, S = dmsm.window_shape(c)
+    adds = k * (2 * (W - 1) * (B - 1) + (B - S) + (B // S - 1))
+    return adds, k * W * (B + 1) * POINT_BYTES
+
+
+def random_bucket_sums(dev, bases, k: int, c: int, seed: int):
+    """(k, W * 2^c, 4) x 3 projective bucket sums: sums of two random bases,
+    a fifth of them the identity (as digit 0 and the top window's spare
+    lanes leave them), and the add's edge cases in windows 0 and 1."""
     from jolt_atlas_tpu_torch.device import curve, msm as dmsm
-    err, real = 0.0, []
-    for cc, acc1 in sorted(sums.items()):
-        acc1 = tuple(a.unsqueeze(0) for a in acc1)
-        ms1, got = cuda_ms(lambda: dmsm.bucket_combine(acc1, cc), 5)
-        plain1, want = cuda_ms(lambda: dmsm.bucket_combine_plain(acc1, cc),
-                               1, warmup=False)
-        err = max(err, require_equal(
-            f"bucket_combine (k=1, c={cc}, real bucket sums)", got, want))
-        checked(results, "bucket_combine", acc1[0].shape[1])
-        real.append(f"c={cc} (kernel {ms1:.3f} ms, plain {plain1:.1f} ms)")
     W, B, _ = dmsm.window_shape(c)
     L = W * B
-    gen = torch.Generator(device="cpu").manual_seed(2025)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     i1, i2 = (torch.randint(0, bases[0].shape[0], (k * L,), generator=gen)
               .to(dev) for _ in range(2))
     acc = curve.pp_add(tuple(b[i1] for b in bases),
                        tuple(b[i2] for b in bases))
     acc = tuple(t.reshape(k, L, 4).clone() for t in acc)
-    # empty buckets, as digit 0 and the top window's spare lanes leave them
     ident = (torch.rand((k, L), generator=gen) < 0.2).to(dev)
     for a, o in zip(acc, curve.pp_identity(1, dev)):
         a[ident] = o[0]
@@ -236,19 +324,52 @@ def phase_combine(dev, bases, results, sums: dict, k: int = 17,
     for a, p, q in zip(acc, Pe, Qe):
         a[:, 1:1 + m] = p
         a[:, B + 1:B + 1 + m] = q
-    ms, got = cuda_ms(lambda: dmsm.bucket_combine(acc, c), 5)
-    plain_ms, want = cuda_ms(lambda: dmsm.bucket_combine_plain(acc, c), 1,
-                             warmup=False)
-    err = max(err, require_equal(f"bucket_combine (k={k}, c={c})", got,
-                                 want))
-    checked(results, "bucket_combine", L)
-    results["bucket_combine"] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms, "shape": [k, L]}
-    say("combine", f"bit-equal to the plain version on one MSM's real "
-        f"bucket sums at {', '.join(real)}, and on {k} MSMs x {L} buckets "
-        f"(c={c}, {dmsm.combine_threads(c)} threads per window) with "
-        f"identity buckets and {m} edge cases: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms")
+    return acc
+
+
+def phase_combine(dev, bases, results, sums: dict,
+                  shapes=((1, 14), (16, 12), (17, 14))) -> None:
+    """Kernel 3 against its plain version, each timed beside its bound, at
+    the blocks per window the card's rule gives: one MSM's real bucket sums
+    at each window of ``sums`` (phase_bucket's: k = 1 at c = 12 and 14),
+    and random sums with identity buckets and the add's edge cases at each
+    (k, c) of ``shapes``: the fold batch's two launches (one MSM at c = 14,
+    16 at c = 12) and 17 MSMs at c = 14, the fold batch at one window."""
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err, lines, fold_ms, fold_plain, fold_adds, fold_bytes = (
+        0.0, [], 0.0, 0.0, 0, 0)
+    cases = [(f"k=1 c={cc} real sums", tuple(a.unsqueeze(0) for a in acc),
+              cc) for cc, acc in sorted(sums.items())]
+    cases += [(f"k={k} c={c}", random_bucket_sums(dev, bases, k, c, 2025 + k),
+               c) for k, c in shapes]
+    for name, acc, c in cases:
+        k = acc[0].shape[0]
+        G = dmsm.combine_groups(k, c, sms)
+        ms, got = cuda_ms(lambda: dmsm.bucket_combine(acc, c, G), 5)
+        plain_ms, want = cuda_ms(
+            lambda: dmsm.bucket_combine_plain(acc, c, G), 1, warmup=False)
+        err = max(err, require_equal(f"bucket_combine ({name}, G={G})", got,
+                                     want))
+        checked(results, "bucket_combine", (acc[0].shape[1], G))
+        adds, nbytes = combine_work(k, c)
+        lines.append(timed(results, "bucket_combine", f"{name} G={G}", ms,
+                           adds, nbytes) + f", plain {plain_ms:.1f} ms")
+        if name in ("k=1 c=14", "k=16 c=12"):  # the fold batch's launches
+            fold_ms += ms
+            fold_plain += plain_ms
+            fold_adds += adds
+            fold_bytes += nbytes
+        del acc
+    b, by = bound(fold_adds, fold_bytes, results["imad_peak"])
+    results["bucket_combine"] = {
+        "max_abs_err": err, "ms": fold_ms, "plain_ms": fold_plain,
+        "shape": "fold batch: k=1 c=14 + k=16 c=12", "bound_ms": b,
+        "bound_by": by, "share": b / fold_ms}
+    say("combine", f"bit-equal to the plain version at every shape "
+        f"({dmsm.COMBINE_MAX_THREADS} threads a block); " + "; ".join(lines)
+        + f"; fold batch in all: kernel {fold_ms:.4f} ms, bound {b:.4f} ms "
+        f"({by}), share {b / fold_ms:.3f}")
 
 
 def _msm_stages(engine, raw: bytes, n: int) -> dict:
@@ -268,20 +389,20 @@ def _msm_stages(engine, raw: bytes, n: int) -> dict:
         out[name] = (now - t) * 1e3
         t = now
 
-    rows = dmsm.rows_for(raw, n, c)
+    dmsm.rows_for(raw, n, c)
     lap("host_count")
     sc = dmsm.scalars_tensor(raw, n, engine.device)
     lap("upload")
-    grid = dmsm.digit_grid(sc, c, rows)
-    lap("digit_grid")
-    acc = dmsm.bucket_accumulate(engine.bases, grid)
+    lanes = dmsm.digit_lanes(sc, c)
+    lap("digit_lanes")
+    acc = dmsm.bucket_accumulate(engine.bases, lanes)
     lap("bucket_accumulate")
     before = telemetry.launches()
     R = dmsm.bucket_combine(tuple(a.unsqueeze(0) for a in acc), c)
     lap("bucket_combine")
     after = telemetry.launches()
     out["combine_launches"] = sum(after.values()) - sum(before.values())
-    engine.finish((R, 1, c))
+    engine.finish(([(R, [0], c)], 1))
     lap("host_horner")
     return out
 
@@ -470,8 +591,13 @@ def trace_prove(prove) -> dict:
             busy += b - max(a, end)
             end = b
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+    kernels = {}
+    for kernel in ("bucket_accumulate", "bucket_combine"):
+        hit = [v for name, v in per.items() if kernel in name]
+        kernels[kernel] = {"ms": sum(ms for ms, _ in hit),
+                           "n": sum(k for _, k in hit)}
     return {"wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
-            "idle_share": 1 - busy / wall_us,
+            "idle_share": 1 - busy / wall_us, "msm_kernels": kernels,
             "busiest": {name[:72]: {"ms": ms, "n": k}
                         for name, (ms, k) in top}}
 
@@ -536,13 +662,12 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> None:
     pp.srs.device_bases(dev)
     torch.cuda.synchronize()
 
-    def prove(device, msm_gate):
+    def prove(**how):
         profiling.enable()
         profiling._EVENTS.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        proof, io = AtlasProver(pp, device=device,
-                                msm_gate=msm_gate).prove([toks])
+        proof, io = AtlasProver(pp, **how).prove([toks])
         torch.cuda.synchronize()
         wall = time.time() - t0
         phases = {name: round(w, 6) for name, w, _ in profiling._EVENTS
@@ -550,16 +675,19 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> None:
         return (proof, io, wall, phases,
                 torch.cuda.max_memory_allocated() / 2**20)
 
-    paths = [("gate", dev, None), ("split", dev, gate.forced("split")),
-             ("host", None, None)]
-    for _, device, g in paths[:2]:
-        prove(device, g)  # warm-up: first launches at each path's shapes
+    # the gate path is the prover's default: the card and its measured gate
+    paths = [("gate", {}), ("split", {"device": dev,
+                                      "msm_gate": gate.forced("split")}),
+             ("host", {"device": "cpu"})]
+    for _, how in paths[:2]:
+        prove(**how)  # warm-up: first launches at each path's shapes
     out, blobs = {}, {}
-    for name, device, g in paths:
-        need = ("bucket_accumulate", "bucket_combine") if device else ()
+    for name, how in paths:
+        need = ("bucket_accumulate", "bucket_combine") if name != "host" \
+            else ()
         (proof, io, wall, phases, peak), tele = counted(
-            results, need, lambda: prove(device, g))
-        if device is not None:
+            results, need, lambda: prove(**how))
+        if name != "host":
             d = tele["dispatches"]
             for site in ("msm:hyperkzg_fold", "msm:hyperkzg_witness"):
                 if not d.get(site):
@@ -589,7 +717,10 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> None:
         "setup_s": setup_s, "verify_s": verify_s, "proof_bytes": len(blob),
         "bytes_equal_all_paths": True, "tamper_rejected": True,
         "paths": out}))
-    trace = trace_prove(lambda: AtlasProver(pp, device=dev).prove([toks]))
+    trace, tele = counted(
+        results, ("bucket_accumulate", "bucket_combine"),
+        lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
+    results["launches_per_prove"] = tele["launches"]
     overlap = trace_split(dev, srs)
     say("trace", "gate-path prove under torch.profiler: "
         + json.dumps(trace) + "; split MSM, host prefix against the device "
@@ -618,7 +749,7 @@ def main() -> int:
     say("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
-    results: dict = {}
+    results: dict = {"imad_peak": imad_peak()}
     from jolt_atlas_tpu_torch.preprocessing import cached_srs
     srs = cached_srs(18)  # the bench prove's SRS size
     bases = srs.device_bases(dev, gate.forced("device")).bases
@@ -637,8 +768,12 @@ def main() -> int:
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches.get(name, 0),
+                        "launches_per_prove": results[
+                            "launches_per_prove"].get(name, 0),
                         "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": None, "shape": r["shape"]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

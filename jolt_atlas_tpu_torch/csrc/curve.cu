@@ -3,11 +3,13 @@
 // Replaces the Pallas kernel jolt_atlas_tpu/tpu/pallas_curve.py:_add_kernel
 // (pallas_call over (16, 8, 128) blocks of 16-bit limb planes). On Hopper a
 // lane of the TPU block becomes one thread holding its two points in
-// registers as 4 x u64 Montgomery limbs; there is no 1024-lane granule and
-// no padding. Bound by integer multiply throughput: 12 Montgomery products
-// of 4 x 4 64-bit words each, against 9 x 32 bytes of memory traffic per
-// add, so the design keeps the whole add in registers and reads and
-// writes each coordinate once with 16-byte loads and stores.
+// registers as 8 x u32 Montgomery limbs (csrc/fq.cuh); there is no
+// 1024-lane granule and no padding. Bound by integer multiply throughput:
+// 12 Montgomery products of 264 32-bit multiplies each, against 9 x 32
+// bytes of memory traffic per add, so the design keeps the whole add in
+// registers and reads and writes each coordinate once with 16-byte loads
+// and stores. Tensor cores and TMA do not serve this work (256-bit modular
+// multiplies, one pass over the data).
 #include <cuda_runtime.h>
 
 #include "fq.cuh"
@@ -24,17 +26,9 @@ __global__ void pp_add_kernel(const u64* __restrict__ x1,
                               u64* __restrict__ z3, int64_t n) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Point P, Q;
-  P.x = load_fq(x1, i);
-  P.y = load_fq(y1, i);
-  P.z = load_fq(z1, i);
-  Q.x = load_fq(x2, i);
-  Q.y = load_fq(y2, i);
-  Q.z = load_fq(z2, i);
-  const Point R = pp_add_dev(P, Q);
-  store_fq(x3, i, R.x);
-  store_fq(y3, i, R.y);
-  store_fq(z3, i, R.z);
+  const Point R = pp_add_dev(load_point(x1, y1, z1, i),
+                             load_point(x2, y2, z2, i));
+  store_point(x3, y3, z3, i, R);
 }
 
 }  // namespace jolt

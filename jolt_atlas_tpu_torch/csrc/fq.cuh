@@ -1,14 +1,21 @@
 // BN254 base field (Fq) Montgomery arithmetic and the complete projective
-// point add, as device functions shared by curve.cu and msm.cu.
+// point add, as device functions shared by curve.cu, msm.cu and combine.cu.
 //
 // Replaces the register-resident body of the Pallas kernel
 // jolt_atlas_tpu/tpu/pallas_curve.py (_mont_mul, _cond_sub_p, _fadd, _fsub,
 // _pp_add_body). The TPU version worked on 16 planes of 16-bit limbs in
-// 32-bit vector lanes because its VPU has no wide multiply; here one thread
-// holds a field element as 4 x u64 Montgomery limbs (R = 2^256, the host
-// layout) and multiplies with mul.lo/__umul64hi, so a Montgomery product is
-// a 4-step CIOS instead of a 16-step one. Every result is canonical (< p),
-// so the outputs are the same numbers the Pallas kernel produces.
+// 32-bit vector lanes because its VPU has no wide multiply. Hopper has no
+// 64-bit integer multiplier either, but its 32-bit IMAD takes and gives a
+// carry flag: here one thread holds a field element as 8 x u32 Montgomery
+// limbs (R = 2^256, the same bytes as the host's 4 x u64 layout) and
+// multiplies by 32-bit CIOS, each row of partial products one PTX carry
+// chain (mad.lo.cc / madc.hi.cc / addc), with add, sub and the conditional
+// subtract as add.cc / sub.cc chains. A Montgomery product is 8 rows of
+// a * b_i and 8 of m * p: 264 32-bit multiplies. Every result is canonical
+// (< p), so the outputs are the same numbers the Pallas kernel produces.
+//
+// Tensor cores and TMA do not serve this work: it is 256-bit modular
+// multiplies (IMAD throughput) and random gathers of bases.
 #pragma once
 
 #include <cstdint>
@@ -16,128 +23,167 @@
 namespace jolt {
 
 typedef unsigned long long u64;
+typedef uint32_t u32;
 
-__device__ __forceinline__ u64 fq_p(int i) {
-  return i == 0 ? 0x3c208c16d87cfd47ULL
-       : i == 1 ? 0x97816a916871ca8dULL
-       : i == 2 ? 0xb85045b68181585dULL
-                : 0x30644e72e131a029ULL;
+// p, little-endian 32-bit limbs
+__device__ __forceinline__ u32 fq_p(int i) {
+  constexpr u32 P[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
+                        0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+  return P[i];
 }
-// -p^-1 mod 2^64
-constexpr u64 FQ_N0 = 0x87d20782e4866389ULL;
+// -p^-1 mod 2^32
+constexpr u32 FQ_N0 = 0xe4866389u;
 // R mod p (Montgomery one)
-__device__ __forceinline__ u64 fq_one(int i) {
-  return i == 0 ? 0xd35d438dc58f0d9dULL
-       : i == 1 ? 0x0a78eb28f5c70b3dULL
-       : i == 2 ? 0x666ea36f7879462cULL
-                : 0x0e0a77c19a07df2fULL;
+__device__ __forceinline__ u32 fq_one(int i) {
+  constexpr u32 ONE[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du,
+                          0x0a78eb28u, 0x7879462cu, 0x666ea36fu,
+                          0x9a07df2fu, 0x0e0a77c1u};
+  return ONE[i];
 }
 
 struct Fq {
-  u64 v[4];
+  u32 v[8];
 };
 
 struct Point {  // homogeneous projective (X : Y : Z), identity (0 : 1 : 0)
   Fq x, y, z;
 };
 
-// low 64 bits of t + a*b + carry; carry <- high 64 bits (never overflows:
-// (2^64-1)^2 + 2(2^64-1) = 2^128 - 1)
-__device__ __forceinline__ u64 mac(u64 t, u64 a, u64 b, u64& carry) {
-  u64 lo = a * b;
-  u64 hi = __umul64hi(a, b);
-  lo += t;
-  hi += (lo < t);
-  lo += carry;
-  hi += (lo < carry);
-  carry = hi;
-  return lo;
-}
-
-// a + b + carry, carry in/out in {0, 1}
-__device__ __forceinline__ u64 adc(u64 a, u64 b, u64& carry) {
-  u64 s = a + b;
-  u64 c1 = s < a;
-  u64 s2 = s + carry;
-  u64 c2 = s2 < s;
-  carry = c1 | c2;
-  return s2;
-}
-
-// a - b - borrow, borrow in/out in {0, 1}
-__device__ __forceinline__ u64 sbb(u64 a, u64 b, u64& borrow) {
-  u64 d = a - b;
-  u64 b1 = a < b;
-  u64 d2 = d - borrow;
-  u64 b2 = d < borrow;
-  borrow = b1 | b2;
-  return d2;
+// t[0..9] += a[0..7] * b: the low halves of the partial products in one
+// carry chain, the high halves (one limb up) in a second; t[9] takes both
+// final carries.
+__device__ __forceinline__ void mad_row(u32 t[10], const u32 a[8], u32 b) {
+  asm("mad.lo.cc.u32  %0, %10, %18, %0;\n\t"
+      "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+      "addc.cc.u32    %8, %8, 0;\n\t"
+      "addc.u32       %9, %9, 0;\n\t"
+      "mad.hi.cc.u32  %1, %10, %18, %1;\n\t"
+      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+      "addc.u32       %9, %9, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b));
 }
 
 // r + top * 2^256 lies in [0, 2p): subtract p once if it is >= p
-__device__ __forceinline__ void fq_cond_sub(Fq& r, u64 top) {
-  Fq d;
-  u64 borrow = 0;
+__device__ __forceinline__ void fq_cond_sub(Fq& r, u32 top) {
+  u32 d[8], hi;
+  asm("sub.cc.u32  %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, %25, 0;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+        "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(hi)
+      : "r"(r.v[0]), "r"(r.v[1]), "r"(r.v[2]), "r"(r.v[3]), "r"(r.v[4]),
+        "r"(r.v[5]), "r"(r.v[6]), "r"(r.v[7]), "r"(fq_p(0)), "r"(fq_p(1)),
+        "r"(fq_p(2)), "r"(fq_p(3)), "r"(fq_p(4)), "r"(fq_p(5)),
+        "r"(fq_p(6)), "r"(fq_p(7)), "r"(top));
+  // hi = top - borrow: all ones exactly when r + top * 2^256 < p
+  const bool take = hi != 0xffffffffu;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) d.v[j] = sbb(r.v[j], fq_p(j), borrow);
-  const bool take = top != 0 || borrow == 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) r.v[j] = take ? d.v[j] : r.v[j];
+  for (int j = 0; j < 8; ++j) r.v[j] = take ? d[j] : r.v[j];
 }
 
-// Montgomery product a*b/R mod p, CIOS over 64-bit words; a, b < p
+// Montgomery product a*b/R mod p, CIOS over 32-bit words; a, b < p. The
+// running sum stays below 2p after each of the 8 steps, so t[8] <= 1 and
+// t[9] = 0 after each shift.
 __device__ __forceinline__ Fq fq_mul(const Fq& a, const Fq& b) {
-  u64 t[6] = {0, 0, 0, 0, 0, 0};
+  u32 t[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  u32 p[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    u64 c = 0;
+  for (int j = 0; j < 8; ++j) p[j] = fq_p(j);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) t[j] = mac(t[j], a.v[i], b.v[j], c);
-    u64 c2 = 0;
-    t[4] = adc(t[4], c, c2);
-    t[5] = c2;
-    const u64 m = t[0] * FQ_N0;
-    c = 0;
-    (void)mac(t[0], m, fq_p(0), c);  // low word is zero by choice of m
+  for (int i = 0; i < 8; ++i) {
+    mad_row(t, a.v, b.v[i]);
+    const u32 m = t[0] * FQ_N0;
+    mad_row(t, p, m);  // t[0] becomes 0: shift down one word
 #pragma unroll
-    for (int j = 1; j < 4; ++j) t[j - 1] = mac(t[j], m, fq_p(j), c);
-    c2 = 0;
-    t[3] = adc(t[4], c, c2);
-    t[4] = t[5] + c2;
+    for (int j = 0; j < 9; ++j) t[j] = t[j + 1];
+    t[9] = 0;
   }
   Fq r;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) r.v[j] = t[j];
-  fq_cond_sub(r, t[4]);
+  for (int j = 0; j < 8; ++j) r.v[j] = t[j];
+  fq_cond_sub(r, t[8]);
   return r;
 }
 
+// a + b < 2p < 2^255: no carry out of the top limb
 __device__ __forceinline__ Fq fq_add(const Fq& a, const Fq& b) {
-  Fq r;
-  u64 c = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) r.v[j] = adc(a.v[j], b.v[j], c);
-  fq_cond_sub(r, c);
+  Fq r = a;
+  asm("add.cc.u32  %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32    %7, %7, %15;"
+      : "+r"(r.v[0]), "+r"(r.v[1]), "+r"(r.v[2]), "+r"(r.v[3]),
+        "+r"(r.v[4]), "+r"(r.v[5]), "+r"(r.v[6]), "+r"(r.v[7])
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]),
+        "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+  fq_cond_sub(r, 0);
   return r;
 }
 
+// a - b, plus p where it borrows (branch-free: p & the borrow mask)
 __device__ __forceinline__ Fq fq_sub(const Fq& a, const Fq& b) {
-  Fq r;
-  u64 borrow = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) r.v[j] = sbb(a.v[j], b.v[j], borrow);
-  if (borrow) {  // a < b: add p back; the carry out cancels the borrow
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) r.v[j] = adc(r.v[j], fq_p(j), c);
-  }
+  Fq r = a;
+  u32 mask;
+  const u32 zero = 0;
+  asm("sub.cc.u32  %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32    %8, %17, %17;"
+      : "+r"(r.v[0]), "+r"(r.v[1]), "+r"(r.v[2]), "+r"(r.v[3]),
+        "+r"(r.v[4]), "+r"(r.v[5]), "+r"(r.v[6]), "+r"(r.v[7]), "=r"(mask)
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]),
+        "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]), "r"(zero));
+  // the carry out cancels the borrow
+  asm("add.cc.u32  %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32    %7, %7, %15;"
+      : "+r"(r.v[0]), "+r"(r.v[1]), "+r"(r.v[2]), "+r"(r.v[3]),
+        "+r"(r.v[4]), "+r"(r.v[5]), "+r"(r.v[6]), "+r"(r.v[7])
+      : "r"(fq_p(0) & mask), "r"(fq_p(1) & mask), "r"(fq_p(2) & mask),
+        "r"(fq_p(3) & mask), "r"(fq_p(4) & mask), "r"(fq_p(5) & mask),
+        "r"(fq_p(6) & mask), "r"(fq_p(7) & mask));
   return r;
 }
 
 __device__ __forceinline__ Point pp_identity() {
   Point r;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < 8; ++j) {
     r.x.v[j] = 0;
     r.y.v[j] = fq_one(j);
     r.z.v[j] = 0;
@@ -202,21 +248,43 @@ __device__ __forceinline__ Point pp_add_dev(const Point& P1,
   return r;
 }
 
+// (N, 4) u64 limbs in memory are the same bytes as (N, 8) u32: two 16-byte
+// loads or stores an element
 __device__ __forceinline__ Fq load_fq(const u64* base, int64_t i) {
-  const ulonglong2* p = reinterpret_cast<const ulonglong2*>(base + 4 * i);
-  const ulonglong2 lo = p[0], hi = p[1];
+  const uint4* p = reinterpret_cast<const uint4*>(base + 4 * i);
+  const uint4 lo = p[0], hi = p[1];
   Fq r;
   r.v[0] = lo.x;
   r.v[1] = lo.y;
-  r.v[2] = hi.x;
-  r.v[3] = hi.y;
+  r.v[2] = lo.z;
+  r.v[3] = lo.w;
+  r.v[4] = hi.x;
+  r.v[5] = hi.y;
+  r.v[6] = hi.z;
+  r.v[7] = hi.w;
   return r;
 }
 
 __device__ __forceinline__ void store_fq(u64* base, int64_t i, const Fq& a) {
-  ulonglong2* p = reinterpret_cast<ulonglong2*>(base + 4 * i);
-  p[0] = make_ulonglong2(a.v[0], a.v[1]);
-  p[1] = make_ulonglong2(a.v[2], a.v[3]);
+  uint4* p = reinterpret_cast<uint4*>(base + 4 * i);
+  p[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  p[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
+}
+
+__device__ __forceinline__ Point load_point(const u64* x, const u64* y,
+                                            const u64* z, int64_t i) {
+  Point p;
+  p.x = load_fq(x, i);
+  p.y = load_fq(y, i);
+  p.z = load_fq(z, i);
+  return p;
+}
+
+__device__ __forceinline__ void store_point(u64* x, u64* y, u64* z,
+                                            int64_t i, const Point& p) {
+  store_fq(x, i, p.x);
+  store_fq(y, i, p.y);
+  store_fq(z, i, p.z);
 }
 
 }  // namespace jolt

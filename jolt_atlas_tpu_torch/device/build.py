@@ -7,6 +7,9 @@ Two kinds of shared library, both loaded with ctypes:
 - the port's CUDA kernels, ``jolt_atlas_tpu_torch/csrc/*.cu``, compiled
   with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
   started together, and linked into one library with a plain C interface.
+  ptxas reports each kernel's registers, spills and shared memory
+  (``-Xptxas -v``); the report is kept beside the library
+  (``ptxas_report``).
 
 Everything lands in ``jolt_atlas_tpu_torch/_build/`` (git-ignored), never in
 ``csrc/``. Each output is named by a hash of its sources, its compiler
@@ -37,6 +40,7 @@ HOST_SRC = os.path.join(_REPO, "csrc")
 HOST_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
 CUDA_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+PTXAS_FLAGS = ["-Xptxas", "-v"]
 
 
 def _cpu_tag() -> str:
@@ -122,11 +126,13 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _nvcc_objects(nvcc: str, srcs: list[str], tmp: str) -> list[str]:
+def _nvcc_objects(nvcc: str, srcs: list[str], tmp: str,
+                  log_path: str) -> list[str]:
     """Compile each source to an object next to `tmp`, one nvcc process per
-    source, all started together; the link command for them."""
+    source, all started together, writing their ptxas reports to
+    `log_path`; the link command for them."""
     objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
-    compile_flags = [f for f in CUDA_FLAGS if f != "-shared"]
+    compile_flags = [f for f in CUDA_FLAGS if f != "-shared"] + PTXAS_FLAGS
     procs = [subprocess.Popen([nvcc, *compile_flags, "-I", CUDA_SRC, "-c",
                                src, "-o", obj], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -139,6 +145,8 @@ def _nvcc_objects(nvcc: str, srcs: list[str], tmp: str) -> list[str]:
             if os.path.exists(obj):
                 os.unlink(obj)
         raise RuntimeError("building jolt_cuda failed:\n" + "\n".join(failed))
+    with open(log_path, "w") as f:
+        f.write("".join(logs))
     return [nvcc, *CUDA_FLAGS, "-o", tmp, *objs]
 
 
@@ -146,7 +154,7 @@ def cuda_tag() -> str:
     """Digest of the kernels' sources and flags: names their library."""
     deps = sorted(glob.glob(os.path.join(CUDA_SRC, "*.cu"))
                   + glob.glob(os.path.join(CUDA_SRC, "*.cuh")))
-    return _digest(deps, CUDA_FLAGS)
+    return _digest(deps, CUDA_FLAGS + PTXAS_FLAGS)
 
 
 def cuda_library_path() -> str:
@@ -155,7 +163,15 @@ def cuda_library_path() -> str:
     nvcc = nvcc_path()
     out = os.path.join(BUILD_DIR, f"libjolt_cuda-{cuda_tag()}.so")
     return _build("jolt_cuda", out,
-                  lambda tmp: _nvcc_objects(nvcc, srcs, tmp))
+                  lambda tmp: _nvcc_objects(nvcc, srcs, tmp,
+                                            out + ".ptxas.txt"))
+
+
+def ptxas_report() -> str:
+    """ptxas's report (-v) of the build of the kernels library: registers,
+    spills and shared memory per kernel. Builds the library if needed."""
+    with open(cuda_library_path() + ".ptxas.txt") as f:
+        return f.read()
 
 
 _CUDA = None
@@ -169,11 +185,12 @@ def cuda_library():
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.jolt_pp_add.argtypes = [vp] * 9 + [i64, vp]
         lib.jolt_pp_add.restype = ctypes.c_int
-        lib.jolt_bucket_accumulate.argtypes = [vp] * 4 + [i64, i64] \
-            + [vp] * 3 + [vp]
+        lib.jolt_bucket_accumulate.argtypes = [vp] * 6 + [
+            i64, i64, ctypes.c_int] + [vp] * 10
         lib.jolt_bucket_accumulate.restype = ctypes.c_int
         lib.jolt_bucket_combine.argtypes = [vp] * 3 + [
-            i64, ctypes.c_int, ctypes.c_int, i64, ctypes.c_int] + [vp] * 4
+            i64, ctypes.c_int, ctypes.c_int, i64, ctypes.c_int,
+            ctypes.c_int] + [vp] * 7
         lib.jolt_bucket_combine.restype = ctypes.c_int
         _CUDA = lib
     return _CUDA

@@ -1,29 +1,34 @@
-"""Device Pippenger MSM: digit grid, bucket accumulation and bucket
+"""Device Pippenger MSM: digit lanes, bucket accumulation and bucket
 combine on tensors.
 
 Counterpart of jolt_atlas_tpu/tpu/msm.py, with the same structure:
 
 - Scalars (canonical, 32 bytes little-endian) are cut into W windows of
-  c bits; each (window, bucket) pair is a *lane*. The digit grid is built
+  c bits; each (window, bucket) pair is a *lane*. The digit lanes are built
   on the device: digit 0 is dropped, the top window, which has only
   254 - (W-1)c bits of entropy, is round-robined over S = 2^c / 2^topbits
-  sub-lanes by local point index, and a stable sort feeds a scatter into a
-  (rows, W * 2^c) grid of absolute base indices (-1 = empty slot).
-- ``bucket_accumulate`` (kernel 2, csrc/msm.cu) adds each lane's column of
-  bases into its bucket.
+  sub-lanes by local point index, and a stable sort orders the (lane,
+  point) entries by lane, points ascending within a lane (CSR: lane
+  starts plus absolute base indices). The reference scatters the same
+  order into a (rows, W * 2^c) grid; the port hands the sorted entries to
+  the kernel instead.
+- ``bucket_accumulate`` (kernel 2, csrc/msm.cu) adds each lane's bases
+  into its bucket, in equal runs of entries per thread.
 - ``bucket_combine`` (kernel 3, csrc/combine.cu) folds the top window's
   sub-lanes and computes sum_b b * S_b per (MSM, window), for all MSMs of
-  a call in one launch.
+  one window size in one launch (G blocks per window, then their
+  partials).
 - The window sums come back to the host, where a Horner loop in Python
   point arithmetic gives the affine result.
 
-A host counting pass (csrc ``msm_digit_grid``, the same digit semantics)
-sizes the grid's row budget first and raises ``_GridSkewError`` on
-pathologically skewed scalars, before any device work; ``try_msm_batch``
-refuses such MSMs one by one and ``host_fill`` gives them to the host
-engine. ``DeviceBases.start`` returns as soon as the kernels are queued;
-``finish`` is the only synchronisation, so the host can work meanwhile
-(device/split.py).
+Each MSM of a batch takes its own window, ``_pick_c(count)``, unless one
+is forced. A host counting pass (csrc ``msm_digit_grid``, the same digit
+semantics) first checks the grid depth the reference would need and raises
+``_GridSkewError`` on pathologically skewed scalars, before any device
+work; ``try_msm_batch`` refuses such MSMs one by one and ``host_fill``
+gives them to the host engine. ``DeviceBases.start`` returns as soon as
+the kernels are queued; ``finish`` is the only synchronisation, so the host
+can work meanwhile (device/split.py).
 
 On a CUDA device the kernels run; on the CPU their plain versions do.
 """
@@ -67,10 +72,9 @@ def window_shape(c: int) -> tuple[int, int, int]:
 
 
 def grid_rows_for(n: int, c: int) -> int:
-    """Static row budget for the on-device grid: ~2x the expected lane
-    occupancy plus slack covers the Poisson max over W*2^c lanes for
-    uniform scalars; the host pre-count gives the true depth, and a budget
-    below it is doubled, so no point is ever dropped."""
+    """The reference's static row budget for its on-device grid
+    (tpu/msm.py:grid_rows_for): ~2x the expected lane occupancy plus slack
+    covers the Poisson max over W*2^c lanes for uniform scalars."""
     avg = max(1, n >> c)
     return -(-(2 * avg + 32) // 16) * 16
 
@@ -78,14 +82,16 @@ def grid_rows_for(n: int, c: int) -> int:
 def _host_grid_rows(raw: bytes, n: int, c: int) -> int:
     """Row budget the grid needs (16-multiple), or -1 for pathologically
     skewed scalars: the csrc counting pass, with the same digit semantics
-    as ``digit_grid``."""
+    as ``digit_lanes``."""
     from ..curve import native
     return int(native._load().msm_digit_grid(raw, n, c, _NBITS, None, 0))
 
 
 def rows_for(raw: bytes, count: int, c: int) -> int:
-    """The grid rows for one MSM: the static budget, doubled until it holds
-    the true depth. Raises _GridSkewError on skewed scalars."""
+    """The grid rows the reference would give one MSM: the static budget,
+    doubled until it holds the true depth. Raises _GridSkewError on skewed
+    scalars: the port keeps the reference's refusal (and so its routes and
+    telemetry), though its kernels take the lanes at any depth."""
     need = _host_grid_rows(raw, count, c)
     if need < 0:
         W, B, _ = window_shape(c)
@@ -102,16 +108,18 @@ def scalars_tensor(raw: bytes, count: int, device) -> torch.Tensor:
     return torch.from_numpy(arr.reshape(count, 4).copy()).to(device)
 
 
-def digit_grid(sc: torch.Tensor, c: int, rows: int,
-               offset: int = 0) -> torch.Tensor:
-    """(n, 4) int64 canonical scalar limbs -> (rows, L) int32 grid of
-    ABSOLUTE point indices offset + i, built with tensor ops on sc's device.
+def digit_lanes(sc: torch.Tensor, c: int, offset: int = 0) -> tuple:
+    """(n, 4) int64 canonical scalar limbs -> the MSM's (lane, point)
+    entries sorted by lane, as three int32 tensors on sc's device:
+    ``lane`` (W * n,), ``pts`` (W * n,) the ABSOLUTE point indices
+    offset + i, ascending within a lane, and ``starts`` (L + 1,), lane l's
+    entries being [starts[l], starts[l + 1]). Entries of digit 0 carry
+    lane L and sort last: starts[L] counts the others.
 
     Same semantics as the reference's host builder (tpu/msm.py:_grid) and
     device builder (tpu/msm.py:_grid_on_device): digit 0 dropped, the top
-    window round-robined over S sub-lanes by LOCAL index, slots in
-    ascending point order within each lane. ``rows`` must cover the
-    deepest lane (``rows_for``)."""
+    window round-robined over S sub-lanes by LOCAL index, points in
+    ascending order within each lane. Nothing is read back to the host."""
     device = sc.device
     n = sc.shape[0]
     W, B, S = window_shape(c)
@@ -131,7 +139,6 @@ def digit_grid(sc: torch.Tensor, c: int, rows: int,
             lane = w * B + d
         lanes.append(torch.where(d != 0, lane, L))
     lane_f = torch.cat(lanes)                 # (W*n,) window-major
-    pt_f = idx.repeat(W)
     # scatter_add, not bincount: bincount reads its maximum back to the
     # host, a synchronisation
     counts = torch.zeros(L + 1, dtype=torch.int64, device=device)
@@ -139,49 +146,100 @@ def digit_grid(sc: torch.Tensor, c: int, rows: int,
     starts = torch.zeros(L + 1, dtype=torch.int64, device=device)
     starts[1:] = torch.cumsum(counts[:L], 0)
     lane_s, order = torch.sort(lane_f, stable=True)
-    pt_s = pt_f[order]
-    slot = torch.arange(W * n, dtype=torch.int64, device=device) \
-        - starts[lane_s]
-    valid = (lane_s < L) & (slot < rows)
-    flat = torch.where(valid, slot * L + lane_s, rows * L)
-    grid = torch.full((rows * L + 1,), -1, dtype=torch.int32, device=device)
-    grid[flat] = (pt_s + offset).to(torch.int32)
-    return grid[:rows * L].view(rows, L)
+    pts = order % n + offset                  # point of each sorted entry
+    return (lane_s.to(torch.int32), pts.to(torch.int32),
+            starts.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
 # kernel 2: bucket accumulation
 # ---------------------------------------------------------------------------
 
-def bucket_accumulate_plain(bases, grid: torch.Tensor):
-    """Plain version of kernel 2: for each grid row in order, add the
-    row's bases into the lanes whose slot is filled (-1 = empty: the lane
-    is left as it is). Starts from the identity."""
-    rows, L = grid.shape
-    acc = list(pp_identity(L, grid.device))
-    for r in range(rows):
-        row = grid[r]
-        lanes = torch.nonzero(row >= 0).squeeze(1)
-        if lanes.numel() == 0:
-            continue
-        gi = row[lanes].to(torch.int64)
-        s = pp_add_plain(tuple(a[lanes] for a in acc),
-                         tuple(b[gi] for b in bases))
-        for a, v in zip(acc, s):
-            a[lanes] = v
-    return tuple(acc)
+ACCUM_RUN = 16  # entries per thread of kernel 2
 
 
-def bucket_accumulate(bases, grid: torch.Tensor, out=None):
-    """(X, Y, Z) bases (N, 4) and a (rows, L) int32 index grid -> the L
-    bucket sums (L, 4) each, written into ``out`` when given (three
-    contiguous (L, 4) int64 tensors, e.g. one MSM's rows of a batch's
-    stack). CUDA tensors run kernel 2, CPU tensors its plain version."""
-    device = grid.device
+def _set_points(dst, index, src) -> None:
+    for d, v in zip(dst, src):
+        d[index] = v
+
+
+def bucket_accumulate_plain(bases, lanes, run: int = ACCUM_RUN):
+    """Plain version of kernel 2, with the kernel's partition and order of
+    adds, so the two are bit-equal: the entries [starts[0], starts[L]) are
+    cut into runs of ``run``; within a run, consecutive entries of one lane
+    are added in order, the first one taken as it is; a lane cut by a run
+    boundary is joined from the run where it starts, its partials added in
+    run order. Empty lanes are the identity."""
+    lane, pts, starts = (t.to(torch.int64) for t in lanes)
+    L = starts.shape[0] - 1
+    device = lane.device
+    out = list(pp_identity(L, device))
+    E = int(starts[L])
+    if E == 0:
+        return tuple(out)
+    nruns = -(-E // run)
+    e0 = torch.arange(nruns, dtype=torch.int64, device=device) * run
+    e1 = torch.clamp(e0 + run, max=E)
+    head = pp_identity(nruns, device)
+    tail = pp_identity(nruns, device)
+    acc = None
+    for i in range(run):                       # pass 1: every run at once
+        e = e0 + i
+        live = e < e1
+        ec = torch.where(live, e, 0)
+        ln = lane[ec]
+        B = tuple(b[pts[ec]] for b in bases)
+        if acc is None:
+            acc = B
+        else:
+            new = ln != lane[torch.clamp(ec - 1, min=0)]
+            acc = _where(live, _where(new, B, pp_add_plain(acc, B)), acc)
+        end = live & ((ec == e1 - 1) | (lane[torch.clamp(ec + 1, max=E - 1)]
+                                         != ln))
+        is_head = end & (starts[ln] < e0)
+        is_tail = end & ~is_head & (starts[ln + 1] > e1)
+        whole = end & ~is_head & ~is_tail
+        _set_points(head, is_head, tuple(a[is_head] for a in acc))
+        _set_points(tail, is_tail, tuple(a[is_tail] for a in acc))
+        _set_points(out, ln[whole], tuple(a[whole] for a in acc))
+    ln = lane[e1 - 1]                          # pass 2: the cut lanes
+    end = starts[ln + 1]
+    own = torch.nonzero((starts[ln] >= e0) & (end > e1)).squeeze(1)
+    if own.numel():
+        last = (end[own] - 1) // run
+        acc = tuple(t[own] for t in tail)
+        for step in range(1, int((last - own).max()) + 1):
+            q = own + step
+            live = q <= last
+            nxt = tuple(h[torch.where(live, q, 0)] for h in head)
+            acc = _where(live, pp_add_plain(acc, nxt), acc)
+        _set_points(out, ln[own], acc)
+    return tuple(out)
+
+
+def _check_lanes(lanes, device) -> int:
+    """The lane count L of digit lanes (lane, pts, starts) on ``device``."""
+    lane, pts, starts = lanes
+    for t in lanes:
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device != device:
+            raise ValueError("digit lanes must be 1-D int32 tensors on "
+                             f"{device}")
+    if pts.shape != lane.shape or starts.shape[0] < 1:
+        raise ValueError("lane and pts must have one length; starts L + 1")
+    return starts.shape[0] - 1
+
+
+def bucket_accumulate(bases, lanes, out=None, run: int = ACCUM_RUN):
+    """(X, Y, Z) bases (N, 4) and an MSM's digit lanes (``digit_lanes``)
+    -> the L bucket sums (L, 4) each, written into ``out`` when given
+    (three contiguous (L, 4) int64 tensors, e.g. one MSM's rows of a
+    batch's stack). CUDA tensors run kernel 2 (two launches: the runs, then
+    the cut lanes and the empty ones), CPU tensors its plain version."""
+    device = lanes[0].device
     curve.check_points(bases, device)
-    if grid.dtype != torch.int32 or grid.dim() != 2:
-        raise ValueError("grid must be a 2-D int32 tensor")
-    rows, L = grid.shape
+    L = _check_lanes(lanes, device)
+    if run <= 0:
+        raise ValueError("run must be positive")
     if out is not None:
         curve.check_points(out, device)
         if out[0].shape != (L, 4) or not all(
@@ -189,7 +247,7 @@ def bucket_accumulate(bases, grid: torch.Tensor, out=None):
             raise ValueError("out must be contiguous, 16-byte aligned "
                              f"(L, 4) tensors, L={L}")
     if device.type == "cpu":
-        got = bucket_accumulate_plain(bases, grid)
+        got = bucket_accumulate_plain(bases, lanes, run)
         if out is None:
             return got
         for o, g in zip(out, got):
@@ -198,21 +256,28 @@ def bucket_accumulate(bases, grid: torch.Tensor, out=None):
     if device.type != "cuda":
         raise ValueError(f"bucket_accumulate: no kernel for device {device}")
     from . import build
-    grid = grid.contiguous()
+    lanes = tuple(t.contiguous() for t in lanes)
     bx, by, bz = (curve._flat(b) for b in bases)
     outs = list(out) if out is not None else [
         torch.empty((L, 4), dtype=torch.int64, device=device)
         for _ in range(3)]
+    n_entries = lanes[0].shape[0]
+    nruns = -(-n_entries // run)
+    parts = [torch.empty((max(nruns, 1), 4), dtype=torch.int64,
+                         device=device) for _ in range(6)]
     if L:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = build.cuda_library().jolt_bucket_accumulate(
-                bx.data_ptr(), by.data_ptr(), bz.data_ptr(), grid.data_ptr(),
-                rows, L, *(t.data_ptr() for t in outs), stream)
+                bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
+                *(lanes[i].data_ptr() for i in (1, 0, 2)), n_entries, L, run,
+                *(t.data_ptr() for t in parts),
+                *(t.data_ptr() for t in outs), stream)
         if rc != 0:
             raise RuntimeError("bucket_accumulate kernel launch failed: "
                                f"CUDA error {rc}")
-        telemetry.launch("bucket_accumulate", L)
+        for _ in range(2 if nruns else 1):
+            telemetry.launch("bucket_accumulate", L)
     return tuple(outs)
 
 
@@ -220,22 +285,38 @@ def bucket_accumulate(bases, grid: torch.Tensor, out=None):
 # kernel 3: bucket combine
 # ---------------------------------------------------------------------------
 
-COMBINE_MAX_THREADS = 256
+COMBINE_MAX_THREADS = 128
+COMBINE_MIN_CHUNK = 8  # buckets a thread keeps at least, where G > 1
 
 
 def combine_threads(c: int) -> int:
-    """Threads per (MSM, window) of kernel 3: a power of two, at most 256,
-    at most half the buckets. It fixes the partition of the buckets and so
-    the order of the adds, which the plain version follows."""
+    """Threads per block of kernel 3: a power of two, at most 128, at most
+    half the buckets."""
     return min(COMBINE_MAX_THREADS, (1 << c) >> 1)
 
 
-def _combine_ranges(c: int, device):
-    """Per (window, thread): the bucket range [lo, hi) the thread walks,
-    the window's sub-lanes per bucket S (lane j has weight j // S), and the
-    range's lowest weight wlo (0 for an empty range)."""
-    W, B, s_top = window_shape(c)
+def combine_groups(k: int, c: int, sms: int) -> int:
+    """Blocks G per (MSM, window) of kernel 3 for k MSMs at window c on a
+    card of ``sms`` SMs: doubled from 1 while the launch has fewer than two
+    blocks per SM and each thread would still keep at least
+    COMBINE_MIN_CHUNK buckets. G and the thread count fix the partition
+    of the buckets and so the order of the adds, which the plain version
+    follows."""
+    W, B, _ = window_shape(c)
     T = combine_threads(c)
+    G = 1
+    while k * W * G < 2 * sms and B // (2 * G * T) >= COMBINE_MIN_CHUNK:
+        G *= 2
+    return G
+
+
+def _combine_ranges(c: int, groups: int, device):
+    """Per (window, thread u of the window's G * T): the bucket range
+    [lo, hi) the thread walks, the window's sub-lanes per bucket S (lane j
+    has weight j // S), and the range's lowest weight wlo (0 for an empty
+    range)."""
+    W, B, s_top = window_shape(c)
+    T = combine_threads(c) * groups
     S = torch.ones((W, 1), dtype=torch.int64, device=device)
     S[-1] = s_top
     chunk = (B - S + T - 1) // T
@@ -252,17 +333,17 @@ def _where(mask, P, Q):
     return tuple(torch.where(m, p, q) for p, q in zip(P, Q))
 
 
-def bucket_combine_plain(acc, c: int):
+def bucket_combine_plain(acc, c: int, groups: int = 1):
     """Plain version of kernel 3, with the kernel's own order of adds, so
-    the two are bit-equal: one (MSM, window) is a row of T "threads", each
-    walking its bucket range from high to low with a running sum and a
-    weighted sum, multiplying in its lowest weight by double-and-add; the T
-    partials are then added by halving, as the kernel's shared-memory
-    tree does."""
+    the two are bit-equal: one (MSM, window) is a row of G * T "threads",
+    each walking its bucket range from high to low with a running sum and
+    a weighted sum, multiplying in its lowest weight by double-and-add;
+    each block's T partials are then added by halving, as the kernel's
+    shared-memory tree does, and the G block partials in block order."""
     k = acc[0].shape[0]
     W, B, _ = window_shape(c)
     device = acc[0].device
-    lo, hi, S, wlo, steps = _combine_ranges(c, device)
+    lo, hi, S, wlo, steps = _combine_ranges(c, groups, device)
     T = lo.shape[1]
     win = torch.arange(W, dtype=torch.int64, device=device)[:, None] * B
     shape = (k, W, T, 4)
@@ -288,20 +369,28 @@ def bucket_combine_plain(acc, c: int):
         R = _where(b & started, pp_add_plain(R, run), _where(b, run, R))
         started = started | b
     P = _where(started, pp_add_plain(wsum, R), wsum)
-    s = T >> 1
+    Tb = T // groups
+    P = tuple(p.reshape(k, W, groups, Tb, 4) for p in P)
+    s = Tb >> 1
     while s:
-        top = pp_add_plain(tuple(p[:, :, :s] for p in P),
-                           tuple(p[:, :, s:2 * s] for p in P))
-        P = tuple(torch.cat([a, p[:, :, s:]], dim=2) for a, p in zip(top, P))
+        top = pp_add_plain(tuple(p[:, :, :, :s] for p in P),
+                           tuple(p[:, :, :, s:2 * s] for p in P))
+        P = tuple(torch.cat([a, p[:, :, :, s:]], dim=3)
+                  for a, p in zip(top, P))
         s >>= 1
-    return tuple(p[:, :, 0].contiguous() for p in P)
+    out = tuple(p[:, :, 0, 0] for p in P)
+    for g in range(1, groups):
+        out = pp_add_plain(out, tuple(p[:, :, g, 0] for p in P))
+    return tuple(o.contiguous() for o in out)
 
 
-def bucket_combine(acc, c: int):
+def bucket_combine(acc, c: int, groups: int = 0):
     """Bucket sums (k, W * 2^c, 4) x 3, the top window still spread over
     its sub-lanes, as ``bucket_accumulate`` leaves them -> window sums
     (k, W, 4) x 3, sum_b b * S_b per (MSM, window); digit 0 is dropped.
-    CUDA tensors run kernel 3 (one launch for the whole batch), CPU tensors
+    ``groups``: blocks per (MSM, window), 0 for ``combine_groups`` on a
+    card (1 on the CPU). CUDA tensors run kernel 3 (one launch for the
+    batch, a second to add the G block partials when G > 1), CPU tensors
     its plain version."""
     device = acc[0].device
     curve.check_points(acc, device)
@@ -309,25 +398,31 @@ def bucket_combine(acc, c: int):
     if acc[0].dim() != 3 or acc[0].shape[1] != W * B:
         raise ValueError(f"bucket sums must be (k, {W * B}, 4) for c={c}; "
                          f"got {tuple(acc[0].shape)}")
+    k = acc[0].shape[0]
     if device.type == "cpu":
-        return bucket_combine_plain(acc, c)
+        return bucket_combine_plain(acc, c, groups or 1)
     if device.type != "cuda":
         raise ValueError(f"bucket_combine: no kernel for device {device}")
     from . import build
-    k = acc[0].shape[0]
+    G = groups or combine_groups(
+        k, c, torch.cuda.get_device_properties(device).multi_processor_count)
     ins = [curve._flat(a) for a in acc]
     outs = [torch.empty((k, W, 4), dtype=torch.int64, device=device)
             for _ in range(3)]
+    parts = [torch.empty((k * W * G if G > 1 else 1, 4), dtype=torch.int64,
+                         device=device) for _ in range(3)]
     if k:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = build.cuda_library().jolt_bucket_combine(
                 *(t.data_ptr() for t in ins), k, c, W, s_top,
-                combine_threads(c), *(t.data_ptr() for t in outs), stream)
+                combine_threads(c), G, *(t.data_ptr() for t in parts),
+                *(t.data_ptr() for t in outs), stream)
         if rc != 0:
             raise RuntimeError("bucket_combine kernel launch failed: "
                                f"CUDA error {rc}")
-        telemetry.launch("bucket_combine", W * B)
+        for _ in range(2 if G > 1 else 1):
+            telemetry.launch("bucket_combine", (W * B, G))
     return tuple(outs)
 
 
@@ -357,8 +452,9 @@ class DeviceBases:
     is never repeated. The full base set stays resident; an MSM over
     bases [offset, offset + count) references it by absolute index.
 
-    ``c`` forces the window size for every MSM (0: chosen per batch by
-    its largest MSM); the tests use it to keep the plain versions small.
+    ``c`` forces the window size for every MSM (0: each MSM at its own
+    window, ``_pick_c(count)``); the tests use it to keep the plain
+    versions small.
     """
 
     def __init__(self, prep_raw: bytes, n: int, device, c: int = 0):
@@ -385,46 +481,62 @@ class DeviceBases:
                                  f"with {len(raw) // 32} scalars: this "
                                  f"engine holds {self.n} bases")
 
-    def _launch(self, packed, counts, offsets, rows, c: int, site: str):
+    def _windows(self, packed, counts) -> list[int]:
+        """Each MSM's window. Raises _GridSkewError, before any device
+        work, if one would be skewed (``rows_for``, the reference's gate)."""
+        cs = [self.c or _pick_c(n) for n in counts]
+        for raw, count, c in zip(packed, counts, cs):
+            rows_for(raw, count, c)
+        return cs
+
+    def _launch(self, packed, counts, offsets, cs, site: str):
         """Queue the batch: upload every MSM's scalars first (a copy from
         pageable host memory may wait for the stream's earlier work), then
-        per MSM its digit grid and kernel 2 into its rows of one (k, L, 4)
-        stack, then kernel 3 once. Nothing after the uploads waits for the
-        device."""
-        W, B, _ = window_shape(c)
-        k = len(packed)
+        per window size its MSMs' digit lanes and kernel 2 into their rows
+        of one (k_c, L_c, 4) stack, and kernel 3 once for the stack. Nothing
+        after the uploads waits for the device."""
         scalars = [scalars_tensor(raw, count, self.device)
                    for raw, count in zip(packed, counts)]
-        acc = tuple(torch.empty((k, W * B, 4), dtype=torch.int64,
-                                device=self.device) for _ in range(3))
-        for i, (sc, off, r) in enumerate(zip(scalars, offsets, rows)):
-            bucket_accumulate(self.bases, digit_grid(sc, c, r, off),
-                              out=tuple(a[i] for a in acc))
+        by_c: dict[int, list[int]] = {}
+        for i, c in enumerate(cs):
+            by_c.setdefault(c, []).append(i)
+        parts = []
+        for c, idx in by_c.items():
+            W, B, _ = window_shape(c)
+            acc = tuple(torch.empty((len(idx), W * B, 4), dtype=torch.int64,
+                                    device=self.device) for _ in range(3))
+            for j, i in enumerate(idx):
+                bucket_accumulate(self.bases,
+                                  digit_lanes(scalars[i], c, offsets[i]),
+                                  out=tuple(a[j] for a in acc))
+                telemetry.count(site)
+            parts.append((bucket_combine(acc, c), idx, c))
             telemetry.count(site)
-        R = bucket_combine(acc, c)
-        telemetry.count(site)
-        return (R, k, c)
+        return (parts, len(packed))
 
     def start(self, packed: list[bytes], counts: list[int],
               offsets: list[int] | None = None, site: str = "msm"):
         """Queue a batch of MSMs (canonical 32-byte LE scalars against
         base ranges [offset, offset + count)) and return without waiting
         for the device; pair with ``finish()``. One accumulation per MSM,
-        then one combine for the batch. Raises _GridSkewError before any
-        device work if a grid would be skewed."""
-        c = self.c or _pick_c(max(counts))
+        then one combine per window size. Raises _GridSkewError before any
+        device work if one would be skewed."""
         offsets = offsets or [0] * len(packed)
         self._check(packed, counts, offsets)
-        rows = [rows_for(raw, count, c) for raw, count in zip(packed, counts)]
-        return self._launch(packed, counts, offsets, rows, c, site)
+        cs = self._windows(packed, counts)
+        return self._launch(packed, counts, offsets, cs, site)
 
     def finish(self, handle) -> list:
         """Collect a ``start()`` batch (waits for the device): list of
         affine G1, the window sums combined by a host Horner loop."""
-        R, k, c = handle
-        host = tuple(t.cpu() for t in R)
-        return [_combine_windows(curve.tensors_to_points(
-            tuple(t[i] for t in host)), c) for i in range(k)]
+        parts, k = handle
+        out: list = [None] * k
+        for R, idx, c in parts:
+            host = tuple(t.cpu() for t in R)
+            for j, i in enumerate(idx):
+                out[i] = _combine_windows(curve.tensors_to_points(
+                    tuple(t[j] for t in host)), c)
+        return out
 
     def msm_batch_packed(self, packed: list[bytes], counts: list[int],
                          offsets: list[int] | None = None,
@@ -438,20 +550,19 @@ class DeviceBases:
         the host engine for those (``host_fill``). The rest run as one
         device batch, counted as dispatches of ``msm:<site>``;
         ``msm_skew_fallback:<site>`` counts each refusal."""
-        c = self.c or _pick_c(max(counts))
         self._check(packed, counts, [0] * len(packed))
         out: list = [None] * len(packed)
-        keep, rows = [], []
+        keep, cs = [], []
         for i, (raw, count) in enumerate(zip(packed, counts)):
             try:
-                rows.append(rows_for(raw, count, c))
+                cs += self._windows([raw], [count])
                 keep.append(i)
             except _GridSkewError:
                 telemetry.count("msm_skew_fallback:" + site)
         if keep:
             pts = self.finish(self._launch(
                 [packed[i] for i in keep], [counts[i] for i in keep],
-                [0] * len(keep), rows, c, "msm:" + site))
+                [0] * len(keep), cs, "msm:" + site))
             for i, pt in zip(keep, pts):
                 out[i] = pt
         return out

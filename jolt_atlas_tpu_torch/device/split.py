@@ -52,22 +52,40 @@ def finish_split(state: SplitState, host_prefix_pt):
     return dev_pt if host_prefix_pt is None else host_prefix_pt + dev_pt
 
 
+_HOST_THREADS: int | None = None  # None: all CPUs
+
+
+def base_threads() -> int:
+    """The host engines' OpenMP threads outside a split."""
+    return _HOST_THREADS or os.cpu_count() or 1
+
+
+def set_host_threads(n: int | None) -> None:
+    """Run the host engines on n OpenMP threads from now on (None: all
+    CPUs). The count is the calling thread's, so it caps the csrc MSM and,
+    through the same OpenMP runtime, csrc frvec's loops."""
+    global _HOST_THREADS
+    from ..curve import native
+    _HOST_THREADS = n
+    native._load().msm_set_threads(base_threads())
+
+
 @contextlib.contextmanager
 def host_threads(n: int):
-    """Run the host Pippenger on n OpenMP threads inside the block, on all
-    CPUs after it."""
+    """Run the host Pippenger on n OpenMP threads inside the block, on
+    ``base_threads()`` after it."""
     from ..curve import native
     lib = native._load()
     lib.msm_set_threads(n)
     try:
         yield
     finally:
-        lib.msm_set_threads(os.cpu_count() or 1)
+        lib.msm_set_threads(base_threads())
 
 
 def spare_threads() -> int:
-    """Host MSM threads while device work is in flight: all CPUs but one."""
-    return max(1, (os.cpu_count() or 1) - 1)
+    """Host MSM threads while device work is in flight: all but one."""
+    return max(1, base_threads() - 1)
 
 
 def msm_packed_split(dev: DeviceBases, prep, packed: bytes, count: int,

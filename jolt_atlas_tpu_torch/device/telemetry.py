@@ -5,9 +5,10 @@ kernel was launched, and at which widths.
 Counterpart of jolt_atlas_tpu/tpu/telemetry.py. ``launches`` is new: each
 kernel wrapper adds one where it launches its kernel (and nowhere else),
 so a run can show that its main path really went through the kernels.
-``lanes`` keeps the lane counts each kernel was launched at (the shape its
-threads walk), so a run can check that each one was held against the
-plain version. The plain PyTorch versions count nothing.
+``lanes`` keeps the shapes each kernel was launched at (its lane count,
+or for kernel 3 the lane count and blocks per window: what fixes its
+partition), so a run can check that each one was held against the plain
+version. The plain PyTorch versions count nothing.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 _COUNTS: dict[str, int] = {}
 _DECISIONS: dict[str, str] = {}
 _LAUNCHES: dict[str, int] = {}
-_LANES: dict[str, set[int]] = {}
+_LANES: dict[str, set] = {}
 
 
 def count(engine: str, n: int = 1) -> None:
@@ -28,11 +29,12 @@ def decide(engine: str, decision: str) -> None:
     _DECISIONS[engine] = decision
 
 
-def launch(kernel: str, lanes: int) -> None:
-    """Record one launch of a CUDA kernel over ``lanes`` lanes (called by
-    its wrapper only)."""
+def launch(kernel: str, lanes) -> None:
+    """Record one launch of a CUDA kernel at shape ``lanes`` (an int or a
+    tuple of ints; called by its wrapper only)."""
     _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
-    _LANES.setdefault(kernel, set()).add(int(lanes))
+    _LANES.setdefault(kernel, set()).add(
+        tuple(lanes) if isinstance(lanes, tuple) else int(lanes))
 
 
 def launches() -> dict[str, int]:
@@ -41,7 +43,7 @@ def launches() -> dict[str, int]:
 
 def snapshot() -> dict:
     """{"dispatches": {engine: n}, "decisions": {engine: reason},
-    "launches": {kernel: n}, "lanes": {kernel: sorted lane counts}}."""
+    "launches": {kernel: n}, "lanes": {kernel: sorted launch shapes}}."""
     return {"dispatches": dict(_COUNTS), "decisions": dict(_DECISIONS),
             "launches": dict(_LAUNCHES),
             "lanes": {k: sorted(v) for k, v in _LANES.items()}}

@@ -9,6 +9,7 @@ batched opening reduction -> gamma RLC -> single HyperKZG opening.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .field.scalar import Fr
 from .frontend import ops as FOPS
@@ -91,23 +92,30 @@ def _maybe_device_iop_scope():
 
 class AtlasProver:
     def __init__(self, preprocessing: AtlasPreprocessing,
-                 transcript_factory=Blake2bTranscript, device=None,
+                 transcript_factory=Blake2bTranscript, device="cuda",
                  msm_window: int = 0, msm_gate=None):
         # transcript_factory: Blake2bTranscript (default, matching the
         # reference) or transcripts.KeccakTranscript — must match verifier
-        # device: None proves on the host (the reference's own path); a
-        # torch.device offers the device MSM engine (device/msm.py) to the
-        # dense witness commits and the HyperKZG opening.
+        # device: the card by default, whose device MSM engine
+        # (device/msm.py) the gate offers the dense witness commits and
+        # the HyperKZG opening; "cpu" asks for the host path (the
+        # reference's own). Without a card, the default raises: the
+        # prover never falls back to the host by itself.
         # msm_gate: the MSM gate (device/gate.py) that routes each MSM to
         # the device, a host+device split or the host; None loads the
         # device's measured calibration here (measuring it at first use),
-        # never inside prove().
+        # never inside prove(). A CPU device's gate keeps every MSM on the
+        # host; a forced one runs the kernels' plain versions there.
         # msm_window: forced MSM window size c (0: chosen per MSM size)
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("AtlasProver: no CUDA device; pass "
+                               "device=\"cpu\" to prove on the host")
         self.pp = preprocessing
         self.transcript_factory = transcript_factory
         self.device = device
         self.msm_window = msm_window
-        self.uses_msm_engine = (device is not None and self.pp.srs is not None
+        self.uses_msm_engine = (self.pp.srs is not None
                                 and self.pp.pcs != "dory")
         if self.uses_msm_engine and msm_gate is None:
             from .device import gate as dgate

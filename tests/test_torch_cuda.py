@@ -60,17 +60,25 @@ def test_pp_add_kernel_matches_plain(gpu, srs):
     assert telemetry.launches()["pp_add"] - before == 4
 
 
-@pytest.mark.parametrize("c", [6, 12])
-def test_bucket_kernel_matches_plain(gpu, srs, c):
+def _sms(gpu):
+    return torch.cuda.get_device_properties(gpu).multi_processor_count
+
+
+@pytest.mark.parametrize("c,run", [(6, 16), (6, 5), (12, 16), (12, 3)])
+def test_bucket_kernel_matches_plain(gpu, srs, c, run):
+    """Kernel 2 against its plain version at a run length: lanes cut by
+    runs, empty lanes, and a run that does not divide the entry count."""
     bases = srs.device_bases(gpu, gate.forced("device")).bases
     rng = np.random.default_rng(12)
     packed = pack_scalars([int.from_bytes(rng.bytes(32), "little")
                            % FR_MODULUS for _ in range(N)])
-    grid = dmsm.digit_grid(dmsm.scalars_tensor(packed, N, gpu), c,
-                           dmsm.rows_for(packed, N, c))
-    assert bool((grid < 0).any())  # empty slots are exercised
-    assert _equal(dmsm.bucket_accumulate(bases, grid),
-                  dmsm.bucket_accumulate_plain(bases, grid))
+    lanes = dmsm.digit_lanes(dmsm.scalars_tensor(packed, N, gpu), c)
+    starts = lanes[2]
+    assert bool((starts[1:] == starts[:-1]).any())  # empty lanes
+    before = telemetry.launches().get("bucket_accumulate", 0)
+    got = dmsm.bucket_accumulate(bases, lanes, run=run)
+    assert telemetry.launches()["bucket_accumulate"] - before == 2
+    assert _equal(got, dmsm.bucket_accumulate_plain(bases, lanes, run))
 
 
 @pytest.mark.parametrize("kind", ["random254", "bits16"])
@@ -89,15 +97,19 @@ def test_device_msm_matches_host_on_gpu(gpu, srs, kind):
     got = srs.device_bases(gpu, gate.forced("device"), c=c).msm_packed(
         packed, N)
     assert (got.infinity, got.x, got.y) == (want.infinity, want.x, want.y)
-    for k in ("bucket_accumulate", "bucket_combine"):
-        assert telemetry.launches()[k] - before.get(k, 0) == 1
+    G = dmsm.combine_groups(1, c or dmsm._pick_c(N), _sms(gpu))
+    for k, n in (("bucket_accumulate", 2),
+                 ("bucket_combine", 2 if G > 1 else 1)):
+        assert telemetry.launches()[k] - before.get(k, 0) == n
 
 
-@pytest.mark.parametrize("k,c", [(3, 6), (1, 12), (2, 14)])
+@pytest.mark.parametrize("k,c", [(3, 6), (1, 12), (2, 14), (1, 14),
+                                 (16, 12)])
 def test_combine_kernel_matches_plain(gpu, srs, k, c):
-    """Kernel 3 against its plain version: projective bucket sums, a fifth
-    of them the identity, and the add's edge cases (doubling, P + (-P),
-    coordinates near p) in the first lanes of every MSM."""
+    """Kernel 3 against its plain version at the blocks per window the
+    card's rule gives (G = 16 for one MSM at c = 14): projective bucket
+    sums, a fifth of them the identity, and the add's edge cases (doubling,
+    P + (-P), coordinates near p) in the first lanes of every MSM."""
     bases = srs.device_bases(gpu, gate.forced("device")).bases
     W, B, _ = dmsm.window_shape(c)
     L = W * B
@@ -115,12 +127,14 @@ def test_combine_kernel_matches_plain(gpu, srs, k, c):
     for a, p, q in zip(acc, Pe, Qe):
         a[:, 1:1 + m] = p
         a[:, B + 1:B + 1 + m] = q
+    G = dmsm.combine_groups(k, c, _sms(gpu))
     before = telemetry.launches().get("bucket_combine", 0)
     got = dmsm.bucket_combine(acc, c)
-    assert telemetry.launches()["bucket_combine"] - before == 1
-    assert L in telemetry.snapshot()["lanes"]["bucket_combine"]
+    assert telemetry.launches()["bucket_combine"] - before == (
+        2 if G > 1 else 1)
+    assert (L, G) in telemetry.snapshot()["lanes"]["bucket_combine"]
     assert got[0].shape == (k, W, 4)
-    assert _equal(got, dmsm.bucket_combine_plain(acc, c))
+    assert _equal(got, dmsm.bucket_combine_plain(acc, c, G))
 
 
 def test_split_msm_matches_host_on_gpu(gpu, srs):

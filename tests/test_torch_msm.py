@@ -5,9 +5,10 @@ reference's pure-Python Pippenger.
 
 The cases are those of tests/test_tpu_msm.py: a forced c = 4 window, random
 254-bit, 24-byte and 16-bit scalars, all-zero scalars, a single base, r-1,
-a nonzero base offset and skew rejection. The on-device digit grid is also
-held against the reference's numpy builder tpu/msm.py:_grid. Every
-comparison is exact (equal affine points, equal grids).
+a nonzero base offset and skew rejection. The on-device digit lanes are
+also held against the reference's numpy grid builder tpu/msm.py:_grid, and
+the plain versions of kernels 2 and 3 against big-int oracles at several
+partitions. Every comparison is exact (equal affine points, equal grids).
 """
 
 import numpy as np
@@ -21,11 +22,21 @@ from jolt_atlas_tpu.curve.native import pack_scalars
 from jolt_atlas_tpu.field.constants import FR_MODULUS
 from jolt_atlas_tpu.tpu import msm as tmsm
 from jolt_atlas_tpu_torch import convert
-from jolt_atlas_tpu_torch.device import curve, gate, msm as dmsm, telemetry
+from jolt_atlas_tpu_torch.device import curve, gate, msm as dmsm, split
+from jolt_atlas_tpu_torch.device import telemetry
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_host_threads():
+    """The csrc host engines' OpenMP threads capped likewise while this
+    file runs (the reference's wall-clock tests share the machine)."""
+    split.set_host_threads(2)
+    yield
+    split.set_host_threads(None)
 
 N = 512
 C = 4  # 64 windows x 16 buckets: small for the plain versions
@@ -153,6 +164,18 @@ def test_base_range_is_checked(setup):
         dev.msm_packed(packed, 9)
 
 
+def _grid_from_lanes(lanes, rows):
+    """The reference's (rows, L) grid layout of digit lanes: entry e of
+    lane l in row e - starts[l], -1 for an empty slot."""
+    lane, pts, starts = (t.numpy().astype(np.int64) for t in lanes)
+    L = len(starts) - 1
+    E = starts[L]
+    grid = np.full((rows, L), -1, dtype=np.int32)
+    grid[np.arange(E) - starts[lane[:E]], lane[:E]] = pts[:E]
+    assert (lane[E:] == L).all()  # the dropped digit-0 entries sort last
+    return grid
+
+
 @pytest.mark.parametrize("c", [4, 6, 12])
 @pytest.mark.parametrize("kind", ["random254", "bits16"])
 def test_digit_grid_matches_reference(c, kind):
@@ -161,10 +184,68 @@ def test_digit_grid_matches_reference(c, kind):
     sc = np.frombuffer(packed, dtype=np.uint64).reshape(-1, 4)
     want = tmsm._grid(tmsm._digits(sc, c), c)
     sct = dmsm.scalars_tensor(packed, len(scalars), "cpu")
-    got = dmsm.digit_grid(sct, c, want.shape[0])
-    assert np.array_equal(got.numpy(), want)
-    shifted = dmsm.digit_grid(sct, c, want.shape[0], offset=7)
-    assert np.array_equal(shifted.numpy(), np.where(want >= 0, want + 7, -1))
+    got = _grid_from_lanes(dmsm.digit_lanes(sct, c), want.shape[0])
+    assert np.array_equal(got, want)
+    shifted = _grid_from_lanes(dmsm.digit_lanes(sct, c, offset=7),
+                               want.shape[0])
+    assert np.array_equal(shifted, np.where(want >= 0, want + 7, -1))
+
+
+def _accum_bases(kind):
+    """The bases of an accumulate case: the SRS's own, or 64 points with
+    repeats (doublings inside a lane) and the point at infinity."""
+    from jolt_atlas_tpu_torch.curve.points import G1, g1_generator
+    if kind != "dups":
+        return None
+    g = g1_generator()
+    pts = [g * (1 + i % 5) for i in range(64)]
+    pts[3] = pts[10] = G1.identity()
+    return curve.points_to_tensors(pts, "cpu")
+
+
+def _accum_scalars(kind, n):
+    rng = np.random.default_rng(0xacc)
+    if kind == "deep":  # digit 1 in window 0 for all: one lane of n entries
+        return [int.from_bytes(rng.bytes(31), "little") << 4 | 1
+                for _ in range(n)]
+    if kind == "zeros":
+        return [0] * n
+    return [int.from_bytes(rng.bytes(32), "little") % FR_MODULUS
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("kind,n,run", [("random254", 200, 5),
+                                        ("deep", 160, 4),
+                                        ("zeros", 64, 16),
+                                        ("dups", 64, 3),
+                                        ("random254", 100, 1)])
+def test_accumulate_plain_matches_grid_oracle(setup, kind, n, run):
+    """Kernel 2's plain version at a run length against the bucket sums of
+    the reference's host grid (tpu/msm.py:_grid) in big-int points: lanes
+    cut by runs (a deep lane across many), a run length that does not
+    divide the entry count, empty lanes, all-zero scalars, repeated bases
+    and the point at infinity."""
+    from jolt_atlas_tpu_torch.curve.points import G1
+    _, _, dev = setup
+    bases = _accum_bases(kind) or dev.bases
+    base_pts = _affine(bases)
+    packed = pack_scalars(_accum_scalars(kind, n))
+    sc = np.frombuffer(packed, dtype=np.uint64).reshape(-1, 4)
+    grid = tmsm._grid(tmsm._digits(sc, C), C)
+    lanes = dmsm.digit_lanes(dmsm.scalars_tensor(packed, n, "cpu"), C)
+    E = int(lanes[2][-1])
+    if kind == "deep":
+        depth = (lanes[2][1:] - lanes[2][:-1]).max()
+        assert depth >= 3 * run and E % run  # spans >= 3 runs, ragged end
+    got = _affine(dmsm.bucket_accumulate_plain(bases, lanes, run))
+    want = []
+    for col in grid.T:
+        total = G1.identity()
+        for i in col[col >= 0]:
+            total = total + base_pts[i]
+        want.append(total)
+    assert got == want
+    assert got == _affine(dmsm.bucket_accumulate(bases, lanes, run=run))
 
 
 def test_window_and_budget_rules_match_reference():
@@ -288,6 +369,62 @@ def test_bucket_combine_plain_matches_oracle_and_loop(setup, k, c):
     pts = _affine(got)
     assert pts == _affine(_loop_combine(acc, c))
     assert pts == _oracle(acc, c)
+
+
+@pytest.fixture(scope="module")
+def group_case(setup):
+    """One MSM's bucket sums at c = 6 and their oracle window sums."""
+    c = 6
+    acc = _bucket_sums(setup[2], 1, c, seed=606)
+    return c, acc, _oracle(acc, c)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+def test_bucket_combine_plain_groups_match(group_case, groups):
+    """Kernel 3's plain version with each (MSM, window) split over G
+    blocks (at G = 8 most threads get an empty range): the oracle's window
+    sums as affine points, for every G, so every G equals G = 1."""
+    c, acc, want = group_case
+    assert _affine(dmsm.bucket_combine_plain(acc, c, groups)) == want
+
+
+def test_combine_groups_rule():
+    """Blocks per window on a 132-SM card at the prove's combine shapes:
+    one MSM at c = 14 fills 16 blocks a window (8 buckets a thread), at
+    c = 12 4 (8 a thread); a batch of 16 or 17 MSMs needs no split."""
+    assert dmsm.combine_groups(1, 14, 132) == 16
+    assert dmsm.combine_groups(1, 12, 132) == 4
+    assert dmsm.combine_groups(16, 12, 132) == 1
+    assert dmsm.combine_groups(17, 14, 132) == 1
+    for k, c in ((1, 14), (1, 12), (3, 14), (1, 4)):
+        G = dmsm.combine_groups(k, c, 132)
+        _, B, _ = dmsm.window_shape(c)
+        assert G == 1 or B // (G * dmsm.combine_threads(c)) >= 8
+
+
+def test_batch_runs_each_msm_at_its_window(setup, monkeypatch):
+    """A batch of mixed sizes (500, 37 and 2 points) with no forced window:
+    each MSM at its own window (a small-window rule stands in for _pick_c
+    so that the plain versions stay small), one combine per window size,
+    every point equal to the host MSM's."""
+    ref, prep, _ = setup
+    monkeypatch.setattr(dmsm, "_pick_c", lambda n: 5 if n > 64 else 4)
+    engine = port_srs(ref).device_bases("cpu", gate.forced("device"))
+    sc = _case("random254")
+    packed = [pack_scalars(sc[:500]), pack_scalars(sc[100:137]),
+              pack_scalars(sc[7:9])]
+    calls = []
+    combine = dmsm.bucket_combine
+
+    def spy(acc, c, groups=0):
+        calls.append((acc[0].shape[0], c))
+        return combine(acc, c, groups)
+
+    monkeypatch.setattr(dmsm, "bucket_combine", spy)
+    got = engine.msm_batch_packed(packed, [500, 37, 2])
+    want = prep.msm_batch_packed(packed)
+    assert [(p.x, p.y) for p in got] == [(p.x, p.y) for p in want]
+    assert calls == [(1, 5), (2, 4)]
 
 
 def test_bucket_combine_wrapper_and_identity(setup):

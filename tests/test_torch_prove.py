@@ -28,7 +28,7 @@ from jolt_atlas_tpu.prover import AtlasProver as RefProver
 from jolt_atlas_tpu.verifier import AtlasVerifier as RefVerifier
 from jolt_atlas_tpu_torch import convert, models, serde
 from jolt_atlas_tpu_torch.curve.points import g1_generator
-from jolt_atlas_tpu_torch.device import gate, telemetry
+from jolt_atlas_tpu_torch.device import gate, split, telemetry
 from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
@@ -36,6 +36,15 @@ from jolt_atlas_tpu_torch.verifier import AtlasVerifier
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_host_threads():
+    """The csrc host engines' OpenMP threads capped likewise while this
+    file runs (the reference's wall-clock tests share the machine)."""
+    split.set_host_threads(2)
+    yield
+    split.set_host_threads(None)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -140,6 +149,33 @@ def test_engine_carried_the_opening(bench_small):
     assert tele["launches"] == {}  # CPU tensors: plain versions only
 
 
+def test_prover_defaults_to_the_card(bench_small):
+    """Without a device argument the prover asks for the card: here, with
+    none, construction raises instead of proving on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists")
+    pp = bench_small[3]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AtlasProver(pp)
+
+
+def test_cpu_device_proves_on_the_host(bench_small):
+    """device="cpu" asks for the host path: the gate of a CPU device has no
+    measured rates, the MSM engine declines, and the bytes equal the
+    reference's."""
+    _, _, ref_bytes, pp = bench_small[:4]
+    rng = np.random.default_rng(1234)
+    ref_build_nanogpt(32, 8, 16, 1, 8, rng, heads=1)  # the fixture's draws
+    toks = rng.integers(0, 32, size=8).astype(np.int32)
+    telemetry.reset()
+    proof, _ = AtlasProver(pp, device="cpu").prove([toks])
+    tele = telemetry.snapshot()
+    assert tele["decisions"]["msm"].startswith("declined on cpu")
+    assert not any(k.startswith("msm:") for k in tele["dispatches"])
+    assert tele["launches"] == {}
+    assert serde.serialize_proof(proof) == ref_bytes
+
+
 def test_build_nanogpt_matches_reference_graph():
     rng = np.random.default_rng(1234)
     want = convert.describe_model(ref_build_nanogpt(32, 8, 16, 1, 8, rng))
@@ -181,7 +217,9 @@ def test_port_prove_imports_no_jax():
         assert not bad, bad
         print("ok")
     """)
+    # as few threads as this file's own process takes
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=dict(os.environ, OMP_NUM_THREADS="2"),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "ok"

@@ -34,6 +34,15 @@ from jolt_atlas_tpu_torch.verifier import AtlasVerifier
 # pool keeps this file from starving its neighbours' timed tests
 torch.set_num_threads(2)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_host_threads():
+    """The csrc host engines' OpenMP threads capped likewise while this
+    file runs (the reference's wall-clock tests share the machine)."""
+    split.set_host_threads(2)
+    yield
+    split.set_host_threads(None)
+
 N = 512
 C = 4  # small window: the plain versions stay quick
 
@@ -107,6 +116,7 @@ def test_host_threads_set_and_restored(setup, monkeypatch):
     and all of them back after the prefix."""
     _, prep, dev = setup
     calls = []
+    monkeypatch.setattr(split, "_HOST_THREADS", None)  # all CPUs: 8
     monkeypatch.setattr(os, "cpu_count", lambda: 8)
     monkeypatch.setattr(native._load(), "msm_set_threads", calls.append)
     packed = pack_scalars(_scalars(300))
