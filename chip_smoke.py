@@ -35,14 +35,25 @@ script exits non-zero when any phase fails:
               host point; medians of 3, alternated
   9. prove    the bench nanoGPT (4 blocks, 4 heads, d64, seq 64, vocab 65,
               random weights from seed 1234) proved by AtlasProver(pp)
-              with no device argument (the card, on the gate's routes),
-              with a forced split and on the host (device="cpu"); proof
-              bytes equal; the port's verifier accepts it and rejects a
-              flipped commitment
+              with no device argument (the card, on the gate's routes,
+              the opening reduction's rounds on the card), with a forced
+              split and on the host (device="cpu"); the reduction engine
+              must engage on the first two; proof bytes equal; the port's
+              verifier accepts it and rejects a flipped commitment
  10. trace    one more gate-path prove under torch.profiler (the device's
-              idle share, kernels 2 and 3's device ms and launches, the
+              idle share, kernels 2-6's device ms and launches, the
               busiest kernels), and one split MSM whose host prefix must
               overlap its device kernels.
+ 11. reduction  kernels 4-6 (the opening reduction's bind, q0 and tail)
+              and the BLAKE2b test kernel against their plain versions at
+              small shapes and the edges (late joiners, l1 = 0, padding
+              lanes, every weight layout of kernel 5), bit-equal, and the
+              test kernel against hashlib; kernels 4 and 5 timed at the
+              largest round of the bench's reduction (kernel 5 on that
+              round's own weight tables), kernel 6 at its lanes; the
+              engine against the host BatchedSumcheck on the bench's own
+              instances, in turns: messages, challenges, transcript state
+              and final claims equal.
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
@@ -52,14 +63,17 @@ Each path (gate calibration, split, the two device proves) runs with the
 launch counts set to 0 just before it and read just after; the kernels
 JSON sums them, and gives the traced prove's own launches. Every shape a
 path launched a kernel at (its lane count; for kernel 3 also its blocks
-per window) must be one that phases 3-5 held against the plain version,
-or the run fails. The second line from the end is that JSON, the last
-line {"ok": true, "device": {...}}. Imports nothing of JAX or
-jolt_atlas_tpu.
+per window; for kernels 4 and 5 their branch class) must be one that
+phases 3-5 and 11 held against the plain version, or the run fails. The
+second line from the end is that JSON, the last line {"ok": true,
+"device": {...}}. Imports nothing of JAX or jolt_atlas_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import hashlib
 import json
 import os
 import subprocess
@@ -121,14 +135,23 @@ def checked(results, kernel: str, lanes) -> None:
 
 # The least time the card could take (bound_ms): the larger of the bytes the
 # function must move (each input read once, each output written once) over
-# the HBM rate and its 32-bit integer multiplies over the IMAD peak. The
-# kernels are complete projective adds, 12 Montgomery products of 264
-# 32-bit multiplies each (csrc/fq.cuh); Hopper issues 64 IMADs per clock per
-# SM (CUDA C Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0), at the card's maximum SM clock (nvidia-smi).
+# the HBM rate and its 32-bit integer multiplies over the IMAD peak. Kernels
+# 1-3 are complete projective adds, 12 Montgomery products of 264 32-bit
+# multiplies each (csrc/fq.cuh); kernels 4-6 count Fr Montgomery products,
+# 264 multiplies each; the BLAKE2b step counts its 32-bit integer
+# operations (3-input adds, xors, funnel shifts) at the same rate. Hopper issues 64
+# IMADs per clock per SM (CUDA C Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), at the card's maximum SM clock
+# (nvidia-smi).
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak (NVIDIA datasheet)
-IMADS_PER_ADD = 12 * 264
+IMADS_PER_MUL = 264
+IMADS_PER_ADD = 12 * IMADS_PER_MUL
 POINT_BYTES = 3 * 32
+FR_BYTES = 32
+# one BLAKE2b compression: 12 rounds x 8 mixes x (4 u64 adds, two of them
+# 3-input, + 4 xors + 3 rotates; the rotate by 32 swaps halves), each two
+# 32-bit operations
+B2_OPS_PER_COMPRESS = 12 * 8 * 11 * 2
 
 
 def imad_peak() -> float:
@@ -140,19 +163,20 @@ def imad_peak() -> float:
     return 64 * sms * mhz * 1e6
 
 
-def bound(adds: int, nbytes: int, peak: float) -> tuple:
-    """(bound ms, "operations" or "bytes") of ``adds`` complete adds that
-    must move ``nbytes``."""
-    ops_ms = adds * IMADS_PER_ADD / peak * 1e3
+def bound(adds: int, nbytes: int, peak: float,
+          imads_per: int = IMADS_PER_ADD) -> tuple:
+    """(bound ms, "operations" or "bytes") of ``adds`` operations (complete
+    adds unless ``imads_per`` says otherwise) that must move ``nbytes``."""
+    ops_ms = adds * imads_per / peak * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                                "bytes")
 
 
 def timed(results, kernel: str, shape: str, ms: float, adds: int,
-          nbytes: int) -> str:
+          nbytes: int, imads_per: int = IMADS_PER_ADD) -> str:
     """Record one timed shape of a kernel beside its bound; its line."""
-    b, by = bound(adds, nbytes, results["imad_peak"])
+    b, by = bound(adds, nbytes, results["imad_peak"], imads_per)
     results.setdefault("timed", {}).setdefault(kernel, []).append({
         "shape": shape, "ms": ms, "bound_ms": b, "bound_by": by,
         "share": b / ms, "adds": adds})
@@ -592,12 +616,12 @@ def trace_prove(prove) -> dict:
             end = b
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
     kernels = {}
-    for kernel in ("bucket_accumulate", "bucket_combine"):
+    for kernel in ("bucket_accumulate", "bucket_combine") + REDUCTION:
         hit = [v for name, v in per.items() if kernel in name]
         kernels[kernel] = {"ms": sum(ms for ms, _ in hit),
                            "n": sum(k for _, k in hit)}
     return {"wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
-            "idle_share": 1 - busy / wall_us, "msm_kernels": kernels,
+            "idle_share": 1 - busy / wall_us, "kernels": kernels,
             "busiest": {name[:72]: {"ms": ms, "n": k}
                         for name, (ms, k) in top}}
 
@@ -642,7 +666,31 @@ def trace_split(dev, srs, n: int = (1 << 18) - 3,
     return out
 
 
-def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> None:
+REDUCTION = ("reduction_bind", "reduction_q0", "reduction_tail")
+
+
+@contextlib.contextmanager
+def capture_reduction(store: dict):
+    """Keep what the opening reduction of the proves inside starts from:
+    the accumulator, the polynomials and a copy of the transcript."""
+    from jolt_atlas_tpu_torch.poly.opening import ProverOpeningAccumulator
+    real = ProverOpeningAccumulator.prove_batch_opening
+
+    def keep(acc, poly_map, transcript, *args, **kw):
+        store.update(acc=acc, poly_map=poly_map,
+                     transcript=copy.deepcopy(transcript))
+        return real(acc, poly_map, transcript, *args, **kw)
+
+    ProverOpeningAccumulator.prove_batch_opening = keep
+    try:
+        yield store
+    finally:
+        ProverOpeningAccumulator.prove_batch_opening = real
+
+
+def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> dict:
+    """The bench prove on the gate, split and host paths; returns what its
+    opening reduction starts from (capture_reduction) for phase 11."""
     from jolt_atlas_tpu_torch import models, serde
     from jolt_atlas_tpu_torch.curve.points import g1_generator
     from jolt_atlas_tpu_torch.device import gate
@@ -672,6 +720,9 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> None:
         wall = time.time() - t0
         phases = {name: round(w, 6) for name, w, _ in profiling._EVENTS
                   if not name.startswith(" ")}
+        phases.update({name.strip(): round(w, 6)
+                       for name, w, _ in profiling._EVENTS
+                       if name.strip().startswith("reduction_")})
         return (proof, io, wall, phases,
                 torch.cuda.max_memory_allocated() / 2**20)
 
@@ -681,18 +732,24 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> None:
              ("host", {"device": "cpu"})]
     for _, how in paths[:2]:
         prove(**how)  # warm-up: first launches at each path's shapes
-    out, blobs = {}, {}
+    out, blobs, cap = {}, {}, {}
     for name, how in paths:
-        need = ("bucket_accumulate", "bucket_combine") if name != "host" \
-            else ()
-        (proof, io, wall, phases, peak), tele = counted(
-            results, need, lambda: prove(**how))
+        need = ("bucket_accumulate", "bucket_combine") + REDUCTION \
+            if name != "host" else ()
+        with (capture_reduction(cap) if name == "host"
+              else contextlib.nullcontext()):
+            (proof, io, wall, phases, peak), tele = counted(
+                results, need, lambda: prove(**how))
         if name != "host":
             d = tele["dispatches"]
             for site in ("msm:hyperkzg_fold", "msm:hyperkzg_witness"):
                 if not d.get(site):
                     raise AssertionError(f"{name}: no device MSM dispatch at "
                                          f"{site}: {tele}")
+            if not tele["decisions"].get("reduction", "").startswith(
+                    "ENGAGED"):
+                raise AssertionError(f"{name}: the reduction engine did not "
+                                     f"engage: {tele['decisions']}")
         blobs[name] = serde.serialize_proof(proof)
         out[name] = {"prove_s": wall, "phases": phases,
                      "peak_device_MiB": peak, "telemetry": tele}
@@ -718,13 +775,289 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> None:
         "bytes_equal_all_paths": True, "tamper_rejected": True,
         "paths": out}))
     trace, tele = counted(
-        results, ("bucket_accumulate", "bucket_combine"),
+        results, ("bucket_accumulate", "bucket_combine") + REDUCTION,
         lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
     results["launches_per_prove"] = tele["launches"]
     overlap = trace_split(dev, srs)
     say("trace", "gate-path prove under torch.profiler: "
         + json.dumps(trace) + "; split MSM, host prefix against the device "
         "suffix: " + json.dumps(overlap))
+    return cap
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the opening reduction's kernels and engine
+# ---------------------------------------------------------------------------
+
+def reduction_instances(cap: dict, max_rounds=None):
+    """Fresh, prepared opening-reduction instances of the captured prove
+    (those of at most ``max_rounds`` rounds) and a copy of its transcript
+    that has drawn their gamma powers."""
+    from jolt_atlas_tpu_torch.poly.opening import (_GroupReductionProver,
+                                                   _group_by_point)
+    tr = copy.deepcopy(cap["transcript"])
+    pending = cap["acc"].sorted_pending()
+    gamma = tr.challenge_scalar_powers(len(pending))
+    insts = [_GroupReductionProver(m, gamma)
+             for m in _group_by_point(pending)]
+    if max_rounds is not None:
+        insts = [i for i in insts if i.num_rounds() <= max_rounds]
+    for i in insts:
+        i.prepare(cap["poly_map"])
+    return insts, tr
+
+
+def largest_round(nrs: list) -> tuple:
+    """(round, continuing lanes, lanes, log2 lane size) of the round of a
+    reduction over instances of these round counts whose buffer is
+    largest."""
+    top = max(nrs)
+    rounds = []
+    for r in range(top):
+        lanes = sum(1 for n in nrs if top - n <= r)
+        prev = sum(1 for n in nrs if top - n <= r - 1)
+        rounds.append((lanes << (top - r), r, prev, lanes, top - r))
+    _, r, prev, lanes, lg = max(rounds)
+    return r, prev, lanes, lg
+
+
+def _check_tail(dev, gen, lanes: int, joined: int, bpl: int):
+    """Kernel 6 against its plain version on random inputs (lane 0 with
+    l1 = 0, lane 1 with l0 = 0, unjoined and zero-padding lanes): (max
+    abs error, kernel inputs, plain inputs)."""
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    d = dred.random_tail(dev, gen, lanes, joined, bpl)
+    k = {n: t.clone() for n, t in d.items()}
+    c = torch.empty((1, 4), dtype=torch.int64, device=dev)
+    msg = torch.empty((2, 4), dtype=torch.int64, device=dev)
+    args = lambda x: (x["partials"], bpl, joined, x["Q"], x["es"],
+                      x["qinit"], x["coeff"], x["l0"], x["l1"], x["inv_l1"],
+                      x["const_b0"])
+    dred.tail(*args(k), k["state"], c, msg)
+    want = dred.tail_plain(*args(d), d["state"])
+    return require_equal(f"reduction_tail ({lanes} lanes, {joined} joined)",
+                         (k["Q"], k["es"], k["state"], c, msg), want), d
+
+
+def _reduction_run(cap, dev, engine: bool, max_rounds=None):
+    """One opening reduction of the captured instances (of at most
+    ``max_rounds`` rounds), by the engine (forced onto ``dev``) or by the
+    host BatchedSumcheck: (ms, round polys, challenges, transcript state,
+    final claims, the engine's steps)."""
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    from jolt_atlas_tpu_torch.subprotocols.sumcheck import BatchedSumcheck
+    from jolt_atlas_tpu_torch.utils import profiling
+    insts, tr = reduction_instances(cap, max_rounds)
+    profiling.enable()
+    profiling._EVENTS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if engine:
+        proof, r = dred.try_prove(insts, cap["acc"], tr, dev, dred.forced(0))
+    else:
+        for i in insts:
+            i.setup_sumcheck()
+        proof, r = BatchedSumcheck.prove(insts, cap["acc"], tr)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    steps = {n.strip(): w * 1e3 for n, w, _ in profiling._EVENTS}
+    polys = [[x.v for x in cp.coeffs_except_linear_term]
+             for cp in proof.compressed_polys]
+    return (ms, polys, [x.v for x in r], tr.state,
+            [i.final_poly_claim().v for i in insts], steps)
+
+
+def bench_round_weights(insts, r: int, dev) -> tuple:
+    """Kernel 5's weight table and lane parameters at round r of the
+    engine's plan for these instances (their split-eq tables as the prove
+    builds them; claims and coefficients do not enter them)."""
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    from jolt_atlas_tpu_torch.field.scalar import Fr
+    top = max(i.num_rounds() for i in insts)
+    head = [k for k, i in enumerate(insts) if i.num_rounds() > 0]
+    plan = dred.Plan(insts, head, [Fr.zero()] * len(insts),
+                     [Fr.one()] * len(insts), top, top)
+    _, _, (t0, t1), (p0, p1), _ = plan.rounds[r]
+    return (torch.from_numpy(plan.elems[t0:t1]).to(dev),
+            torch.from_numpy(plan.ints[p0:p1]).to(dev))
+
+
+def q0_products(lanep, lg: int) -> int:
+    """The fewest Fr products q(0) = sum_j whi[j >> shift] wlo[j & mask]
+    lo[j] needs over these lanes of 2^lg: with both tables, one a term and
+    one a row of the coarser factor (sum the other weight times lo over a
+    row, then multiply once); with one table, one a row or wlo entry; with
+    none, only adds."""
+    from jolt_atlas_tpu_torch.device.reduction import ABSENT_SHIFT
+    half, n = 1 << (lg - 1), 0
+    for _, shift, _, mask in lanep.tolist():
+        rows = max(half >> shift, 1) if shift < ABSENT_SHIFT else 0
+        wlo = min(mask + 1, half) if mask else 0
+        n += half + min(rows, wlo) if rows and wlo else rows + wlo
+    return n
+
+
+def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
+                                                    (256, 175, 64),
+                                                    (256, 256, 1)),
+                    b2_n=4096) -> None:
+    """Kernels 4-6 and the BLAKE2b test kernel against their plain versions
+    at small shapes and at the edges, bit for bit, and the test kernel
+    against hashlib; kernels 4 and 5 timed at the largest round of the
+    bench's reduction, kernel 6 at its lanes, beside their bounds; the
+    engine against the host BatchedSumcheck on the bench's own instances,
+    in turns."""
+    from jolt_atlas_tpu_torch.device import blake2b as db
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    gen = np.random.default_rng(4040)
+    err = {k: 0.0 for k in REDUCTION + ("blake2b_transcript",)}
+    # -- small shapes: a first round, late joiners, a pure bind, lanes of
+    # several q0 blocks (2^13: with a table of 1024 rows, every weight
+    # layout of kernel 5) and of one element's half
+    for jp, lanes, lg, table in ((0, 3, 4, 64), (2, 5, 3, 64), (4, 4, 2, 64),
+                                 (3, 3, 13, 64), (0, 12, 13, 1024),
+                                 (1, 2, 1, 64)):
+        d = dred.random_round(dev, gen, jp, lanes, lg, table)
+        args = (d["buf"], d["init"], d["c"], d["init_off"], jp, lanes, lg)
+        out = dred.bind(*args)
+        err["reduction_bind"] = max(err["reduction_bind"], require_equal(
+            f"reduction_bind ({jp}/{lanes} lanes, 2^{lg})", [out],
+            [dred.bind_plain(*args)]))
+        checked(results, "reduction_bind", dred.bind_case(jp, lanes))
+        qa = (out, d["tab"], d["lanep"], lanes, lg)
+        err["reduction_q0"] = max(err["reduction_q0"], require_equal(
+            f"reduction_q0 ({lanes} lanes, 2^{lg})", [dred.q0(*qa)],
+            [dred.q0_plain(*qa)]))
+        checked(results, "reduction_q0", dred.q0_case(lg))
+    for lanes, joined, bpl in tail_shapes:
+        e, _ = _check_tail(dev, gen, lanes, joined, bpl)
+        err["reduction_tail"] = max(err["reduction_tail"], e)
+        checked(results, "reduction_tail", lanes)
+    hashed = 0
+    for npw in (0, 4, 9, 16, 17):
+        n = 257
+        raw, pay = gen.bytes(32 * n), gen.bytes(8 * npw * n)
+        nr = gen.integers(0, 1 << 32, size=n)
+        st = torch.from_numpy(db.bytes_to_words(raw).reshape(n, 4)).to(dev)
+        rd = torch.from_numpy(nr.astype(np.int64)).to(dev)
+        pl = torch.from_numpy(db.bytes_to_words(pay).reshape(n, npw)).to(dev)
+        got = db.transcript_step(st, rd, pl)
+        err["blake2b_transcript"] = max(
+            err["blake2b_transcript"], require_equal(
+                f"blake2b_transcript ({npw} words)", [got],
+                [db.transcript_absorb_long_plain(st, rd, pl)]))
+        out = got.cpu().numpy()
+        for i in range(n):
+            msg = (raw[32 * i:32 * i + 32] + b"\x00" * 28
+                   + int(nr[i]).to_bytes(4, "big")
+                   + pay[8 * npw * i:8 * npw * (i + 1)])
+            if db.words_to_bytes(out[i]) != hashlib.blake2b(
+                    msg, digest_size=32).digest():
+                raise AssertionError(f"blake2b_transcript differs from "
+                                     f"hashlib ({npw} words, row {i})")
+            hashed += 1
+    lines = [f"bit-equal to the plain versions at 6 round shapes, "
+             f"{len(tail_shapes)} tail shapes and 5 transcript lengths; "
+             f"{hashed} digests equal hashlib's"]
+
+    # -- timed at the bench's largest round, q0 on that round's own tables
+    insts, _ = reduction_instances(cap)
+    nrs = [i.num_rounds() for i in insts]
+    total = sum(1 << n for n in nrs)
+    r, jp, lanes, lg = largest_round(nrs)
+    tab, lanep = bench_round_weights(insts, r, dev)
+    del insts
+    d = dred.random_round(dev, gen, jp, lanes, lg)
+    args = (d["buf"], d["init"], d["c"], d["init_off"], jp, lanes, lg)
+    ms, out = cuda_ms(lambda: dred.bind(*args), 5)
+    plain_ms, want = cuda_ms(lambda: dred.bind_plain(*args), 1, warmup=False)
+    err["reduction_bind"] = max(err["reduction_bind"], require_equal(
+        "reduction_bind (bench round)", [out], [want]))
+    del want
+    nc, nn = jp << lg, (lanes - jp) << lg
+    shape = f"round {r}: {jp} of {lanes} lanes continue, 2^{lg} each"
+    lines.append("bind " + timed(results, "reduction_bind", shape, ms, nc,
+                                 (3 * nc + 2 * nn) * FR_BYTES,
+                                 IMADS_PER_MUL)
+                 + f", plain {plain_ms:.1f} ms")
+    results["reduction_bind"] = {"ms": ms, "plain_ms": plain_ms,
+                                 **results["timed"]["reduction_bind"][-1]}
+    qa = (out, tab, lanep, lanes, lg)
+    ms, part = cuda_ms(lambda: dred.q0(*qa), 5)
+    plain_ms, want = cuda_ms(lambda: dred.q0_plain(*qa), 1, warmup=False)
+    err["reduction_q0"] = max(err["reduction_q0"], require_equal(
+        "reduction_q0 (bench round)", [part], [want]))
+    terms = lanes << (lg - 1)
+    lines.append("q0 " + timed(
+        results, "reduction_q0", f"round {r}: {lanes} lanes of 2^{lg}, its "
+        f"split-eq tables", ms, q0_products(lanep.cpu(), lg),
+        (terms + tab.shape[0] + part.shape[0] + lanes) * FR_BYTES,
+        IMADS_PER_MUL) + f", plain {plain_ms:.1f} ms")
+    results["reduction_q0"] = {"ms": ms, "plain_ms": plain_ms,
+                               **results["timed"]["reduction_q0"][-1]}
+    del d, out, part, want, args, qa, tab, lanep
+    L = max(1 << (len(nrs) - 1).bit_length(), 2)
+    J, bpl = len(nrs), dred.q0_blocks(max(nrs))
+    e, t = _check_tail(dev, gen, L, J, bpl)
+    err["reduction_tail"] = max(err["reduction_tail"], e)
+    checked(results, "reduction_tail", L)
+    c = torch.empty((1, 4), dtype=torch.int64, device=dev)
+    msg = torch.empty((2, 4), dtype=torch.int64, device=dev)
+    targs = (t["partials"], bpl, J, t["Q"], t["es"], t["qinit"], t["coeff"],
+             t["l0"], t["l1"], t["inv_l1"], t["const_b0"], t["state"])
+    ms, _ = cuda_ms(lambda: dred.tail(*targs, c, msg), 20)
+    plain_ms, _ = cuda_ms(lambda: dred.tail_plain(*targs), 1, warmup=False)
+    lines.append("tail " + timed(
+        results, "reduction_tail", f"{L} lanes, {J} joined, {bpl} partials "
+        "a lane", ms, 10 * J + 3, (J * bpl + 8 * L + 4) * FR_BYTES,
+        IMADS_PER_MUL) + f", plain {plain_ms:.1f} ms")
+    results["reduction_tail"] = {"ms": ms, "plain_ms": plain_ms,
+                                 **results["timed"]["reduction_tail"][-1]}
+    st = torch.from_numpy(db.bytes_to_words(gen.bytes(32 * b2_n)).reshape(
+        b2_n, 4)).to(dev)
+    rd = torch.arange(b2_n, dtype=torch.int64, device=dev)
+    pl = torch.from_numpy(db.bytes_to_words(gen.bytes(72 * b2_n)).reshape(
+        b2_n, 9)).to(dev)
+    ms, got = cuda_ms(lambda: db.transcript_step(st, rd, pl), 20)
+    plain_ms, want = cuda_ms(lambda: db.transcript_absorb_long_plain(
+        st, rd, pl), 1, warmup=False)
+    err["blake2b_transcript"] = max(err["blake2b_transcript"], require_equal(
+        "blake2b_transcript (timed)", [got], [want]))
+    lines.append("blake2b_transcript " + timed(
+        results, "blake2b_transcript", f"{b2_n} round-message absorbs (9 "
+        "words, 2 compressions)", ms, b2_n * 2 * B2_OPS_PER_COMPRESS,
+        b2_n * (32 + 8 + 72 + 32), 1) + f", plain {plain_ms:.1f} ms")
+    results["blake2b_transcript"] = {
+        "ms": ms, "plain_ms": plain_ms,
+        **results["timed"]["blake2b_transcript"][-1]}
+    for k, v in err.items():
+        results[k]["max_abs_err"] = v
+    say("reduction", "; ".join(lines))
+
+    # -- the engine against the host sumcheck, in turns
+    report = {"instances": len(nrs), "elements": total}
+    runs = {"engine": [], "host": []}
+    for which in ("engine", "host", "host", "engine"):
+        if which == "engine" and not runs["engine"]:
+            torch.cuda.reset_peak_memory_stats()
+        runs[which].append(_reduction_run(cap, dev, which == "engine"))
+        if which == "engine" and len(runs["engine"]) == 1:
+            report["engine_peak_device_MiB"] = \
+                torch.cuda.max_memory_allocated() / 2**20
+    first = runs["host"][0][1:5]
+    for name, rs in runs.items():
+        for got in rs:
+            if got[1:5] != first:
+                raise AssertionError(
+                    f"reduction ({name}) differs from the host: messages, "
+                    "challenges, transcript state or final claims")
+    report.update({"engine_ms": [g[0] for g in runs["engine"]],
+                   "host_ms": [g[0] for g in runs["host"]],
+                   "engine_steps_ms": runs["engine"][-1][5]})
+    say("reduction", "engine against the host BatchedSumcheck on the bench's "
+        "instances (engine, host, host, engine; messages, challenges, "
+        "transcript state and final claims equal): " + json.dumps(report))
+
 
 
 KERNELS = (
@@ -734,6 +1067,17 @@ KERNELS = (
      "jolt_atlas_tpu/tpu/msm.py:211"),
     ("bucket_combine", "jolt_atlas_tpu_torch/csrc/combine.cu",
      "jolt_atlas_tpu/tpu/msm.py:356"),
+    ("reduction_bind", "jolt_atlas_tpu_torch/csrc/reduction.cu",
+     "jolt_atlas_tpu/tpu/reduction.py:176"),
+    ("reduction_q0", "jolt_atlas_tpu_torch/csrc/reduction.cu",
+     "jolt_atlas_tpu/tpu/reduction.py:153"),
+    ("reduction_tail", "jolt_atlas_tpu_torch/csrc/reduction.cu",
+     "jolt_atlas_tpu/tpu/reduction.py:193"),
+    # the device BLAKE2b (csrc/blake2b.cuh) runs inside every reduction_tail
+    # launch, counted there; its test kernel, jolt_blake2b_transcript, is
+    # what is timed and compared, and no path launches it
+    ("blake2b_transcript", "jolt_atlas_tpu_torch/csrc/blake2b.cuh",
+     "jolt_atlas_tpu/tpu/blake2b.py:75"),
 )
 
 
@@ -760,20 +1104,24 @@ def main() -> int:
     phase_msm(dev, srs)
     phase_gate(dev, results)
     phase_split(dev, srs, results)
-    phase_prove(dev, srs, results)
+    cap = phase_prove(dev, srs, results)
+    phase_reduction(dev, results, cap)
     require_checked(results)
     launches = results["launches"]
     kernels = []
     for name, src, repl in KERNELS:
         r = results[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches.get(name, 0),
-                        "launches_per_prove": results[
-                            "launches_per_prove"].get(name, 0),
-                        "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": None, "shape": r["shape"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": repl, "launches": launches.get(name, 0),
+               "launches_per_prove": results["launches_per_prove"].get(
+                   name, 0),
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None,
+               "shape": r["shape"]}
+        if name == "blake2b_transcript":
+            row["runs_in"] = "reduction_tail (device functions)"
+        kernels.append(row)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

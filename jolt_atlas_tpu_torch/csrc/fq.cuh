@@ -1,18 +1,26 @@
-// BN254 base field (Fq) Montgomery arithmetic and the complete projective
-// point add, as device functions shared by curve.cu, msm.cu and combine.cu.
+// BN254 Montgomery arithmetic over its two primes, the base field Fq and the
+// scalar field Fr, and the complete projective point add over Fq, as device
+// functions shared by curve.cu, msm.cu, combine.cu and reduction.cu.
 //
 // Replaces the register-resident body of the Pallas kernel
 // jolt_atlas_tpu/tpu/pallas_curve.py (_mont_mul, _cond_sub_p, _fadd, _fsub,
-// _pp_add_body). The TPU version worked on 16 planes of 16-bit limbs in
-// 32-bit vector lanes because its VPU has no wide multiply. Hopper has no
-// 64-bit integer multiplier either, but its 32-bit IMAD takes and gives a
-// carry flag: here one thread holds a field element as 8 x u32 Montgomery
-// limbs (R = 2^256, the same bytes as the host's 4 x u64 layout) and
-// multiplies by 32-bit CIOS, each row of partial products one PTX carry
-// chain (mad.lo.cc / madc.hi.cc / addc), with add, sub and the conditional
-// subtract as add.cc / sub.cc chains. A Montgomery product is 8 rows of
-// a * b_i and 8 of m * p: 264 32-bit multiplies. Every result is canonical
-// (< p), so the outputs are the same numbers the Pallas kernel produces.
+// _pp_add_body) and the Fr planes of jolt_atlas_tpu/tpu/fqplanes.py
+// (PlanesCtx(FR_MODULUS), used by tpu/reduction.py). The TPU version worked
+// on 16 planes of 16-bit limbs in 32-bit vector lanes because its VPU has no
+// wide multiply. Hopper has no 64-bit integer multiplier either, but its
+// 32-bit IMAD takes and gives a carry flag: here one thread holds a field
+// element as 8 x u32 Montgomery limbs (R = 2^256, the same bytes as the
+// host's 4 x u64 layout) and multiplies by 32-bit CIOS, each row of partial
+// products one PTX carry chain (mad.lo.cc / madc.hi.cc / addc), with add,
+// sub and the conditional subtract as add.cc / sub.cc chains. A Montgomery
+// product is 8 rows of a * b_i and 8 of m * p: 264 32-bit multiplies. Every
+// result is canonical (< p), so the outputs are the same numbers the
+// reference produces.
+//
+// The modulus is a template parameter: a struct of p, -p^-1 mod 2^32 and
+// R mod p (FqField, FrField). fq_* and fr_* are the two instances; the Fq
+// ones compile to the code the Fq-only core gave (device/kernel_report.py
+// compares the SASS).
 //
 // Tensor cores and TMA do not serve this work: it is 256-bit modular
 // multiplies (IMAD throughput) and random gathers of bases.
@@ -25,25 +33,47 @@ namespace jolt {
 typedef unsigned long long u64;
 typedef uint32_t u32;
 
-// p, little-endian 32-bit limbs
-__device__ __forceinline__ u32 fq_p(int i) {
-  constexpr u32 P[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
-                        0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
-  return P[i];
-}
-// -p^-1 mod 2^32
-constexpr u32 FQ_N0 = 0xe4866389u;
-// R mod p (Montgomery one)
-__device__ __forceinline__ u32 fq_one(int i) {
-  constexpr u32 ONE[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du,
-                          0x0a78eb28u, 0x7879462cu, 0x666ea36fu,
-                          0x9a07df2fu, 0x0e0a77c1u};
-  return ONE[i];
-}
+// BN254 base field: p, -p^-1 mod 2^32, R mod p (little-endian 32-bit limbs)
+struct FqField {
+  __device__ __forceinline__ static u32 p(int i) {
+    constexpr u32 P[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
+                          0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+    return P[i];
+  }
+  static constexpr u32 N0 = 0xe4866389u;
+  __device__ __forceinline__ static u32 one(int i) {
+    constexpr u32 ONE[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du,
+                            0x0a78eb28u, 0x7879462cu, 0x666ea36fu,
+                            0x9a07df2fu, 0x0e0a77c1u};
+    return ONE[i];
+  }
+};
 
-struct Fq {
+// BN254 scalar field r, the same three constants
+struct FrField {
+  __device__ __forceinline__ static u32 p(int i) {
+    constexpr u32 P[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
+                          0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+    return P[i];
+  }
+  static constexpr u32 N0 = 0xefffffffu;
+  __device__ __forceinline__ static u32 one(int i) {
+    constexpr u32 ONE[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u,
+                            0x36fc7695u, 0x7879462eu, 0x666ea36fu,
+                            0x9a07df2fu, 0x0e0a77c1u};
+    return ONE[i];
+  }
+};
+
+__device__ __forceinline__ u32 fq_p(int i) { return FqField::p(i); }
+__device__ __forceinline__ u32 fq_one(int i) { return FqField::one(i); }
+
+// a field element (of either field): 8 x u32 Montgomery limbs
+struct U256 {
   u32 v[8];
 };
+typedef U256 Fq;
+typedef U256 Fr;
 
 struct Point {  // homogeneous projective (X : Y : Z), identity (0 : 1 : 0)
   Fq x, y, z;
@@ -79,7 +109,8 @@ __device__ __forceinline__ void mad_row(u32 t[10], const u32 a[8], u32 b) {
 }
 
 // r + top * 2^256 lies in [0, 2p): subtract p once if it is >= p
-__device__ __forceinline__ void fq_cond_sub(Fq& r, u32 top) {
+template <class F>
+__device__ __forceinline__ void mont_cond_sub(U256& r, u32 top) {
   u32 d[8], hi;
   asm("sub.cc.u32  %0, %9, %17;\n\t"
       "subc.cc.u32 %1, %10, %18;\n\t"
@@ -93,9 +124,9 @@ __device__ __forceinline__ void fq_cond_sub(Fq& r, u32 top) {
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
         "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(hi)
       : "r"(r.v[0]), "r"(r.v[1]), "r"(r.v[2]), "r"(r.v[3]), "r"(r.v[4]),
-        "r"(r.v[5]), "r"(r.v[6]), "r"(r.v[7]), "r"(fq_p(0)), "r"(fq_p(1)),
-        "r"(fq_p(2)), "r"(fq_p(3)), "r"(fq_p(4)), "r"(fq_p(5)),
-        "r"(fq_p(6)), "r"(fq_p(7)), "r"(top));
+        "r"(r.v[5]), "r"(r.v[6]), "r"(r.v[7]), "r"(F::p(0)), "r"(F::p(1)),
+        "r"(F::p(2)), "r"(F::p(3)), "r"(F::p(4)), "r"(F::p(5)),
+        "r"(F::p(6)), "r"(F::p(7)), "r"(top));
   // hi = top - borrow: all ones exactly when r + top * 2^256 < p
   const bool take = hi != 0xffffffffu;
 #pragma unroll
@@ -103,32 +134,34 @@ __device__ __forceinline__ void fq_cond_sub(Fq& r, u32 top) {
 }
 
 // Montgomery product a*b/R mod p, CIOS over 32-bit words; a, b < p. The
-// running sum stays below 2p after each of the 8 steps, so t[8] <= 1 and
-// t[9] = 0 after each shift.
-__device__ __forceinline__ Fq fq_mul(const Fq& a, const Fq& b) {
+// running sum stays below 2p after each of the 8 steps (p < 2^254), so
+// t[8] <= 1 and t[9] = 0 after each shift.
+template <class F>
+__device__ __forceinline__ U256 mont_mul(const U256& a, const U256& b) {
   u32 t[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
   u32 p[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) p[j] = fq_p(j);
+  for (int j = 0; j < 8; ++j) p[j] = F::p(j);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     mad_row(t, a.v, b.v[i]);
-    const u32 m = t[0] * FQ_N0;
+    const u32 m = t[0] * F::N0;
     mad_row(t, p, m);  // t[0] becomes 0: shift down one word
 #pragma unroll
     for (int j = 0; j < 9; ++j) t[j] = t[j + 1];
     t[9] = 0;
   }
-  Fq r;
+  U256 r;
 #pragma unroll
   for (int j = 0; j < 8; ++j) r.v[j] = t[j];
-  fq_cond_sub(r, t[8]);
+  mont_cond_sub<F>(r, t[8]);
   return r;
 }
 
 // a + b < 2p < 2^255: no carry out of the top limb
-__device__ __forceinline__ Fq fq_add(const Fq& a, const Fq& b) {
-  Fq r = a;
+template <class F>
+__device__ __forceinline__ U256 mont_add(const U256& a, const U256& b) {
+  U256 r = a;
   asm("add.cc.u32  %0, %0, %8;\n\t"
       "addc.cc.u32 %1, %1, %9;\n\t"
       "addc.cc.u32 %2, %2, %10;\n\t"
@@ -141,13 +174,14 @@ __device__ __forceinline__ Fq fq_add(const Fq& a, const Fq& b) {
         "+r"(r.v[4]), "+r"(r.v[5]), "+r"(r.v[6]), "+r"(r.v[7])
       : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]),
         "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
-  fq_cond_sub(r, 0);
+  mont_cond_sub<F>(r, 0);
   return r;
 }
 
 // a - b, plus p where it borrows (branch-free: p & the borrow mask)
-__device__ __forceinline__ Fq fq_sub(const Fq& a, const Fq& b) {
-  Fq r = a;
+template <class F>
+__device__ __forceinline__ U256 mont_sub(const U256& a, const U256& b) {
+  U256 r = a;
   u32 mask;
   const u32 zero = 0;
   asm("sub.cc.u32  %0, %0, %9;\n\t"
@@ -174,10 +208,29 @@ __device__ __forceinline__ Fq fq_sub(const Fq& a, const Fq& b) {
       "addc.u32    %7, %7, %15;"
       : "+r"(r.v[0]), "+r"(r.v[1]), "+r"(r.v[2]), "+r"(r.v[3]),
         "+r"(r.v[4]), "+r"(r.v[5]), "+r"(r.v[6]), "+r"(r.v[7])
-      : "r"(fq_p(0) & mask), "r"(fq_p(1) & mask), "r"(fq_p(2) & mask),
-        "r"(fq_p(3) & mask), "r"(fq_p(4) & mask), "r"(fq_p(5) & mask),
-        "r"(fq_p(6) & mask), "r"(fq_p(7) & mask));
+      : "r"(F::p(0) & mask), "r"(F::p(1) & mask), "r"(F::p(2) & mask),
+        "r"(F::p(3) & mask), "r"(F::p(4) & mask), "r"(F::p(5) & mask),
+        "r"(F::p(6) & mask), "r"(F::p(7) & mask));
   return r;
+}
+
+__device__ __forceinline__ Fq fq_mul(const Fq& a, const Fq& b) {
+  return mont_mul<FqField>(a, b);
+}
+__device__ __forceinline__ Fq fq_add(const Fq& a, const Fq& b) {
+  return mont_add<FqField>(a, b);
+}
+__device__ __forceinline__ Fq fq_sub(const Fq& a, const Fq& b) {
+  return mont_sub<FqField>(a, b);
+}
+__device__ __forceinline__ Fr fr_mul(const Fr& a, const Fr& b) {
+  return mont_mul<FrField>(a, b);
+}
+__device__ __forceinline__ Fr fr_add(const Fr& a, const Fr& b) {
+  return mont_add<FrField>(a, b);
+}
+__device__ __forceinline__ Fr fr_sub(const Fr& a, const Fr& b) {
+  return mont_sub<FrField>(a, b);
 }
 
 __device__ __forceinline__ Point pp_identity() {
@@ -249,11 +302,11 @@ __device__ __forceinline__ Point pp_add_dev(const Point& P1,
 }
 
 // (N, 4) u64 limbs in memory are the same bytes as (N, 8) u32: two 16-byte
-// loads or stores an element
-__device__ __forceinline__ Fq load_fq(const u64* base, int64_t i) {
+// loads or stores an element (of either field)
+__device__ __forceinline__ U256 load_fq(const u64* base, int64_t i) {
   const uint4* p = reinterpret_cast<const uint4*>(base + 4 * i);
   const uint4 lo = p[0], hi = p[1];
-  Fq r;
+  U256 r;
   r.v[0] = lo.x;
   r.v[1] = lo.y;
   r.v[2] = lo.z;
@@ -265,7 +318,8 @@ __device__ __forceinline__ Fq load_fq(const u64* base, int64_t i) {
   return r;
 }
 
-__device__ __forceinline__ void store_fq(u64* base, int64_t i, const Fq& a) {
+__device__ __forceinline__ void store_fq(u64* base, int64_t i,
+                                         const U256& a) {
   uint4* p = reinterpret_cast<uint4*>(base + 4 * i);
   p[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
   p[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);

@@ -1,0 +1,360 @@
+// Kernels 4-6: the rounds of the batched opening reduction on the card, and
+// a test kernel for the device transcript.
+//
+// Replace the three XLA programs of jolt_atlas_tpu/tpu/reduction.py:
+// _bind_kernel (kernel 4), _q0_kernel (kernel 5) and _tail_kernel (kernel
+// 6, with tpu/blake2b.py inside it). The reduction is a batched sumcheck
+// over ~10^2 degree-2 instances, one per opening point, each a polynomial
+// of 2^nr Fr elements bound high-to-low; instance k joins at round
+// max_rounds - nr_k. Every joined instance is a *lane*. Lanes are numbered
+// in join order, so at round r the joined lanes are 0 .. J_r - 1 and each
+// holds 2^(max_rounds - r) elements: the working buffer is J_r segments of
+// one size, lane s at s * 2^lg. A thread finds its lane by a shift, so no
+// per-element index array is built or uploaded (the reference uploads four
+// n-entry int32 arrays a round).
+//
+// - kernel 4, bind: buf'[s, j] = lo + c (hi - lo) with lo = buf[s, j], hi =
+//   buf[s, j + 2^lg] for the lanes that continue (s < J_prev), and
+//   init[init_off[s] + j] for the lanes that join this round. Bound by
+//   bytes (one product per element against 96 bytes moved).
+// - kernel 5, q0: per lane, q(0) = sum_j whi[j >> shift] wlo[j & mask]
+//   lo[j] over the lane's lower half, mod r. Each block sums a contiguous
+//   chunk of one lane (a warp-shuffle tree, then one warp) into one
+//   canonical partial; the tail adds a lane's partials. The reference keeps
+//   16-bit lazy limb sums because the TPU has no u64; canonical sums are
+//   the same number in any order. A thread's terms are laid out so that
+//   one weight (whi, or else wlo) is the same for all of them: it sums the
+//   other weight times lo and multiplies by that one once. The split-eq
+//   tables (shift == log2(mask + 1)) then cost one product per element, and
+//   none where a table is missing. Bound by IMAD throughput.
+// - kernel 6, tail: one block, a thread a lane: q(0) from the partials,
+//   q(1) = (Q - l0 q0) / l1, the coefficient-weighted lane sums b0 (plus
+//   the constant of the lanes not yet joined) and b2, then thread 0 absorbs
+//   "UniPoly\x01" || b0 || b2 (big-endian canonical bytes) in one long
+//   absorb, squeezes, masks the digest's low 16 bytes to 125 bits and
+//   multiplies by 2^384 mod r (the challenge in Montgomery form), and every
+//   lane advances Q and its eq scalar at the challenge. A serial transcript
+//   step: bound by latency.
+//
+// Every kernel launches on the caller's stream and synchronises nothing, so
+// all rounds queue back to back with no host round trip.
+#include <cuda_runtime.h>
+
+#include "blake2b.cuh"
+#include "fq.cuh"
+
+namespace jolt {
+
+constexpr int BIND_THREADS = 256;
+constexpr int LOG_Q0_THREADS = 8;
+constexpr int Q0_THREADS = 1 << LOG_Q0_THREADS;
+constexpr int LOG_Q0_PER_THREAD = 3;  // a thread sums 8 terms
+constexpr int Q0_PER_THREAD = 1 << LOG_Q0_PER_THREAD;
+constexpr int TAIL_MAX_LANES = 1024;
+
+__device__ __forceinline__ Fr load_fr(const u64* base, int64_t i) {
+  return load_fq(base, i);
+}
+
+__device__ __forceinline__ void store_fr(u64* base, int64_t i, const Fr& a) {
+  store_fq(base, i, a);
+}
+
+__device__ __forceinline__ Fr fr_zero() {
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = 0;
+  return r;
+}
+
+__device__ __forceinline__ Fr fr_shfl_down(const Fr& a, int d) {
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    r.v[j] = __shfl_down_sync(0xffffffffu, a.v[j], d);
+  return r;
+}
+
+// Sum of x over the block (blockDim.x a multiple of 32), valid in thread 0.
+// warp_sums: 32 elements of shared memory.
+__device__ __forceinline__ Fr block_sum(Fr x, Fr* warp_sums) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) x = fr_add(x, fr_shfl_down(x, d));
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) warp_sums[warp] = x;
+  __syncthreads();
+  Fr s = fr_zero();
+  if (threadIdx.x == 0) {
+    const int nwarps = blockDim.x >> 5;
+    for (int k = 0; k < nwarps; ++k) s = fr_add(s, warp_sums[k]);
+  }
+  __syncthreads();  // warp_sums may be reused
+  return s;
+}
+
+__global__ void __launch_bounds__(BIND_THREADS)
+    reduction_bind_kernel(const u64* __restrict__ buf,
+                          const u64* __restrict__ init,
+                          const u64* __restrict__ c,
+                          const int64_t* __restrict__ init_off,
+                          u64* __restrict__ out, int64_t j_prev,
+                          int64_t n_out, int lg) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const int64_t s = i >> lg;
+  const int64_t j = i & (((int64_t)1 << lg) - 1);
+  Fr r;
+  if (s < j_prev) {
+    const int64_t lo = ((2 * s) << lg) + j;
+    const Fr a = load_fr(buf, lo);
+    const Fr b = load_fr(buf, lo + ((int64_t)1 << lg));
+    r = fr_add(a, fr_mul(fr_sub(b, a), load_fr(c, 0)));
+  } else {
+    r = load_fr(init, init_off[s] + j);
+  }
+  store_fr(out, i, r);
+}
+
+// lanep: 4 int64 a lane: whi_off, whi_shift, wlo_off, wlo_mask (tab[0] is
+// Montgomery one, the weight of a missing table; wlo_mask + 1 a power of
+// two). Block b of a lane sums its terms j in [b, b + 1) * Q0_THREADS *
+// Q0_PER_THREAD. Thread t's k-th term has the chunk index t's low kb bits,
+// then k, then t's other bits: kb = 8 puts k at the top (a warp reads 32
+// consecutive terms for every k), kb = shift - 3 in [5, 8) keeps all of a
+// thread's terms in one whi row at still 32 consecutive terms a warp read.
+// whi is then the same over a thread's terms when k's bits lie below
+// shift, wlo when they lie at or above log2(mask + 1).
+__global__ void __launch_bounds__(Q0_THREADS)
+    reduction_q0_kernel(const u64* __restrict__ buf,
+                        const u64* __restrict__ tab,
+                        const int64_t* __restrict__ lanep,
+                        u64* __restrict__ partials, int lg, int64_t bpl) {
+  __shared__ Fr warp_sums[32];
+  const int64_t s = blockIdx.x / bpl;
+  const int64_t part = blockIdx.x % bpl;
+  const int64_t half = (int64_t)1 << (lg - 1);
+  const int64_t whi_off = lanep[4 * s], wlo_off = lanep[4 * s + 2];
+  const int64_t wlo_mask = lanep[4 * s + 3];
+  const int64_t whi_shift = lanep[4 * s + 1];
+  const int sh = whi_shift < 63 ? (int)whi_shift : 63;
+  const int log_wlo = __popcll((unsigned long long)wlo_mask);
+  const int d = sh - LOG_Q0_PER_THREAD;
+  const int kb = (d >= 5 && d < LOG_Q0_THREADS) ? d : LOG_Q0_THREADS;
+  const bool hfix = kb + LOG_Q0_PER_THREAD <= sh;
+  const bool lfix = kb >= log_wlo;
+  const int64_t t = threadIdx.x;
+  const int64_t j0 = (part << (LOG_Q0_THREADS + LOG_Q0_PER_THREAD)) |
+                     (t & ((1 << kb) - 1)) |
+                     ((t >> kb) << (kb + LOG_Q0_PER_THREAD));
+  const u64* lo = buf + 4 * (s << lg);
+  Fr acc = fr_zero();
+  for (int k = 0; k < Q0_PER_THREAD; ++k) {
+    const int64_t j = j0 | ((int64_t)k << kb);
+    if (j < half) {
+      Fr x = load_fr(lo, j);
+      if (!hfix) x = fr_mul(x, load_fr(tab, whi_off + (j >> sh)));
+      if (!lfix) x = fr_mul(x, load_fr(tab, wlo_off + (j & wlo_mask)));
+      acc = fr_add(acc, x);
+    }
+  }
+  if (j0 < half) {  // j0 is the thread's least term
+    if (hfix) acc = fr_mul(acc, load_fr(tab, whi_off + (j0 >> sh)));
+    if (lfix) acc = fr_mul(acc, load_fr(tab, wlo_off + (j0 & wlo_mask)));
+  }
+  acc = block_sum(acc, warp_sums);
+  if (threadIdx.x == 0) store_fr(partials, blockIdx.x, acc);
+}
+
+// state: 4 u64 transcript state words, then n_rounds; msg: b0, b2
+__global__ void reduction_tail_kernel(
+    const u64* __restrict__ partials, int64_t bpl, int64_t joined,
+    int64_t lanes, u64* __restrict__ Q, u64* __restrict__ es,
+    const u64* __restrict__ qinit, const u64* __restrict__ coeff,
+    const u64* __restrict__ l0p, const u64* __restrict__ l1p,
+    const u64* __restrict__ inv_l1p, const u64* __restrict__ const_b0,
+    u64* __restrict__ state, u64* __restrict__ c_out,
+    u64* __restrict__ msg) {
+  __shared__ Fr warp_sums[32];
+  __shared__ Fr c_shared;
+  const int64_t t = threadIdx.x;
+  const bool in = t < joined;
+  Fr q0 = fr_zero(), dq = fr_zero(), dl = fr_zero(), l0 = fr_zero();
+  Fr esv = fr_zero(), s0 = fr_zero(), s2 = fr_zero();
+  if (in) {
+    for (int64_t k = 0; k < bpl; ++k)
+      q0 = fr_add(q0, load_fr(partials, t * bpl + k));
+    l0 = load_fr(l0p, t);
+    esv = load_fr(es, t);
+    const Fr l0q0 = fr_mul(l0, q0);
+    const Fr q1 = fr_mul(fr_sub(load_fr(Q, t), l0q0), load_fr(inv_l1p, t));
+    dq = fr_sub(q1, q0);
+    dl = fr_sub(load_fr(l1p, t), l0);
+    const Fr cf = load_fr(coeff, t);
+    s0 = fr_mul(cf, fr_mul(esv, l0q0));
+    s2 = fr_mul(cf, fr_mul(esv, fr_mul(dl, dq)));
+  }
+  Fr b0 = block_sum(s0, warp_sums);
+  const Fr b2 = block_sum(s2, warp_sums);
+  if (t == 0) {
+    b0 = fr_add(b0, load_fr(const_b0, 0));
+    store_fr(msg, 0, b0);
+    store_fr(msg, 1, b2);
+    Fr raw_one = fr_zero();
+    raw_one.v[0] = 1;
+    const Fr cb0 = fr_mul(b0, raw_one);  // canonical
+    const Fr cb2 = fr_mul(b2, raw_one);
+    u64 payload[9];
+    payload[0] = 0x01796c6f50696e55ull;  // "UniPoly\x01"
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // 32 bytes big-endian: limb 3 first
+      const int k = 3 - j;
+      payload[1 + j] =
+          bswap64((u64)cb0.v[2 * k] | ((u64)cb0.v[2 * k + 1] << 32));
+      payload[5 + j] =
+          bswap64((u64)cb2.v[2 * k] | ((u64)cb2.v[2 * k + 1] << 32));
+    }
+    u64 st[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st[i] = state[i];
+    const u32 n = (u32)state[4];
+    transcript_absorb_long(st, n, payload, 9);
+    transcript_squeeze(st, n + 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) state[i] = st[i];
+    state[4] = n + 2;
+    // digest bytes 0..15 little-endian, masked to 125 bits, times 2^-128:
+    // in Montgomery form, the masked value times 2^384 mod r
+    Fr ch = fr_zero();
+    ch.v[0] = (u32)st[0];
+    ch.v[1] = (u32)(st[0] >> 32);
+    ch.v[2] = (u32)st[1];
+    ch.v[3] = (u32)(st[1] >> 32) & 0x1fffffffu;
+    Fr two384;  // 2^384 mod r
+    constexpr u32 T384[8] = {0xef8cfeb9u, 0xb075da81u, 0xa5b6cd8cu,
+                             0xa7f12accu, 0x7957bf7bu, 0x32c47504u,
+                             0x48ffa25eu, 0x03d581d7u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) two384.v[j] = T384[j];
+    c_shared = fr_mul(ch, two384);
+    store_fr(c_out, 0, c_shared);
+  }
+  __syncthreads();
+  if (t < lanes) {
+    if (in) {
+      const Fr c = c_shared;
+      store_fr(Q, t, fr_add(q0, fr_mul(dq, c)));
+      store_fr(es, t, fr_mul(esv, fr_add(l0, fr_mul(dl, c))));
+    } else {
+      store_fr(Q, t, load_fr(qinit, t));
+    }
+  }
+}
+
+// n independent transcript steps: squeeze (np = 0), absorb (np = 4) or a
+// long absorb (any other np) of states[i] at n_rounds[i] with payload
+// words payload[i * np ..]
+__global__ void blake2b_transcript_kernel(const u64* __restrict__ states,
+                                          const int64_t* __restrict__ n_rounds,
+                                          const u64* __restrict__ payload,
+                                          int np, int64_t n,
+                                          u64* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  u64 st[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) st[k] = states[4 * i + k];
+  const u32 nr = (u32)n_rounds[i];
+  if (np == 0) {
+    transcript_squeeze(st, nr);
+  } else if (np == 4) {
+    transcript_absorb(st, nr, payload + 4 * i);
+  } else {
+    transcript_absorb_long(st, nr, payload + (int64_t)np * i, np);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[4 * i + k] = st[k];
+}
+
+}  // namespace jolt
+
+// Every array below is (n, 4) u64 Montgomery limbs unless said otherwise;
+// each function launches on `stream`, allocates nothing and returns
+// cudaGetLastError().
+
+// out = J segments of 2^lg: the lanes s < j_prev bound from buf (segments
+// of 2^(lg + 1)) at the challenge c[0], the others copied from init at
+// init_off[s] (int64); n_out = J << lg.
+extern "C" int jolt_reduction_bind(const void* buf, const void* init,
+                                   const void* c, const void* init_off,
+                                   void* out, int64_t j_prev, int64_t n_out,
+                                   int lg, void* stream) {
+  using jolt::u64;
+  if (n_out <= 0) return 0;
+  const int64_t blocks =
+      (n_out + jolt::BIND_THREADS - 1) / jolt::BIND_THREADS;
+  jolt::reduction_bind_kernel<<<(unsigned)blocks, jolt::BIND_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+      (const u64*)buf, (const u64*)init, (const u64*)c,
+      (const int64_t*)init_off, (u64*)out, j_prev, n_out, lg);
+  return (int)cudaGetLastError();
+}
+
+// partials[s * bpl + b] = the sum of chunk b (Q0_THREADS * Q0_PER_THREAD
+// = 2048 elements) of lane s's q(0) terms, for s < lanes; buf holds the
+// lanes in segments of 2^lg (lg >= 1); bpl = the chunks of a lane's half;
+// lanep as the kernel's.
+extern "C" int jolt_reduction_q0(const void* buf, const void* tab,
+                                 const void* lanep, void* partials,
+                                 int64_t lanes, int lg, int64_t bpl,
+                                 void* stream) {
+  using jolt::u64;
+  if (lanes <= 0) return 0;
+  constexpr int64_t chunk = jolt::Q0_THREADS * jolt::Q0_PER_THREAD;
+  if (lg < 1 || bpl != (((int64_t)1 << (lg - 1)) + chunk - 1) / chunk)
+    return (int)cudaErrorInvalidValue;
+  jolt::reduction_q0_kernel<<<(unsigned)(lanes * bpl), jolt::Q0_THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      (const u64*)buf, (const u64*)tab, (const int64_t*)lanep,
+      (u64*)partials, lg, bpl);
+  return (int)cudaGetLastError();
+}
+
+// One round's message, transcript step and challenge over `lanes` lanes
+// (at most 1024), the first `joined` of them joined; Q and es advance in
+// place, state (5 u64) too; c_out gets the challenge, msg (2 elements) b0
+// and b2.
+extern "C" int jolt_reduction_tail(const void* partials, int64_t bpl,
+                                   int64_t joined, int64_t lanes, void* Q,
+                                   void* es, const void* qinit,
+                                   const void* coeff, const void* l0,
+                                   const void* l1, const void* inv_l1,
+                                   const void* const_b0, void* state,
+                                   void* c_out, void* msg, void* stream) {
+  using jolt::u64;
+  if (lanes < 1 || lanes > jolt::TAIL_MAX_LANES || joined > lanes)
+    return (int)cudaErrorInvalidValue;
+  const int threads = (int)((lanes + 31) / 32 * 32);
+  jolt::reduction_tail_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
+      (const u64*)partials, bpl, joined, lanes, (u64*)Q, (u64*)es,
+      (const u64*)qinit, (const u64*)coeff, (const u64*)l0, (const u64*)l1,
+      (const u64*)inv_l1, (const u64*)const_b0, (u64*)state, (u64*)c_out,
+      (u64*)msg);
+  return (int)cudaGetLastError();
+}
+
+// out[i] (4 u64) = the transcript state after one step on states[i] (4
+// u64) at n_rounds[i] (int64) with np payload words each, for i < n.
+extern "C" int jolt_blake2b_transcript(const void* states,
+                                       const void* n_rounds,
+                                       const void* payload, int np, int64_t n,
+                                       void* out, void* stream) {
+  using jolt::u64;
+  if (n <= 0) return 0;
+  if (np < 0) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  jolt::blake2b_transcript_kernel<<<(unsigned)((n + threads - 1) / threads),
+                                    threads, 0, (cudaStream_t)stream>>>(
+      (const u64*)states, (const int64_t*)n_rounds, (const u64*)payload, np,
+      n, (u64*)out);
+  return (int)cudaGetLastError();
+}

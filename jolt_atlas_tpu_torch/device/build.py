@@ -4,7 +4,8 @@ Two kinds of shared library, both loaded with ctypes:
 
 - the host C++ engines from the repo's ``csrc/`` (``msm.cpp``,
   ``frvec.cpp``), compiled with g++ for the CPU this process runs on;
-- the port's CUDA kernels, ``jolt_atlas_tpu_torch/csrc/*.cu``, compiled
+- the port's CUDA kernels, ``jolt_atlas_tpu_torch/csrc/*.cu`` (curve,
+  msm, combine, reduction), compiled
   with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
   started together, and linked into one library with a plain C interface.
   ptxas reports each kernel's registers, spills and shared memory
@@ -174,6 +175,21 @@ def ptxas_report() -> str:
         return f.read()
 
 
+_VP, _I64, _CI = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+# The C signature of every kernel entry point of csrc/*.cu (each returns
+# int, a cudaError_t)
+SIGNATURES = {
+    "jolt_pp_add": [_VP] * 9 + [_I64, _VP],
+    "jolt_bucket_accumulate": [_VP] * 6 + [_I64, _I64, _CI] + [_VP] * 10,
+    "jolt_bucket_combine": [_VP] * 3 + [_I64, _CI, _CI, _I64, _CI, _CI]
+    + [_VP] * 7,
+    "jolt_reduction_bind": [_VP] * 5 + [_I64, _I64, _CI, _VP],
+    "jolt_reduction_q0": [_VP] * 4 + [_I64, _CI, _I64, _VP],
+    "jolt_reduction_tail": [_VP, _I64, _I64, _I64] + [_VP] * 12,
+    "jolt_blake2b_transcript": [_VP] * 3 + [_CI, _I64, _VP, _VP],
+}
+
 _CUDA = None
 
 
@@ -182,15 +198,9 @@ def cuda_library():
     global _CUDA
     if _CUDA is None:
         lib = ctypes.CDLL(cuda_library_path())
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.jolt_pp_add.argtypes = [vp] * 9 + [i64, vp]
-        lib.jolt_pp_add.restype = ctypes.c_int
-        lib.jolt_bucket_accumulate.argtypes = [vp] * 6 + [
-            i64, i64, ctypes.c_int] + [vp] * 10
-        lib.jolt_bucket_accumulate.restype = ctypes.c_int
-        lib.jolt_bucket_combine.argtypes = [vp] * 3 + [
-            i64, ctypes.c_int, ctypes.c_int, i64, ctypes.c_int,
-            ctypes.c_int] + [vp] * 7
-        lib.jolt_bucket_combine.restype = ctypes.c_int
+        for name, args in SIGNATURES.items():
+            f = getattr(lib, name)
+            f.argtypes = args
+            f.restype = ctypes.c_int
         _CUDA = lib
     return _CUDA

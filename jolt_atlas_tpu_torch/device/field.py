@@ -1,8 +1,12 @@
-"""BN254 base-field (Fq) Montgomery arithmetic on limb tensors: the plain
-PyTorch versions behind the CUDA curve kernels.
+"""BN254 Montgomery arithmetic on limb tensors, over either prime: the base
+field Fq (the curve kernels) and the scalar field Fr (the opening
+reduction). The plain PyTorch versions behind the CUDA kernels.
 
-Counterpart of jolt_atlas_tpu/tpu/fqplanes.py and the field helpers of
-tpu/pallas_curve.py (``_mont_mul``, ``_cond_sub_p``, ``_fadd``, ``_fsub``).
+Counterpart of jolt_atlas_tpu/tpu/fqplanes.py (``PlanesCtx``, built with
+FQ_MODULUS by the curve code and with FR_MODULUS by tpu/reduction.py) and
+the field helpers of tpu/pallas_curve.py (``_mont_mul``, ``_cond_sub_p``,
+``_fadd``, ``_fsub``). ``PrimeField(modulus)`` is one field; ``FQ`` and
+``FR`` are the two, and the module-level names are FQ's.
 
 Layout. The port keeps field elements in the host's layout: ``(n, 4)``
 64-bit little-endian Montgomery limbs with R = 2^256, held in an int64
@@ -23,15 +27,10 @@ from __future__ import annotations
 
 import torch
 
-from ..field.constants import FQ_MODULUS
+from ..field.constants import FQ_MODULUS, FR_MODULUS
 
 NLIMBS = 16
 MASK = 0xFFFF
-P = FQ_MODULUS
-R_MONT = (1 << 256) % P
-N0INV = (-pow(P, -1, 1 << 16)) % (1 << 16)
-P_LIMBS = [(P >> (16 * i)) & MASK for i in range(NLIMBS)]
-MONT_ONE_LIMBS = [(R_MONT >> (16 * i)) & MASK for i in range(NLIMBS)]
 
 
 def _u64_to_i64(v: int) -> int:
@@ -46,18 +45,6 @@ def int_to_limbs64(x: int) -> list[int]:
 def limbs64_to_int(row) -> int:
     return sum((int(v) & ((1 << 64) - 1)) << (64 * i)
                for i, v in enumerate(row))
-
-
-MONT_ONE_64 = int_to_limbs64(R_MONT)
-P_64 = int_to_limbs64(P)
-
-
-def to_mont(x: int) -> int:
-    return x % P * R_MONT % P
-
-
-def from_mont(x: int) -> int:
-    return x * pow(R_MONT, -1, P) % P
 
 
 def ints_to_tensor(values, device=None) -> torch.Tensor:
@@ -95,10 +82,6 @@ def _const_planes(limbs: list[int], device) -> torch.Tensor:
     return torch.tensor(limbs, dtype=torch.int64, device=device)[:, None]
 
 
-# ---------------------------------------------------------------------------
-# plain arithmetic on planes
-# ---------------------------------------------------------------------------
-
 def _carry(t: torch.Tensor) -> torch.Tensor:
     """Propagate carries (and borrows: shifts are arithmetic) through the
     planes of t in place until every plane but the top one is in
@@ -111,58 +94,109 @@ def _carry(t: torch.Tensor) -> torch.Tensor:
         t[1:] += c
 
 
-def cond_sub_p(t: torch.Tensor) -> torch.Tensor:
-    """(17, n) planes holding a value in [0, 2p) -> canonical (16, n)."""
-    t = _carry(t)
-    d = t.clone()
-    d[:NLIMBS] -= _const_planes(P_LIMBS, t.device)
-    d = _carry(d)
-    keep = d[NLIMBS] < 0  # value < p
-    return torch.where(keep, t[:NLIMBS], d[:NLIMBS])
+class PrimeField:
+    """Montgomery arithmetic mod one prime p < 2^254, R = 2^256: plain
+    versions on (16, n) planes (``mul``, ``add``, ``sub``) and on the
+    (n, 4) host layout (``mul4``, ``add4``, ``sub4``)."""
+
+    def __init__(self, modulus: int):
+        self.P = modulus
+        self.R_MONT = (1 << 256) % modulus
+        self.N0INV = (-pow(modulus, -1, 1 << 16)) % (1 << 16)
+        self.P_LIMBS = [(modulus >> (16 * i)) & MASK for i in range(NLIMBS)]
+        self.MONT_ONE_LIMBS = [(self.R_MONT >> (16 * i)) & MASK
+                               for i in range(NLIMBS)]
+        self.MONT_ONE_64 = int_to_limbs64(self.R_MONT)
+        self.P_64 = int_to_limbs64(modulus)
+
+    def to_mont(self, x: int) -> int:
+        return x % self.P * self.R_MONT % self.P
+
+    def from_mont(self, x: int) -> int:
+        return x * pow(self.R_MONT, -1, self.P) % self.P
+
+    def cond_sub_p(self, t: torch.Tensor) -> torch.Tensor:
+        """(17, n) planes holding a value in [0, 2p) -> canonical (16, n)."""
+        t = _carry(t)
+        d = t.clone()
+        d[:NLIMBS] -= _const_planes(self.P_LIMBS, t.device)
+        d = _carry(d)
+        keep = d[NLIMBS] < 0  # value < p
+        return torch.where(keep, t[:NLIMBS], d[:NLIMBS])
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Montgomery product a*b/R mod p of canonical (16, n) planes:
+        16-step CIOS on 16-bit limbs (the same steps as
+        pallas_curve._mont_mul), with the in-row carries left lazy and
+        settled once at the end. b may be one column (16, 1)."""
+        n = max(a.shape[1], b.shape[1])
+        p_col = _const_planes(self.P_LIMBS, a.device)
+        t = torch.zeros((2 * NLIMBS + 1, n), dtype=torch.int64,
+                        device=a.device)
+        for i in range(NLIMBS):
+            t[i:i + NLIMBS].addcmul_(b, a[i])
+            m = (t[i] * self.N0INV) & MASK
+            t[i:i + NLIMBS].addcmul_(p_col, m)
+            t[i + 1] += t[i] >> 16  # t[i] is now a multiple of 2^16
+        return self.cond_sub_p(t[NLIMBS:])
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        t = torch.zeros((NLIMBS + 1, max(a.shape[1], b.shape[1])),
+                        dtype=torch.int64, device=a.device)
+        torch.add(a, b, out=t[:NLIMBS])
+        return self.cond_sub_p(t)
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """(a - b) mod p as a + p - b, which lies in (0, 2p)."""
+        t = torch.zeros((NLIMBS + 1, max(a.shape[1], b.shape[1])),
+                        dtype=torch.int64, device=a.device)
+        torch.sub(a, b, out=t[:NLIMBS])
+        t[:NLIMBS] += _const_planes(self.P_LIMBS, a.device)
+        return self.cond_sub_p(t)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """(16, m, k) planes -> (16, m): the sums over the last axis, by a
+        halving tree (zero-padded to a power of two)."""
+        k = x.shape[2]
+        width = 1 << max(k - 1, 0).bit_length()
+        if width > k:
+            x = torch.cat([x, x.new_zeros(x.shape[:2] + (width - k,))], 2)
+        while x.shape[2] > 1:
+            h = x.shape[2] // 2
+            m = x.shape[1]
+            s = self.add(x[:, :, :h].reshape(NLIMBS, -1),
+                         x[:, :, h:].reshape(NLIMBS, -1))
+            x = s.reshape(NLIMBS, m, h)
+        return x[:, :, 0]
+
+    # -- the same on the (n, 4) host layout
+    def mul4(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return from_planes(self.mul(to_planes(a), to_planes(b)))
+
+    def add4(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return from_planes(self.add(to_planes(a), to_planes(b)))
+
+    def sub4(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return from_planes(self.sub(to_planes(a), to_planes(b)))
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a*b/R mod p of canonical (16, n) planes: 16-step
-    CIOS on 16-bit limbs (the same steps as pallas_curve._mont_mul), with
-    the in-row carries left lazy and settled once at the end."""
-    n = a.shape[1]
-    p_col = _const_planes(P_LIMBS, a.device)
-    t = torch.zeros((2 * NLIMBS + 1, n), dtype=torch.int64, device=a.device)
-    for i in range(NLIMBS):
-        t[i:i + NLIMBS].addcmul_(b, a[i])
-        m = (t[i] * N0INV) & MASK
-        t[i:i + NLIMBS].addcmul_(p_col, m)
-        t[i + 1] += t[i] >> 16  # t[i] is now a multiple of 2^16
-    return cond_sub_p(t[NLIMBS:])
+FQ = PrimeField(FQ_MODULUS)
+FR = PrimeField(FR_MODULUS)
 
-
-def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    t = torch.zeros((NLIMBS + 1, a.shape[1]), dtype=torch.int64,
-                    device=a.device)
-    torch.add(a, b, out=t[:NLIMBS])
-    return cond_sub_p(t)
-
-
-def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a - b) mod p as a + p - b, which lies in (0, 2p)."""
-    t = torch.zeros((NLIMBS + 1, a.shape[1]), dtype=torch.int64,
-                    device=a.device)
-    torch.sub(a, b, out=t[:NLIMBS])
-    t[:NLIMBS] += _const_planes(P_LIMBS, a.device)
-    return cond_sub_p(t)
-
-
-# ---------------------------------------------------------------------------
-# the same on the (n, 4) host layout
-# ---------------------------------------------------------------------------
-
-def mul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return from_planes(mul(to_planes(a), to_planes(b)))
-
-
-def add4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return from_planes(add(to_planes(a), to_planes(b)))
-
-
-def sub4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return from_planes(sub(to_planes(a), to_planes(b)))
+# the base field's names, as the curve code uses them
+P = FQ.P
+R_MONT = FQ.R_MONT
+N0INV = FQ.N0INV
+P_LIMBS = FQ.P_LIMBS
+MONT_ONE_LIMBS = FQ.MONT_ONE_LIMBS
+MONT_ONE_64 = FQ.MONT_ONE_64
+P_64 = FQ.P_64
+to_mont = FQ.to_mont
+from_mont = FQ.from_mont
+cond_sub_p = FQ.cond_sub_p
+mul = FQ.mul
+add = FQ.add
+sub = FQ.sub
+mul4 = FQ.mul4
+add4 = FQ.add4
+sub4 = FQ.sub4

@@ -1,14 +1,18 @@
 """What the compiler made of the port's CUDA kernels: ptxas's registers,
-spills and shared memory per kernel, and the SASS of one Fq product.
+spills and shared memory per kernel, a digest of each kernel's SASS, and
+the SASS of one Fq product.
 
     python -m jolt_atlas_tpu_torch.device.kernel_report [-DNAME=V ...] \
         [CSRC_DIR ...]
 
 For each directory of kernel sources (default: the port's own csrc/), it
 compiles every .cu for sm_90a with ``-Xptxas -v`` and reads each kernel's
-registers, spill bytes and shared memory; then it compiles a probe kernel
-that does one ``fq_mul`` of that directory's ``fq.cuh`` and counts the
-probe's SASS instructions by opcode (``cuobjdump -sass``), IMADs apart.
+registers, spill bytes and shared memory, and each kernel's SASS
+(``cuobjdump -sass``) as an instruction count and a digest of its text, so
+two copies of the sources (e.g. a parent commit's) can be shown to compile
+a kernel to the same code; then it compiles a probe kernel that does one
+``fq_mul`` of that directory's ``fq.cuh`` and counts the probe's SASS
+instructions by opcode, IMADs apart.
 ``-D`` options go to nvcc (e.g. a kernel's launch-bound macro). One JSON
 line per directory. Needs nvcc and cuobjdump (the CUDA toolkit),
 so it runs on the GPU machine only.
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import collections
 import glob
+import hashlib
 import json
 import os
 import re
@@ -97,6 +102,53 @@ def ptxas(csrc: str, defines: tuple = ()) -> dict:
         return parse_ptxas("".join(logs))
 
 
+_SASS_INSN = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);")
+
+
+def parse_sass(text: str) -> dict:
+    """{kernel: {"instructions", "digest"}} from cuobjdump -sass output:
+    the digest hashes each instruction's text (addresses and encodings
+    left out)."""
+    out: dict = {}
+    name, insns = None, []
+
+    def close():
+        if name is not None:
+            out[_kernel_name(name)] = {
+                "instructions": len(insns),
+                "digest": hashlib.sha256(
+                    "\n".join(insns).encode()).hexdigest()[:16]}
+
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            name, insns = m.group(1), []
+            continue
+        m = _SASS_INSN.match(line)
+        if m and name is not None:
+            insns.append(" ".join(m.group(1).split()))
+    close()
+    return out
+
+
+def sass(csrc: str, defines: tuple = ()) -> dict:
+    """parse_sass of every kernel of csrc/*.cu (one nvcc each, in
+    parallel)."""
+    nvcc = build.nvcc_path()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    srcs = sorted(glob.glob(os.path.join(csrc, "*.cu")))
+
+    def one(tmp, src):
+        cubin = os.path.join(tmp, os.path.basename(src) + ".cubin")
+        _run([nvcc, *ARCH, *defines, "-I", csrc, "-cubin", src, "-o", cubin])
+        return _run([cuobjdump, "-sass", cubin])
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(
+            len(srcs) or 1) as ex:
+        return parse_sass("".join(ex.map(lambda s: one(tmp, s), srcs)))
+
+
 def fq_mul_sass(csrc: str) -> dict:
     """SASS instruction counts of a kernel that loads two Fq elements,
     multiplies them once with csrc/fq.cuh's fq_mul and stores the result:
@@ -127,6 +179,7 @@ def fq_mul_sass(csrc: str) -> dict:
 def report(csrc: str, defines: tuple = ()) -> dict:
     return {"csrc": csrc, "defines": list(defines),
             "kernels": ptxas(csrc, defines),
+            "sass": sass(csrc, defines),
             "fq_mul_sass": fq_mul_sass(csrc)}
 
 

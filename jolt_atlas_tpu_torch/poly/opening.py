@@ -143,8 +143,8 @@ class _GroupReductionProver(RowsInstance, SumcheckInstanceProver):
                         OPENING_SUMCHECK_DEGREE, eq_r=self.point)
 
     def resume_from_device(self, rows, local_round: int, se) -> None:
-        """Install mid-sumcheck state fetched from the TPU head rounds
-        (tpu/reduction.py): partially-bound rows + a SplitEq whose scalar
+        """Install mid-sumcheck state fetched from the device rounds
+        (device/reduction.py): partially-bound rows + a SplitEq whose scalar
         has been replayed through the consumed challenges."""
         from ..field.frvec import GruenInstance
         self._rows_deg = OPENING_SUMCHECK_DEGREE
@@ -239,26 +239,37 @@ class ProverOpeningAccumulator:
         return [self.pending[k] for k in sorted(self.pending, key=OpeningId.sort_key)]
 
     # -- batch opening reduction ------------------------------------------
-    def prove_batch_opening(self, poly_map, transcript):
+    def prove_batch_opening(self, poly_map, transcript, device=None,
+                            gate=None):
         """Runs the point-grouped batched reduction sumcheck; returns
         (sumcheck_proof, r_sumcheck, group_claims, joint_fvec) where
         joint_fvec (length 2^max_rounds) is the delta-RLC of the group RLC
-        polynomials, ready for the single HyperKZG opening."""
+        polynomials, ready for the single HyperKZG opening. ``device`` and
+        ``gate`` (device/reduction.py) decide whether its rounds run on the
+        card; the proof bytes are the same either way."""
         pending = self.sorted_pending()
         gamma_powers = transcript.challenge_scalar_powers(len(pending))
         instances = [_GroupReductionProver(m, gamma_powers)
                      for m in _group_by_point(pending)]
         for inst in instances:
             inst.prepare(poly_map)
-        # the device-resident reduction (jolt_atlas_tpu/tpu/reduction.py)
-        # and its mesh-sharded form are not ported yet: host sumcheck
-        from ..device import telemetry
+        # zk mode keeps the host path: the device engine produces cleartext
+        # round messages; BatchedSumcheck.prove dispatches to the
+        # Pedersen-committed zk variant itself. The mesh-sharded form
+        # (jolt_atlas_tpu/parallel/shardedreduction.py) is not ported.
+        from ..device import reduction, telemetry
         from ..subprotocols.sumcheck import zk_mode
+        res = None
         if zk_mode.gens() is None:
-            telemetry.decide("reduction", "not ported")
-        for inst in instances:
-            inst.setup_sumcheck()
-        proof, r_sumcheck = BatchedSumcheck.prove(instances, self, transcript)
+            res = reduction.try_prove(instances, self, transcript, device,
+                                      gate)
+        else:
+            telemetry.decide("reduction", "zk")
+        if res is None:
+            for inst in instances:
+                inst.setup_sumcheck()
+            res = BatchedSumcheck.prove(instances, self, transcript)
+        proof, r_sumcheck = res
         group_claims = [inst.final_poly_claim() for inst in instances]
         transcript.append_scalars(group_claims)
         delta_powers = transcript.challenge_scalar_powers(len(group_claims))
@@ -283,8 +294,11 @@ class ProverOpeningAccumulator:
         the joint polynomial opens through the masked HyperKZG protocol
         (subprotocols/zk_opening.py). Returns (zk_sumcheck_proof,
         zk_joint_opening_proof)."""
+        from ..device import telemetry
         from ..subprotocols.zk_opening import ZkJointOpening
         from ..subprotocols.zk_sumcheck import ZkBatchedSumcheck
+        # the zk reduction commits its round messages: host path
+        telemetry.decide("reduction", "zk")
         pending = self.sorted_pending()
         gamma_powers = transcript.challenge_scalar_powers(len(pending))
         instances = [_GroupReductionProver(m, gamma_powers)

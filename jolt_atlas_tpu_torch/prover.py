@@ -93,7 +93,7 @@ def _maybe_device_iop_scope():
 class AtlasProver:
     def __init__(self, preprocessing: AtlasPreprocessing,
                  transcript_factory=Blake2bTranscript, device="cuda",
-                 msm_window: int = 0, msm_gate=None):
+                 msm_window: int = 0, msm_gate=None, reduction_gate=None):
         # transcript_factory: Blake2bTranscript (default, matching the
         # reference) or transcripts.KeccakTranscript — must match verifier
         # device: the card by default, whose device MSM engine
@@ -107,6 +107,11 @@ class AtlasProver:
         # never inside prove(). A CPU device's gate keeps every MSM on the
         # host; a forced one runs the kernels' plain versions there.
         # msm_window: forced MSM window size c (0: chosen per MSM size)
+        # reduction_gate: when the opening reduction's rounds run on the
+        # device (device/reduction.py); None: on a CUDA device once its
+        # rows total the size floor. reduction.forced(tail_rounds=t) runs
+        # them on any device at any size (a CPU device: the plain
+        # versions), the last t rounds on the host.
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AtlasProver: no CUDA device; pass "
@@ -121,6 +126,7 @@ class AtlasProver:
             from .device import gate as dgate
             msm_gate = dgate.for_device(device)
         self.msm_gate = msm_gate
+        self.reduction_gate = reduction_gate
 
     def _msm_engine(self):
         """(the device MSM engine or None, the gate that routes the MSMs)."""
@@ -302,7 +308,9 @@ class AtlasProver:
             else:
                 with span("batch_opening_reduction"):
                     (bo_proof, r_sumcheck, reduced_claims, joint) = \
-                        accumulator.prove_batch_opening(poly_map, transcript)
+                        accumulator.prove_batch_opening(
+                            poly_map, transcript, self.device,
+                            self.reduction_gate)
                 with span("hyperkzg_open"):
                     if self.pp.pcs == "dory":
                         from .commitment.dory import DoryPC

@@ -7,7 +7,8 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Without a CUDA device every test skips. Tolerance: exact (bit-equal limbs,
-equal affine points). A forced gate (device/gate.py) picks each MSM path.
+equal affine points, equal digests and proof bytes). A forced gate
+(device/gate.py, device/reduction.py) picks each MSM and reduction path.
 """
 
 import numpy as np
@@ -17,7 +18,8 @@ import torch
 from jolt_atlas_tpu_torch.commitment.kzg import KZGSRS
 from jolt_atlas_tpu_torch.curve.native import pack_scalars
 from jolt_atlas_tpu_torch.device import curve, gate, split
-from jolt_atlas_tpu_torch.device import msm as dmsm, telemetry
+from jolt_atlas_tpu_torch.device import blake2b as db, msm as dmsm
+from jolt_atlas_tpu_torch.device import reduction as dred, telemetry
 from jolt_atlas_tpu_torch.field.constants import FR_MODULUS
 
 pytestmark = pytest.mark.cuda
@@ -151,3 +153,96 @@ def test_split_msm_matches_host_on_gpu(gpu, srs):
     got = split.msm_batch_split_first(dev, prep, folds, [1000, 500, 2], 512,
                                       "test")
     assert got == prep.msm_batch_packed(folds)
+
+
+# ---------------------------------------------------------------------------
+# kernels 4-6 and the device transcript (device/reduction.py, blake2b.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("j_prev,lanes,lg,table", [
+    (0, 3, 4, 64), (2, 5, 3, 64), (4, 4, 2, 64), (3, 3, 13, 64),
+    (0, 12, 13, 1024), (1, 2, 1, 64)])
+def test_reduction_bind_and_q0_match_plain(gpu, j_prev, lanes, lg, table):
+    """Kernels 4 and 5 against their plain versions: a first round (every
+    lane joins), lanes joining late, a pure bind, lanes of several blocks
+    (2^13; with 1024 table rows, every weight layout of kernel 5) and of
+    one element's half; elements at 0, 1, r - 1, r - 2."""
+    d = dred.random_round(gpu, np.random.default_rng(21 + lg), j_prev,
+                          lanes, lg, table)
+    before = telemetry.launches()
+    out = dred.bind(d["buf"], d["init"], d["c"], d["init_off"], j_prev,
+                    lanes, lg)
+    assert _equal([out], [dred.bind_plain(d["buf"], d["init"], d["c"],
+                                          d["init_off"], j_prev, lanes, lg)])
+    part = dred.q0(out, d["tab"], d["lanep"], lanes, lg)
+    assert part.shape == (lanes * dred.q0_blocks(lg), 4)
+    assert _equal([part], [dred.q0_plain(out, d["tab"], d["lanep"], lanes,
+                                         lg)])
+    for k in ("reduction_bind", "reduction_q0"):
+        assert telemetry.launches()[k] - before.get(k, 0) == 1
+
+
+@pytest.mark.parametrize("lanes,joined,bpl", [(8, 5, 3), (256, 175, 64),
+                                              (2, 0, 1), (32, 32, 1)])
+def test_reduction_tail_matches_plain(gpu, lanes, joined, bpl):
+    """Kernel 6 against its plain version: unjoined and zero-padding
+    lanes, l1 = 0 (1/l1 given as 0) and l0 = 0 in lanes 0 and 1."""
+    d = dred.random_tail(gpu, np.random.default_rng(31 + lanes), lanes,
+                         joined, bpl)
+    k = {n: t.clone() for n, t in d.items()}
+    c = torch.empty((1, 4), dtype=torch.int64, device=gpu)
+    msg = torch.empty((2, 4), dtype=torch.int64, device=gpu)
+    dred.tail(k["partials"], bpl, joined, k["Q"], k["es"], k["qinit"],
+              k["coeff"], k["l0"], k["l1"], k["inv_l1"], k["const_b0"],
+              k["state"], c, msg)
+    want = dred.tail_plain(d["partials"], bpl, joined, d["Q"], d["es"],
+                           d["qinit"], d["coeff"], d["l0"], d["l1"],
+                           d["inv_l1"], d["const_b0"], d["state"])
+    assert _equal((k["Q"], k["es"], k["state"], c, msg), want)
+
+
+@pytest.mark.parametrize("np_words", [0, 4, 9, 16, 17])
+def test_blake2b_kernel_matches_plain_and_hashlib(gpu, np_words):
+    import hashlib
+    rng = np.random.default_rng(41 + np_words)
+    n = 300
+    raw = rng.bytes(32 * n)
+    pay = rng.bytes(8 * np_words * n)
+    nr = rng.integers(0, 1 << 32, size=n)
+    states = torch.from_numpy(db.bytes_to_words(raw).reshape(n, 4)).to(gpu)
+    payload = torch.from_numpy(
+        db.bytes_to_words(pay).reshape(n, np_words)).to(gpu)
+    rounds = torch.from_numpy(nr.astype(np.int64)).to(gpu)
+    got = db.transcript_step(states, rounds, payload)
+    assert _equal([got], [db.transcript_absorb_long_plain(states, rounds,
+                                                          payload)])
+    out = got.cpu().numpy()
+    for i in range(0, n, 37):
+        msg = (raw[32 * i:32 * i + 32] + b"\x00" * 28
+               + int(nr[i]).to_bytes(4, "big")
+               + pay[8 * np_words * i:8 * np_words * (i + 1)])
+        assert db.words_to_bytes(out[i]) == hashlib.blake2b(
+            msg, digest_size=32).digest()
+
+
+@pytest.mark.parametrize("tail_rounds", [0, 4])
+def test_forced_reduction_matches_host_on_gpu(gpu, tail_rounds):
+    """The engine on the card (forced: the model is below the floor)
+    against the host path: equal proof bytes, kernels 4-6 launched."""
+    from jolt_atlas_tpu_torch import models, serde
+    from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    rng = np.random.default_rng(1234)
+    model = models.build_nanogpt(32, 8, 16, 1, 8, rng, heads=1)
+    toks = rng.integers(0, 32, size=8).astype(np.int32)
+    pp = AtlasPreprocessing.preprocess(model)
+    want, _ = AtlasProver(pp, device="cpu").prove([toks])
+    telemetry.reset()
+    got, _ = AtlasProver(pp, device=gpu, msm_gate=gate.forced("host"),
+                         reduction_gate=dred.forced(tail_rounds)).prove(
+                             [toks])
+    tele = telemetry.snapshot()
+    assert tele["decisions"]["reduction"].startswith("ENGAGED")
+    for k in ("reduction_bind", "reduction_q0", "reduction_tail"):
+        assert tele["launches"].get(k, 0) > 0
+    assert serde.serialize_proof(got) == serde.serialize_proof(want)
