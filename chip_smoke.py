@@ -36,12 +36,13 @@ script exits non-zero when any phase fails:
   9. prove    the bench nanoGPT (4 blocks, 4 heads, d64, seq 64, vocab 65,
               random weights from seed 1234) proved by AtlasProver(pp)
               with no device argument (the card, on the gate's routes,
-              the opening reduction's rounds on the card), with a forced
-              split and on the host (device="cpu"); the reduction engine
-              must engage on the first two; proof bytes equal; the port's
-              verifier accepts it and rejects a flipped commitment
+              the IOP's head rounds and the opening reduction's rounds on
+              the card), with a forced split and on the host
+              (device="cpu"); the rows and reduction engines must engage
+              on the first two; proof bytes equal; the port's verifier
+              accepts it and rejects a flipped commitment
  10. trace    one more gate-path prove under torch.profiler (the device's
-              idle share, kernels 2-6's device ms and launches, the
+              idle share, kernels 2-7's device ms and launches, the
               busiest kernels), and one split MSM whose host prefix must
               overlap its device kernels.
  11. reduction  kernels 4-6 (the opening reduction's bind, q0 and tail)
@@ -54,6 +55,17 @@ script exits non-zero when any phase fails:
               engine against the host BatchedSumcheck on the bench's own
               instances, in turns: messages, challenges, transcript state
               and final claims equal.
+ 12. rows     kernel 7 (the IOP rows engine's points) against its plain
+              version at P = 1, 2, 27 and 96 rows and 1, 2, 6 and 20
+              points on every weight layout, and kernel 4 in the rows
+              layout, bit-equal; kernel 7 timed on the bench's largest
+              class beside its bound; the engine against the host
+              GruenInstance on the bench's own instances (captured from
+              the host-path prove), in turns: every round message and
+              final row value equal, the engine's ms split into
+              conversion, upload, device rounds, handoff fetch and host
+              rounds; kernel 7 held against its plain version at every
+              shape class those instances launch it at.
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
@@ -63,8 +75,9 @@ Each path (gate calibration, split, the two device proves) runs with the
 launch counts set to 0 just before it and read just after; the kernels
 JSON sums them, and gives the traced prove's own launches. Every shape a
 path launched a kernel at (its lane count; for kernel 3 also its blocks
-per window; for kernels 4 and 5 their branch class) must be one that
-phases 3-5 and 11 held against the plain version, or the run fails. The
+per window; for kernels 4 and 5 their branch class; for kernel 7 its rows,
+points, terms and weight layout) must be one that phases 3-5, 11 and 12
+held against the plain version, or the run fails. The
 second line from the end is that JSON, the last line {"ok": true,
 "device": {...}}. Imports nothing of JAX or jolt_atlas_tpu.
 """
@@ -616,8 +629,10 @@ def trace_prove(prove) -> dict:
             end = b
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
     kernels = {}
-    for kernel in ("bucket_accumulate", "bucket_combine") + REDUCTION:
-        hit = [v for name, v in per.items() if kernel in name]
+    for kernel in ("bucket_accumulate", "bucket_combine") + REDUCTION + ROWS:
+        # kernel 7's wrapper launches rows_points_kernel and rows_sum_kernel
+        hit = [v for name, v in per.items() if kernel in name
+               or (kernel == "rows_points" and "rows_sum" in name)]
         kernels[kernel] = {"ms": sum(ms for ms, _ in hit),
                            "n": sum(k for _, k in hit)}
     return {"wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
@@ -667,6 +682,7 @@ def trace_split(dev, srs, n: int = (1 << 18) - 3,
 
 
 REDUCTION = ("reduction_bind", "reduction_q0", "reduction_tail")
+ROWS = ("rows_points", "rows_from_i64")
 
 
 @contextlib.contextmanager
@@ -688,9 +704,10 @@ def capture_reduction(store: dict):
         ProverOpeningAccumulator.prove_batch_opening = real
 
 
-def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> dict:
+def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
     """The bench prove on the gate, split and host paths; returns what its
-    opening reduction starts from (capture_reduction) for phase 11."""
+    opening reduction starts from (capture_reduction) for phase 11 and its
+    IOP's Gruen rows instances (capture_rows) for phase 12."""
     from jolt_atlas_tpu_torch import models, serde
     from jolt_atlas_tpu_torch.curve.points import g1_generator
     from jolt_atlas_tpu_torch.device import gate
@@ -712,7 +729,7 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> dict:
 
     def prove(**how):
         profiling.enable()
-        profiling._EVENTS.clear()
+        profiling.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         proof, io = AtlasProver(pp, **how).prove([toks])
@@ -723,6 +740,9 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> dict:
         phases.update({name.strip(): round(w, 6)
                        for name, w, _ in profiling._EVENTS
                        if name.strip().startswith("reduction_")})
+        # the rows engine's steps, summed over its instances
+        phases.update({k: round(v[0], 6)
+                       for k, v in profiling._TALLIES.items()})
         return (proof, io, wall, phases,
                 torch.cuda.max_memory_allocated() / 2**20)
 
@@ -732,12 +752,14 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> dict:
              ("host", {"device": "cpu"})]
     for _, how in paths[:2]:
         prove(**how)  # warm-up: first launches at each path's shapes
-    out, blobs, cap = {}, {}, {}
+    out, blobs, cap, rows_cap = {}, {}, {}, []
     for name, how in paths:
-        need = ("bucket_accumulate", "bucket_combine") + REDUCTION \
-            if name != "host" else ()
+        need = ("bucket_accumulate", "bucket_combine") + ROWS \
+            + REDUCTION if name != "host" else ()
         with (capture_reduction(cap) if name == "host"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), (
+                capture_rows(rows_cap) if name == "host"
+                else contextlib.nullcontext()):
             (proof, io, wall, phases, peak), tele = counted(
                 results, need, lambda: prove(**how))
         if name != "host":
@@ -749,6 +771,9 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> dict:
             if not tele["decisions"].get("reduction", "").startswith(
                     "ENGAGED"):
                 raise AssertionError(f"{name}: the reduction engine did not "
+                                     f"engage: {tele['decisions']}")
+            if not tele["decisions"].get("iop", "").startswith("ENGAGED"):
+                raise AssertionError(f"{name}: the IOP rows engine did not "
                                      f"engage: {tele['decisions']}")
         blobs[name] = serde.serialize_proof(proof)
         out[name] = {"prove_s": wall, "phases": phases,
@@ -775,14 +800,14 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> dict:
         "bytes_equal_all_paths": True, "tamper_rejected": True,
         "paths": out}))
     trace, tele = counted(
-        results, ("bucket_accumulate", "bucket_combine") + REDUCTION,
+        results, ("bucket_accumulate", "bucket_combine") + ROWS + REDUCTION,
         lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
     results["launches_per_prove"] = tele["launches"]
     overlap = trace_split(dev, srs)
     say("trace", "gate-path prove under torch.profiler: "
         + json.dumps(trace) + "; split MSM, host prefix against the device "
         "suffix: " + json.dumps(overlap))
-    return cap
+    return cap, rows_cap
 
 
 # ---------------------------------------------------------------------------
@@ -1060,6 +1085,351 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the IOP rows engine's kernel and engine
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def capture_rows(store: list):
+    """Keep the IOP's Gruen rows instances of the proves inside: each
+    RowsInstance.setup_rows call with an eq point, outside the opening
+    reduction, as a copy of its rows (their small integers or field
+    vector), its terms, degree and eq layout."""
+    from jolt_atlas_tpu_torch.poly.opening import _GroupReductionProver
+    from jolt_atlas_tpu_torch.subprotocols.sumcheck import RowsInstance
+    real = RowsInstance.setup_rows
+
+    def keep(self, mlpolys, terms, degree, eq_r=None, eq_pre=0, eq_post=0):
+        if (eq_r is not None and mlpolys
+                and not isinstance(self, _GroupReductionProver)):
+            store.append({
+                "rows": [("ints", p.ints.copy()) if p.is_small()
+                         else ("field", p.to_field().d.copy())
+                         for p in mlpolys],
+                "terms": [(c, list(f)) for c, f in terms],
+                "degree": degree, "eq": (list(eq_r), eq_pre, eq_post)})
+        return real(self, mlpolys, terms, degree, eq_r, eq_pre, eq_post)
+
+    RowsInstance.setup_rows = keep
+    try:
+        yield store
+    finally:
+        RowsInstance.setup_rows = real
+
+
+def rows_class(inst) -> tuple:
+    """(P rows, degree, terms, most factors) of a captured instance."""
+    return (len(inst["rows"]), inst["degree"], len(inst["terms"]),
+            max([len(f) for _, f in inst["terms"]] + [0]))
+
+
+def rows_n(inst) -> int:
+    return len(inst["rows"][0][1])
+
+
+def rows_eligible(inst, gate) -> bool:
+    P, n = len(inst["rows"]), rows_n(inst)
+    return gate.decline(P, n, inst["degree"]) is None
+
+
+def rows_run(inst, dev=None, gate=None) -> dict:
+    """Every round of one captured instance alone, by the engine (under an
+    IopScope of ``dev`` and ``gate``) or, without ``dev``, by the host
+    GruenInstance, on fresh copies of its rows, at challenges from a fixed
+    seed: its ms (host clock; the first two rounds apart), round messages,
+    final row values and the engine's steps (ms by span)."""
+    from jolt_atlas_tpu_torch.device import rows as drows
+    from jolt_atlas_tpu_torch.field.frvec import FrArray
+    from jolt_atlas_tpu_torch.field.scalar import Fr
+    from jolt_atlas_tpu_torch.poly.mlpoly import MLPoly
+    from jolt_atlas_tpu_torch.subprotocols.sumcheck import RowsInstance
+    from jolt_atlas_tpu_torch.utils import profiling
+    polys = [MLPoly(ints=a) if kind == "ints" else MLPoly(fvec=FrArray(a))
+             for kind, a in inst["rows"]]
+    eq_r, pre, post = inst["eq"]
+    P, n = len(polys), len(polys[0])
+    gen = np.random.default_rng(n + 7 * P)
+    chal = [Fr(int(gen.integers(1, 1 << 62))) for _ in range(n.bit_length()
+                                                             - 1)]
+    profiling.enable()
+    profiling.reset()
+    r = RowsInstance()
+    t0 = time.perf_counter()
+    with (drows.IopScope(dev, gate) if dev is not None
+          else contextlib.nullcontext()):
+        r.setup_rows(polys, inst["terms"], inst["degree"], eq_r, pre, post)
+    engaged = isinstance(r._gruen, drows.DeviceGruen)
+    claim, msgs, head_ms = Fr(1), [], None
+    for k, c in enumerate(chal):
+        poly = r.rows_message(claim)
+        msgs.append([x.v for x in poly.compress().coeffs_except_linear_term])
+        claim = poly.evaluate(c)
+        r.rows_bind(c)
+        if k == 1:
+            head_ms = (time.perf_counter() - t0) * 1e3
+    finals = [r.row_final(i).v for i in range(P)]
+    ms = (time.perf_counter() - t0) * 1e3
+    steps = {k: v[0] * 1e3 for k, v in profiling._TALLIES.items()}
+    return {"ms": ms, "head_ms": head_ms if head_ms is not None else ms,
+            "msgs": msgs, "finals": finals, "steps": steps,
+            "engaged": engaged}
+
+
+def rows_products(x, n: int, nevals: int, terms, w) -> tuple:
+    """(products this run's data needs, products with no zero skipped) of
+    kernel 7's function: per pair and point, a product for each further
+    factor of a term while the chain is nonzero and one by a coefficient
+    other than one where the term is nonzero; where the term sum is
+    nonzero, one by the weight and, with both tables, the weight's own."""
+    from jolt_atlas_tpu_torch.device import rows as drows
+    from jolt_atlas_tpu_torch.field.constants import FR_MODULUS, FR_R
+    one = FR_R % FR_MODULUS
+    coeff_one = [int.from_bytes(r.astype("<u8").tobytes(), "little") == one
+                 for r in terms.coeffs.cpu().numpy()]
+    half, lay = n // 2, drows.layout(w)
+    wprod = (lay > 0) + (lay == 3)
+    dense = sum(max(len(f) - 1, 0) + (bool(f) and not c1)
+                for f, c1 in zip(terms.factors, coeff_one))
+    need = 0
+    for E, inner in drows.term_sums(x, n, nevals, terms):
+        nz = (E != 0).any(0)
+        for f, c1 in zip(terms.factors, coeff_one):
+            if not f:
+                continue
+            run = nz[f[0]]
+            for g in f[1:]:
+                need += int(run.sum())
+                run = run & nz[g]
+            if not c1:
+                need += int(run.sum())
+        need += wprod * int((inner != 0).any(0).sum())
+    return need, half * nevals * (dense + wprod)
+
+
+def message_nevals(se, rnd: int, degree: int) -> int:
+    """The points RowsInstance._gruen_message asks for in round rnd."""
+    lin = se.l_linear(rnd)
+    if lin is None:
+        return max(1, degree)
+    dq = max(1, degree - 1)
+    return dq + 1 if lin[1].is_zero() else dq
+
+
+ROWS_STEPS = ("rows_to_field", "rows_upload", "rows_points", "rows_bind",
+              "rows_handoff")  # the engine's profiling tallies
+
+
+def rows_passes(insts, dev, gate, order=("engine", "host", "host",
+                                          "engine")) -> dict:
+    """Each instance's rounds by the engine and by the host, a pass over
+    all of them at a time in ``order``; raises unless every pass's round
+    messages and final row values equal the first host pass's. Returns
+    {"engine": [pass, ...], "host": [...]}, a pass a list of rows_run
+    results."""
+    runs = {"engine": [], "host": []}
+    for which in order:
+        runs[which].append([rows_run(i, dev if which == "engine" else None,
+                                     gate) for i in insts])
+    want = [(r["msgs"], r["finals"]) for r in runs["host"][0]]
+    for which, passes in runs.items():
+        for ps in passes:
+            for k, (r, w) in enumerate(zip(ps, want)):
+                if (r["msgs"], r["finals"]) != w:
+                    raise AssertionError(
+                        f"rows engine ({which}) differs from the host on "
+                        f"instance {k} {rows_class(insts[k])}, n = "
+                        f"{rows_n(insts[k])}")
+            if which == "engine" and not all(r["engaged"] for r in ps):
+                raise AssertionError("the rows engine declined an instance")
+    return runs
+
+
+def rows_report(insts, runs) -> dict:
+    """Per instance class (P, degree, terms, most factors): count, sizes,
+    the host's ms (all rounds and the first two; mean of its passes) and
+    the engine's, split into its steps and the host rounds after the
+    handoff (mean of its passes)."""
+    out = {}
+    nh, ne = len(runs["host"]), len(runs["engine"])
+    for k, inst in enumerate(insts):
+        row = out.setdefault(str(rows_class(inst)), {
+            "count": 0, "n": [], "host_ms": 0.0, "host_first2_ms": 0.0,
+            "engine_ms": 0.0, **{s: 0.0 for s in ROWS_STEPS}})
+        row["count"] += 1
+        if rows_n(inst) not in row["n"]:
+            row["n"].append(rows_n(inst))
+        for ps in runs["host"]:
+            row["host_ms"] += ps[k]["ms"] / nh
+            row["host_first2_ms"] += ps[k]["head_ms"] / nh
+        for ps in runs["engine"]:
+            row["engine_ms"] += ps[k]["ms"] / ne
+            for s in ROWS_STEPS:
+                row[s] += ps[k]["steps"].get(s, 0.0) / ne
+    for row in out.values():
+        row["engine_host_rounds"] = row["engine_ms"] - sum(
+            row[s] for s in ROWS_STEPS)
+    return out
+
+
+def phase_rows(dev, results, rows_cap,
+               shapes=((1, 4, 1, 1), (1, 256, 2, 2), (2, 512, 4, 3),
+                       (27, 256, 36, 6), (96, 64, 8, 5)),
+               evals=(1, 2, 6, 20),
+               bind_shapes=((1, 2), (2, 256), (27, 16384), (96, 64)),
+               i64_sizes=(1, 500, 1 << 18)) -> None:
+    """Kernel 7 against its plain version at every shape of ``shapes`` (P,
+    n, terms, most factors) and point count of ``evals``, on every weight
+    layout; kernel 4 in the rows layout; kernel 7 timed on the bench's
+    largest instance class; the engine against the host on the bench's
+    own instances, in turns."""
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    from jolt_atlas_tpu_torch.device import rows as drows
+    from jolt_atlas_tpu_torch.field.frvec import FrArray
+    from jolt_atlas_tpu_torch.poly.spliteq import SplitEq
+    gen = np.random.default_rng(5050)
+    err = {"rows_points": 0.0, "reduction_bind": 0.0}
+    ncmp = 0
+    for P, n, T, mf in shapes:
+        x = drows.random_rows_for(P, n, gen, dev)
+        terms = drows.Terms(drows.random_terms(P, T, mf, gen), dev)
+        for nevals in evals:
+            for kind in drows.WEIGHT_KINDS:
+                w = drows.weights(*drows.random_weights(n, kind, gen), dev)
+                err["rows_points"] = max(err["rows_points"], require_equal(
+                    f"rows_points (P={P}, n={n}, {T} terms, {nevals} "
+                    f"points, {kind})",
+                    [drows.points(x, n, nevals, terms, w)],
+                    [drows.points_plain(x, n, nevals, terms, w)]))
+                checked(results, "rows_points",
+                        drows.points_case(P, nevals, T, w))
+                ncmp += 1
+    for P, n in bind_shapes:
+        x = drows.random_rows_for(P, n, gen, dev)
+        c = dred.random_rows(6, gen, dev)[5:]
+        err["reduction_bind"] = max(err["reduction_bind"], require_equal(
+            f"reduction_bind (rows layout, P={P}, n={n})",
+            [drows.bind_rows(x, c, n)],
+            [dred.bind_plain(x, x, c, torch.zeros(P, dtype=torch.int64,
+                                                  device=dev), P, P,
+                             (n // 2).bit_length() - 1)]))
+        checked(results, "reduction_bind", dred.bind_case(P, P))
+    edge = [0, 1, -1, 2, -2, (1 << 63) - 1, -(1 << 63), 1 << 62,
+            -(1 << 62) - 7, 65535, -65536, 1 << 32]
+    err["rows_from_i64"] = 0.0
+    for m in i64_sizes:
+        v = np.concatenate([gen.integers(-(1 << 63), (1 << 63) - 1, size=m,
+                                         dtype=np.int64, endpoint=True),
+                            gen.integers(-(1 << 16), 1 << 16, size=m)])
+        v[:min(len(edge), 2 * m)] = edge[:2 * m]
+        src = torch.from_numpy(v.astype(np.int64)).to(dev)
+        err["rows_from_i64"] = max(err["rows_from_i64"], require_equal(
+            f"rows_from_i64 ({2 * m} values)", [drows.from_i64(src)],
+            [drows.from_i64_plain(src)]))
+    checked(results, "rows_from_i64", 0)
+    lines = [f"kernel 7 bit-equal to its plain version at {ncmp} shapes "
+             f"(P, n) in {[s[:2] for s in shapes]} x points {list(evals)} x "
+             f"{len(drows.WEIGHT_KINDS)} weight layouts; kernel 4 in the "
+             f"rows layout at (P, n) in {list(bind_shapes)}; kernel 8 at "
+             f"{[2 * m for m in i64_sizes]} values (the int64 edges, full "
+             "range and small)"]
+
+    # -- kernel 7 against its plain version at every class the bench's own
+    # instances launch it at (the first engine pass, not timed)
+    gate = drows.RowsGate()
+    elig = [i for i in rows_cap if rows_eligible(i, gate)]
+    real, seen = drows.points, set()
+
+    def check(x, n, nevals, terms, w):
+        got = real(x, n, nevals, terms, w)
+        case = drows.points_case(x.shape[0] // n, nevals, terms.T, w)
+        if case not in seen:
+            seen.add(case)
+            err["rows_points"] = max(err["rows_points"], require_equal(
+                f"rows_points (bench class {case})", [got],
+                [drows.points_plain(x, n, nevals, terms, w)]))
+            checked(results, "rows_points", case)
+        return got
+    drows.points = check
+    try:
+        for i in elig:
+            rows_run(i, dev, gate)
+    finally:
+        drows.points = real
+    lines.append(f"kernel 7 bit-equal to its plain version at the "
+                 f"{len(seen)} shape classes the bench's {len(elig)} "
+                 f"eligible instances launch it at")
+
+    # -- timed on the bench's largest class, round 0
+    big = max(elig, key=lambda i: (rows_n(i) * len(i["rows"]) * sum(
+        len(f) for _, f in i["terms"])))
+    P, n = len(big["rows"]), rows_n(big)
+    x = drows.upload([a if k == "ints" else FrArray(a)
+                      for k, a in big["rows"]], dev)
+    terms = drows.Terms(big["terms"], dev)
+    se = SplitEq(big["eq"][0], pre_vars=big["eq"][1], post_vars=big["eq"][2])
+    nevals = message_nevals(se, 0, big["degree"])
+    w = drows.weights(*se.tables(0), dev)
+    ms, got = cuda_ms(lambda: drows.points(x, n, nevals, terms, w), 10)
+    plain_ms, want = cuda_ms(lambda: drows.points_plain(x, n, nevals, terms,
+                                                        w), 1, warmup=False)
+    err["rows_points"] = max(err["rows_points"], require_equal(
+        "rows_points (timed)", [got], [want]))
+    need, dense = rows_products(x, n, nevals, terms, w)
+    shape = (f"{rows_class(big)} (P, degree, terms, most factors), n = {n}, "
+             f"{nevals} points, round 0's weight")
+    dense_ms, _ = bound(dense, P * n * FR_BYTES, results["imad_peak"],
+                        IMADS_PER_MUL)
+    lines.append("points " + timed(
+        results, "rows_points", shape, ms, need,
+        (P * n + nevals + w[0].shape[0]) * FR_BYTES, IMADS_PER_MUL)
+        + f" ({need} products this data needs; {dense} with no zero "
+        f"skipped: bound {dense_ms:.4f} ms), plain {plain_ms:.1f} ms")
+    results["rows_points"] = {"ms": ms, "plain_ms": plain_ms,
+                              **results["timed"]["rows_points"][-1]}
+    c = dred.random_rows(6, gen, dev)[5:]
+    bms, _ = cuda_ms(lambda: drows.bind_rows(x, c, n), 10)
+    bb, bby = bound(P * n // 2, (3 * P * n // 2) * FR_BYTES,
+                    results["imad_peak"], IMADS_PER_MUL)
+    lines.append(f"kernel 4 in the rows layout on that instance ({P} rows "
+                 f"of {n}): {bms:.4f} ms, bound {bb:.4f} ms ({bby})")
+    ints = [a for k, a in big["rows"] if k == "ints"] or [
+        gen.integers(-(1 << 16), 1 << 16, size=n)]
+    src = torch.from_numpy(np.concatenate(ints).astype(np.int64)).to(dev)
+    ms8, got = cuda_ms(lambda: drows.from_i64(src), 10)
+    plain8, want = cuda_ms(lambda: drows.from_i64_plain(src), 1,
+                           warmup=False)
+    err["rows_from_i64"] = max(err["rows_from_i64"], require_equal(
+        "rows_from_i64 (timed)", [got], [want]))
+    m8 = src.shape[0]
+    lines.append("from_i64 " + timed(
+        results, "rows_from_i64", f"that instance's {len(ints)} integer "
+        f"rows, {m8} values", ms8, m8, m8 * (8 + FR_BYTES), IMADS_PER_MUL)
+        + f", plain {plain8:.1f} ms")
+    results["rows_from_i64"] = {"ms": ms8, "plain_ms": plain8,
+                                **results["timed"]["rows_from_i64"][-1]}
+    for k, v in err.items():
+        results[k]["max_abs_err"] = max(results[k].get("max_abs_err", 0.0),
+                                        v)
+    del x, got, want
+    say("rows", "; ".join(lines))
+
+    # -- the engine against the host GruenInstance, in turns
+    runs = rows_passes(elig, dev, gate)
+    per = rows_report(elig, runs)
+    tot = lambda key: sum(r[key] for r in per.values())
+    say("rows", "engine against the host GruenInstance on the bench's "
+        "eligible instances (engine, host, host, engine; every round "
+        "message and final row value equal), ms, means of the passes: "
+        + json.dumps({
+            "instances": len(elig), "of": len(rows_cap),
+            "elements": sum(len(i["rows"]) * rows_n(i) for i in elig),
+            "engine_ms": tot("engine_ms"), "host_ms": tot("host_ms"),
+            "host_first2_ms": tot("host_first2_ms"),
+            **{s: tot(s) for s in ROWS_STEPS},
+            "engine_host_rounds": tot("engine_host_rounds"),
+            "per_class": per}))
+
+
 KERNELS = (
     ("pp_add", "jolt_atlas_tpu_torch/csrc/curve.cu",
      "jolt_atlas_tpu/tpu/pallas_curve.py:174"),
@@ -1078,6 +1448,11 @@ KERNELS = (
     # what is timed and compared, and no path launches it
     ("blake2b_transcript", "jolt_atlas_tpu_torch/csrc/blake2b.cuh",
      "jolt_atlas_tpu/tpu/blake2b.py:75"),
+    ("rows_points", "jolt_atlas_tpu_torch/csrc/rows.cu",
+     "jolt_atlas_tpu/parallel/shardedrows.py:65"),
+    # the reference converts the rows on the host (p.to_field())
+    ("rows_from_i64", "jolt_atlas_tpu_torch/csrc/rows.cu",
+     "jolt_atlas_tpu/parallel/shardedrows.py:303"),
 )
 
 
@@ -1104,8 +1479,10 @@ def main() -> int:
     phase_msm(dev, srs)
     phase_gate(dev, results)
     phase_split(dev, srs, results)
-    cap = phase_prove(dev, srs, results)
+    cap, rows_cap = phase_prove(dev, srs, results)
     phase_reduction(dev, results, cap)
+    del cap
+    phase_rows(dev, results, rows_cap)
     require_checked(results)
     launches = results["launches"]
     kernels = []
@@ -1121,6 +1498,9 @@ def main() -> int:
                "shape": r["shape"]}
         if name == "blake2b_transcript":
             row["runs_in"] = "reduction_tail (device functions)"
+        if name == "reduction_bind":  # also the rows engine's bind
+            row["also_replaces"] = \
+                "jolt_atlas_tpu/parallel/shardedrows.py:130"
         kernels.append(row)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 // BN254 Montgomery arithmetic over its two primes, the base field Fq and the
 // scalar field Fr, and the complete projective point add over Fq, as device
-// functions shared by curve.cu, msm.cu, combine.cu and reduction.cu.
+// functions shared by curve.cu, msm.cu, combine.cu, reduction.cu and
+// rows.cu.
 //
 // Replaces the register-resident body of the Pallas kernel
 // jolt_atlas_tpu/tpu/pallas_curve.py (_mont_mul, _cond_sub_p, _fadd, _fsub,
@@ -323,6 +324,47 @@ __device__ __forceinline__ void store_fq(u64* base, int64_t i,
   uint4* p = reinterpret_cast<uint4*>(base + 4 * i);
   p[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
   p[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
+}
+
+// Fr loads, stores and block sums, shared by reduction.cu and rows.cu
+__device__ __forceinline__ Fr load_fr(const u64* base, int64_t i) {
+  return load_fq(base, i);
+}
+
+__device__ __forceinline__ void store_fr(u64* base, int64_t i, const Fr& a) {
+  store_fq(base, i, a);
+}
+
+__device__ __forceinline__ Fr fr_zero() {
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = 0;
+  return r;
+}
+
+__device__ __forceinline__ Fr fr_shfl_down(const Fr& a, int d) {
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    r.v[j] = __shfl_down_sync(0xffffffffu, a.v[j], d);
+  return r;
+}
+
+// Sum of x over the block (blockDim.x a multiple of 32), valid in thread 0.
+// warp_sums: 32 elements of shared memory.
+__device__ __forceinline__ Fr block_sum(Fr x, Fr* warp_sums) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) x = fr_add(x, fr_shfl_down(x, d));
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) warp_sums[warp] = x;
+  __syncthreads();
+  Fr s = fr_zero();
+  if (threadIdx.x == 0) {
+    const int nwarps = blockDim.x >> 5;
+    for (int k = 0; k < nwarps; ++k) s = fr_add(s, warp_sums[k]);
+  }
+  __syncthreads();  // warp_sums may be reused
+  return s;
 }
 
 __device__ __forceinline__ Point load_point(const u64* x, const u64* y,

@@ -52,46 +52,6 @@ constexpr int LOG_Q0_PER_THREAD = 3;  // a thread sums 8 terms
 constexpr int Q0_PER_THREAD = 1 << LOG_Q0_PER_THREAD;
 constexpr int TAIL_MAX_LANES = 1024;
 
-__device__ __forceinline__ Fr load_fr(const u64* base, int64_t i) {
-  return load_fq(base, i);
-}
-
-__device__ __forceinline__ void store_fr(u64* base, int64_t i, const Fr& a) {
-  store_fq(base, i, a);
-}
-
-__device__ __forceinline__ Fr fr_zero() {
-  Fr r;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r.v[j] = 0;
-  return r;
-}
-
-__device__ __forceinline__ Fr fr_shfl_down(const Fr& a, int d) {
-  Fr r;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    r.v[j] = __shfl_down_sync(0xffffffffu, a.v[j], d);
-  return r;
-}
-
-// Sum of x over the block (blockDim.x a multiple of 32), valid in thread 0.
-// warp_sums: 32 elements of shared memory.
-__device__ __forceinline__ Fr block_sum(Fr x, Fr* warp_sums) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x = fr_add(x, fr_shfl_down(x, d));
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) warp_sums[warp] = x;
-  __syncthreads();
-  Fr s = fr_zero();
-  if (threadIdx.x == 0) {
-    const int nwarps = blockDim.x >> 5;
-    for (int k = 0; k < nwarps; ++k) s = fr_add(s, warp_sums[k]);
-  }
-  __syncthreads();  // warp_sums may be reused
-  return s;
-}
-
 __global__ void __launch_bounds__(BIND_THREADS)
     reduction_bind_kernel(const u64* __restrict__ buf,
                           const u64* __restrict__ init,

@@ -5,7 +5,7 @@ Two kinds of shared library, both loaded with ctypes:
 - the host C++ engines from the repo's ``csrc/`` (``msm.cpp``,
   ``frvec.cpp``), compiled with g++ for the CPU this process runs on;
 - the port's CUDA kernels, ``jolt_atlas_tpu_torch/csrc/*.cu`` (curve,
-  msm, combine, reduction), compiled
+  msm, combine, reduction, rows), compiled
   with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
   started together, and linked into one library with a plain C interface.
   ptxas reports each kernel's registers, spills and shared memory
@@ -188,6 +188,10 @@ SIGNATURES = {
     "jolt_reduction_q0": [_VP] * 4 + [_I64, _CI, _I64, _VP],
     "jolt_reduction_tail": [_VP, _I64, _I64, _I64] + [_VP] * 12,
     "jolt_blake2b_transcript": [_VP] * 3 + [_CI, _I64, _VP, _VP],
+    "jolt_rows_points": [_VP, _I64, _CI] + [_VP] * 3 + [_I64, _VP, _I64, _I64,
+                                                         _CI, _I64, _CI]
+    + [_VP] * 3,
+    "jolt_rows_from_i64": [_VP, _I64, _VP, _VP],
 }
 
 _CUDA = None

@@ -8,6 +8,8 @@ batched opening reduction -> gamma RLC -> single HyperKZG opening.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -23,6 +25,7 @@ from .subprotocols.eval_reduction import prove_eval_reduction
 from .subprotocols.sumcheck import zk_mode
 from .transcripts import Blake2bTranscript
 from .commitment.hyperkzg import HyperKZG
+from .device import rows as drows
 from .commitment.kzg import kzg_commit
 from .curve.msm import msm
 from .utils.profiling import span
@@ -81,19 +84,11 @@ def collect_node_claims(accumulator, node_idx):
     return out
 
 
-def _maybe_device_iop_scope():
-    """The device IOP rows engine (the reference's single-chip mesh scope,
-    jolt_atlas_tpu/parallel/shardedrows.py) is not ported yet: the IOP
-    runs on the host, and telemetry says so."""
-    from .device import telemetry
-    telemetry.decide("iop", "not ported")
-    return None
-
-
 class AtlasProver:
     def __init__(self, preprocessing: AtlasPreprocessing,
                  transcript_factory=Blake2bTranscript, device="cuda",
-                 msm_window: int = 0, msm_gate=None, reduction_gate=None):
+                 msm_window: int = 0, msm_gate=None, reduction_gate=None,
+                 iop_gate=None):
         # transcript_factory: Blake2bTranscript (default, matching the
         # reference) or transcripts.KeccakTranscript — must match verifier
         # device: the card by default, whose device MSM engine
@@ -112,6 +107,11 @@ class AtlasProver:
         # rows total the size floor. reduction.forced(tail_rounds=t) runs
         # them on any device at any size (a CPU device: the plain
         # versions), the last t rounds on the host.
+        # iop_gate: which of the IOP's dense Gruen sumchecks run their head
+        # rounds on the device (device/rows.py); None: on a CUDA device,
+        # rows of >= 2048 elements, 2 rounds.
+        # rows.forced(head_rounds=, min_n=) runs them on any device (a CPU
+        # device: the plain versions).
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AtlasProver: no CUDA device; pass "
@@ -127,6 +127,7 @@ class AtlasProver:
             msm_gate = dgate.for_device(device)
         self.msm_gate = msm_gate
         self.reduction_gate = reduction_gate
+        self.iop_gate = iop_gate
 
     def _msm_engine(self):
         """(the device MSM engine or None, the gate that routes the MSMs)."""
@@ -257,40 +258,39 @@ class AtlasProver:
             accumulator.append_virtual(transcript, oid, r_tau, claim)
 
         # --- reverse-topological IOP ---
-        iop_span = span("iop"); iop_span.__enter__()
-        iop_scope = _maybe_device_iop_scope()
-        if iop_scope is not None:
-            iop_scope.__enter__()
-        for node in reversed(model.graph.sorted_nodes()):
-            claims = collect_node_claims(accumulator, node.idx)
-            if isinstance(node.operator, (FOPS.Input, FOPS.Constant)):
-                continue  # claims on public polys checked by the verifier
-            if not claims:
-                continue  # dead node
-            if len(claims) == 1:
-                ctx.reduced[node.idx] = (claims[0][1], claims[0][2])
-            else:
-                flat = padded_flat(trace.node_outputs[node.idx])
-                poly = MLPoly(ints=flat.astype(np.int64))
-                gens = zk_mode.gens()
-                if gens is not None:
-                    from .subprotocols.eval_reduction import \
-                        prove_eval_reduction_zk
-                    proof, new_pt, new_claim = prove_eval_reduction_zk(
-                        poly, [c[1] for c in claims],
-                        [c[2] for c in claims], transcript, gens)
+        # the rows engine's scope (device/rows.py; the reference's
+        # single-chip mesh scope), or None for the host path: the IOP's
+        # dense Gruen instances run their head rounds on the device
+        scope = drows.iop_scope(self.device, self.iop_gate)
+        with span("iop"), scope or contextlib.nullcontext():
+            for node in reversed(model.graph.sorted_nodes()):
+                claims = collect_node_claims(accumulator, node.idx)
+                if isinstance(node.operator, (FOPS.Input, FOPS.Constant)):
+                    # claims on public polys are checked by the verifier
+                    continue
+                if not claims:
+                    continue  # dead node
+                if len(claims) == 1:
+                    ctx.reduced[node.idx] = (claims[0][1], claims[0][2])
                 else:
-                    proof, new_pt, new_claim = prove_eval_reduction(
-                        poly, [c[1] for c in claims], [c[2] for c in claims],
-                        transcript)
-                ctx.eval_reduction_proofs[node.idx] = proof
-                ctx.reduced[node.idx] = (new_pt, new_claim)
-            with span(f"node[{node.idx}] "
-                      f"{type(node.operator).__name__}"):
-                ZOPS.prove_node(node, ctx)
-        if iop_scope is not None:
-            iop_scope.__exit__(None, None, None)
-        iop_span.__exit__(None, None, None)
+                    flat = padded_flat(trace.node_outputs[node.idx])
+                    poly = MLPoly(ints=flat.astype(np.int64))
+                    gens = zk_mode.gens()
+                    if gens is not None:
+                        from .subprotocols.eval_reduction import \
+                            prove_eval_reduction_zk
+                        proof, new_pt, new_claim = prove_eval_reduction_zk(
+                            poly, [c[1] for c in claims],
+                            [c[2] for c in claims], transcript, gens)
+                    else:
+                        proof, new_pt, new_claim = prove_eval_reduction(
+                            poly, [c[1] for c in claims],
+                            [c[2] for c in claims], transcript)
+                    ctx.eval_reduction_proofs[node.idx] = proof
+                    ctx.reduced[node.idx] = (new_pt, new_claim)
+                with span(f"node[{node.idx}] "
+                          f"{type(node.operator).__name__}"):
+                    ZOPS.prove_node(node, ctx)
 
         # --- batched opening reduction + joint HyperKZG opening ---
         if accumulator.reductions:

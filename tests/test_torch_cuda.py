@@ -8,7 +8,8 @@ conftest:
 
 Without a CUDA device every test skips. Tolerance: exact (bit-equal limbs,
 equal affine points, equal digests and proof bytes). A forced gate
-(device/gate.py, device/reduction.py) picks each MSM and reduction path.
+(device/gate.py, device/reduction.py, device/rows.py) picks each MSM,
+reduction and IOP rows path.
 """
 
 import numpy as np
@@ -225,17 +226,22 @@ def test_blake2b_kernel_matches_plain_and_hashlib(gpu, np_words):
             msg, digest_size=32).digest()
 
 
+def _bench_small_pp():
+    from jolt_atlas_tpu_torch import models
+    from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
+    rng = np.random.default_rng(1234)
+    model = models.build_nanogpt(32, 8, 16, 1, 8, rng, heads=1)
+    toks = rng.integers(0, 32, size=8).astype(np.int32)
+    return AtlasPreprocessing.preprocess(model), toks
+
+
 @pytest.mark.parametrize("tail_rounds", [0, 4])
 def test_forced_reduction_matches_host_on_gpu(gpu, tail_rounds):
     """The engine on the card (forced: the model is below the floor)
     against the host path: equal proof bytes, kernels 4-6 launched."""
-    from jolt_atlas_tpu_torch import models, serde
-    from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
+    from jolt_atlas_tpu_torch import serde
     from jolt_atlas_tpu_torch.prover import AtlasProver
-    rng = np.random.default_rng(1234)
-    model = models.build_nanogpt(32, 8, 16, 1, 8, rng, heads=1)
-    toks = rng.integers(0, 32, size=8).astype(np.int32)
-    pp = AtlasPreprocessing.preprocess(model)
+    pp, toks = _bench_small_pp()
     want, _ = AtlasProver(pp, device="cpu").prove([toks])
     telemetry.reset()
     got, _ = AtlasProver(pp, device=gpu, msm_gate=gate.forced("host"),
@@ -246,3 +252,82 @@ def test_forced_reduction_matches_host_on_gpu(gpu, tail_rounds):
     for k in ("reduction_bind", "reduction_q0", "reduction_tail"):
         assert tele["launches"].get(k, 0) > 0
     assert serde.serialize_proof(got) == serde.serialize_proof(want)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7 and kernel 4 in the rows layout (device/rows.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("P,n,T,mf,nevals", [
+    (1, 2, 1, 1, 1), (2, 256, 3, 2, 2), (27, 1024, 36, 6, 6),
+    (96, 64, 8, 5, 20), (3, 512, 1, 3, 3), (5, 8192, 6, 4, 6)])
+def test_rows_points_kernel_matches_plain(gpu, P, n, T, mf, nevals):
+    """Kernel 7 against its plain version on every weight layout: one row
+    and 96, 1 to 20 points, repeated factors, a constant term, a
+    coefficient of one, an all-zero row, pairs that leave a block partly
+    empty (n < 256), one full block (n = 256) and several."""
+    from jolt_atlas_tpu_torch.device import rows as drows
+    gen = np.random.default_rng(50 + P + n)
+    x = drows.random_rows_for(P, n, gen, gpu)
+    terms = drows.random_terms(P, T, mf, gen)
+    tg, tc = drows.Terms(terms, gpu), drows.Terms(terms, "cpu")
+    before = telemetry.launches().get("rows_points", 0)
+    for kind in drows.WEIGHT_KINDS:
+        args = drows.random_weights(n, kind, gen)
+        got = drows.points(x, n, nevals, tg, drows.weights(*args, gpu))
+        want = drows.points_plain(x.cpu(), n, nevals, tc,
+                                  drows.weights(*args, "cpu"))
+        assert _equal([got.cpu()], [want]), kind
+    per = 2 if drows.rows_blocks(n) > 1 else 1
+    assert telemetry.launches()["rows_points"] - before == per * len(
+        drows.WEIGHT_KINDS)
+
+
+@pytest.mark.parametrize("P,n", [(1, 2), (3, 4), (27, 256), (27, 16384)])
+def test_rows_bind_kernel_matches_plain(gpu, P, n):
+    """Kernel 4 with P lanes that all continue: the rows bind."""
+    from jolt_atlas_tpu_torch.device import rows as drows
+    gen = np.random.default_rng(60 + P + n)
+    x = drows.random_rows_for(P, n, gen, gpu)
+    c = dred.random_rows(6, gen, gpu)[5:]
+    before = telemetry.launches().get("reduction_bind", 0)
+    got = drows.bind_rows(x, c, n)
+    assert _equal([got.cpu()], [drows.bind_rows(x.cpu(), c.cpu(), n)])
+    assert telemetry.launches()["reduction_bind"] - before == 1
+
+
+def test_forced_iop_engine_matches_host_on_gpu(gpu):
+    """The rows engine on the card at every size (forced) against the host
+    path: equal proof bytes, kernel 7 launched."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.device import rows as drows
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    pp, toks = _bench_small_pp()
+    want, _ = AtlasProver(pp, device="cpu").prove([toks])
+    telemetry.reset()
+    got, _ = AtlasProver(pp, device=gpu, msm_gate=gate.forced("host"),
+                         iop_gate=drows.forced()).prove([toks])
+    tele = telemetry.snapshot()
+    assert tele["decisions"]["iop"].startswith("ENGAGED")
+    for k in ("rows_points", "rows_from_i64"):
+        assert tele["launches"].get(k, 0) > 0
+    assert serde.serialize_proof(got) == serde.serialize_proof(want)
+
+
+@pytest.mark.parametrize("n", [1, 12, 1000, 1 << 18])
+def test_rows_from_i64_kernel_matches_plain(gpu, n):
+    """Kernel 8 against its plain version: the int64 edges (0, +-1,
+    +-2^62, 2^63 - 1, -2^63), full-range and small values."""
+    from jolt_atlas_tpu_torch.device import rows as drows
+    gen = np.random.default_rng(70 + n)
+    v = gen.integers(-(1 << 63), (1 << 63) - 1, size=n, dtype=np.int64,
+                     endpoint=True)
+    edge = [0, 1, -1, (1 << 63) - 1, -(1 << 63), 1 << 62, -(1 << 62) - 7,
+            65535, -65536, 1 << 32, 2, -2]
+    v[:min(n, len(edge))] = edge[:n]
+    v[len(edge):n // 2] %= 1 << 16
+    src = torch.from_numpy(v).to(gpu)
+    before = telemetry.launches().get("rows_from_i64", 0)
+    got = drows.from_i64(src)
+    assert _equal([got.cpu()], [drows.from_i64_plain(src.cpu())])
+    assert telemetry.launches()["rows_from_i64"] - before == 1

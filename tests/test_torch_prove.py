@@ -145,7 +145,7 @@ def test_engine_carried_the_opening(bench_small):
     assert d.get("msm:hyperkzg_witness", 0) > 0
     assert d.get("msm:commit", 0) > 0  # no commit is skewed at c = 6
     assert tele["decisions"]["msm"].startswith("ENGAGED")
-    assert tele["decisions"]["iop"] == "not ported"
+    assert tele["decisions"]["iop"] == "host path (device=cpu)"
     assert tele["launches"] == {}  # CPU tensors: plain versions only
 
 

@@ -408,6 +408,7 @@ def test_port_modules_import_no_jax():
                or m == "jolt_atlas_tpu" or m.startswith("jolt_atlas_tpu.")]
         assert not bad, bad
         assert "jolt_atlas_tpu_torch.device.reduction" in sys.modules
+        assert "jolt_atlas_tpu_torch.device.rows" in sys.modules
         print(len(names))
     """)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
