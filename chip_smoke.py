@@ -159,6 +159,10 @@ def checked(results, kernel: str, lanes) -> None:
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak (NVIDIA datasheet)
 IMADS_PER_MUL = 264
 IMADS_PER_ADD = 12 * IMADS_PER_MUL
+# kernel 8's product of |v| (two nonzero 32-bit limbs) by R^2: each of the 8
+# steps of the Montgomery product needs 2 x 2 IMADs (low and high halves)
+# for |v|'s limbs and 1 + 16 for the reduction
+IMADS_PER_I64 = 8 * (2 * 2 + 1 + 16)
 POINT_BYTES = 3 * 32
 FR_BYTES = 32
 # one BLAKE2b compression: 12 rounds x 8 mixes x (4 u64 adds, two of them
@@ -741,8 +745,8 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
                        for name, w, _ in profiling._EVENTS
                        if name.strip().startswith("reduction_")})
         # the rows engine's steps, summed over its instances
-        phases.update({k: round(v[0], 6)
-                       for k, v in profiling._TALLIES.items()})
+        phases.update({k: round(v, 6)
+                       for k, v in span_sums("rows_").items()})
         return (proof, io, wall, phases,
                 torch.cuda.max_memory_allocated() / 2**20)
 
@@ -1129,7 +1133,20 @@ def rows_n(inst) -> int:
 
 def rows_eligible(inst, gate) -> bool:
     P, n = len(inst["rows"]), rows_n(inst)
-    return gate.decline(P, n, inst["degree"]) is None
+    return gate.decline(P, n, inst["degree"], sum(
+        len(f) for _, f in inst["terms"])) is None
+
+
+def span_sums(prefix: str) -> dict:
+    """Seconds of the recorded profiling spans named ``prefix``...,
+    summed by name."""
+    from jolt_atlas_tpu_torch.utils import profiling
+    out: dict = {}
+    for name, w, _ in profiling._EVENTS:
+        name = name.strip()
+        if name.startswith(prefix):
+            out[name] = out.get(name, 0.0) + w
+    return out
 
 
 def rows_run(inst, dev=None, gate=None) -> dict:
@@ -1169,7 +1186,7 @@ def rows_run(inst, dev=None, gate=None) -> dict:
             head_ms = (time.perf_counter() - t0) * 1e3
     finals = [r.row_final(i).v for i in range(P)]
     ms = (time.perf_counter() - t0) * 1e3
-    steps = {k: v[0] * 1e3 for k, v in profiling._TALLIES.items()}
+    steps = {k: v * 1e3 for k, v in span_sums("rows_").items()}
     return {"ms": ms, "head_ms": head_ms if head_ms is not None else ms,
             "msgs": msgs, "finals": finals, "steps": steps,
             "engaged": engaged}
@@ -1179,15 +1196,20 @@ def rows_products(x, n: int, nevals: int, terms, w) -> tuple:
     """(products this run's data needs, products with no zero skipped) of
     kernel 7's function: per pair and point, a product for each further
     factor of a term while the chain is nonzero and one by a coefficient
-    other than one where the term is nonzero; where the term sum is
-    nonzero, one by the weight and, with both tables, the weight's own."""
+    other than one where the term is nonzero; the weight factors out by
+    table (sum_h whi[h] sum_{j in h} wlo[j] s(j)), so per point one
+    product by wlo on each pair whose term sum s(j) is nonzero and one by
+    whi for each whi row such a pair reaches."""
     from jolt_atlas_tpu_torch.device import rows as drows
     from jolt_atlas_tpu_torch.field.constants import FR_MODULUS, FR_R
     one = FR_R % FR_MODULUS
     coeff_one = [int.from_bytes(r.astype("<u8").tobytes(), "little") == one
                  for r in terms.coeffs.cpu().numpy()]
-    half, lay = n // 2, drows.layout(w)
-    wprod = (lay > 0) + (lay == 3)
+    half = n // 2
+    _, _, whi_n, whi_shift, _, log_wlo = w
+    hrow = ((torch.arange(half, device=x.device) >> min(whi_shift, 63))
+            & (whi_n - 1))
+    lo_w, hi_w = log_wlo >= 0, whi_n > 1
     dense = sum(max(len(f) - 1, 0) + (bool(f) and not c1)
                 for f, c1 in zip(terms.factors, coeff_one))
     need = 0
@@ -1202,8 +1224,11 @@ def rows_products(x, n: int, nevals: int, terms, w) -> tuple:
                 run = run & nz[g]
             if not c1:
                 need += int(run.sum())
-        need += wprod * int((inner != 0).any(0).sum())
-    return need, half * nevals * (dense + wprod)
+        live = (inner != 0).any(0)
+        need += lo_w * int(live.sum())
+        need += hi_w * int(torch.unique(hrow[live]).numel())
+    return need, nevals * (half * (dense + lo_w) + hi_w * int(
+        torch.unique(hrow).numel()))
 
 
 def message_nevals(se, rnd: int, degree: int) -> int:
@@ -1215,8 +1240,8 @@ def message_nevals(se, rnd: int, degree: int) -> int:
     return dq + 1 if lin[1].is_zero() else dq
 
 
-ROWS_STEPS = ("rows_to_field", "rows_upload", "rows_points", "rows_bind",
-              "rows_handoff")  # the engine's profiling tallies
+ROWS_STEPS = ("rows_upload", "rows_points", "rows_bind",
+              "rows_handoff")  # the engine's profiling spans
 
 
 def rows_passes(insts, dev, gate, order=("engine", "host", "host",
@@ -1403,7 +1428,7 @@ def phase_rows(dev, results, rows_cap,
     m8 = src.shape[0]
     lines.append("from_i64 " + timed(
         results, "rows_from_i64", f"that instance's {len(ints)} integer "
-        f"rows, {m8} values", ms8, m8, m8 * (8 + FR_BYTES), IMADS_PER_MUL)
+        f"rows, {m8} values", ms8, m8, m8 * (8 + FR_BYTES), IMADS_PER_I64)
         + f", plain {plain8:.1f} ms")
     results["rows_from_i64"] = {"ms": ms8, "plain_ms": plain8,
                                 **results["timed"]["rows_from_i64"][-1]}

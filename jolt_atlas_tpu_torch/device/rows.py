@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..field.frvec import FrArray, GruenInstance
-from ..utils.profiling import tally
+from ..utils.profiling import span
 from . import telemetry
 from .field import FR, NLIMBS, from_planes, to_planes
 from .reduction import _check, bind, mont_rows
@@ -58,31 +58,48 @@ ROWS_THREADS = 128   # csrc/rows.cu: pairs a block of kernel 7
 MAX_P = 96           # the host GruenInstance.MAXP
 MAX_EVALS = 20       # GruenInstance.MAXE
 # The default gate, measured on an H100 host against the host engine on
-# the bench's own instances (scripts/rows_sweep.py, PERF.md): with
-# 2 head rounds the card lost at 1,024 elements a row in every run and
-# mostly won from 4,096, so the floor rose from the reference's
-# JOLT_ATLAS_MESH_MIN_N (256); running every round down to the floor did
-# not beat 2 head rounds beyond the runs' spread, so the reference's
-# JOLT_ATLAS_MESH_HEAD_ROUNDS (2) stays.
+# the bench's own instances (scripts/rows_sweep.py, chip_smoke.py phase 12;
+# PERF.md): with 2 head rounds the card lost at 1,024 elements a row in
+# every run, so the floor rose from the reference's JOLT_ATLAS_MESH_MIN_N
+# (256); running every round down to the floor did not beat 2 head rounds
+# beyond the runs' spread, so the reference's JOLT_ATLAS_MESH_HEAD_ROUNDS
+# (2) stays. The engine costs a few ms an instance whatever its work (its
+# copies, a fetch a round, the handoff), so it also declines an instance
+# with little work in its first round (``work``): the one-term classes of
+# 2-4 rows (2-4 factors a pair, <= 82K) lost in every run, the 17-row
+# class (0.54M) in most, and the classes of 23-28 rows (>= 1.78M) tied or
+# won.
 MIN_N = 2048
+MIN_WORK = 1 << 20
 HEAD_ROUNDS = 2
+
+
+def work(n: int, factors: int, degree: int) -> int:
+    """An instance's first round as the host does it: the row values it
+    forms, n / 2 pairs x ``factors`` (sum_k |F_k| over the term list) x
+    ``degree`` points."""
+    return (n // 2) * factors * max(1, degree)
 
 
 class RowsGate:
     """Which instances the engine takes: on a CUDA device, those of at
-    least ``min_n`` elements a row, at most MAX_P rows and MAX_EVALS
-    points, for ``head_rounds`` rounds; ``forced``, the same on any device
-    (the plain versions on a CPU one)."""
+    least ``min_n`` elements a row and ``min_work`` (``work``), at most
+    MAX_P rows and MAX_EVALS points, for ``head_rounds`` rounds;
+    ``forced``, the same on any device (the plain versions on a CPU
+    one)."""
 
     def __init__(self, head_rounds: int = HEAD_ROUNDS, min_n: int = MIN_N,
-                 forced: bool = False):
+                 forced: bool = False, min_work: int = MIN_WORK):
         self.head_rounds = head_rounds
         self.min_n = min_n
         self.forced = forced
+        self.min_work = min_work
 
-    def decline(self, P: int, n: int, degree: int) -> str | None:
+    def decline(self, P: int, n: int, degree: int,
+                factors: int) -> str | None:
         """Why the engine does not take an instance of P rows of n
-        elements and this degree, or None."""
+        elements, this degree and ``factors`` factors over its terms, or
+        None."""
         if P > MAX_P:
             return f"P > {MAX_P}"
         if max(1, degree) > MAX_EVALS:
@@ -91,12 +108,14 @@ class RowsGate:
             return f"n < {max(self.min_n, 2)}"
         if self.head_rounds < 1:
             return "no head rounds"
+        if work(n, factors, degree) < self.min_work:
+            return f"work < {self.min_work}"
         return None
 
 
 def forced(head_rounds: int = HEAD_ROUNDS, min_n: int = 2) -> RowsGate:
     """A gate that engages on any device at any size from ``min_n`` up."""
-    return RowsGate(head_rounds, min_n, True)
+    return RowsGate(head_rounds, min_n, True, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +379,8 @@ class DeviceGruen:
     first ``head_rounds`` rounds (``try_setup`` builds it). ``rows``: each
     an FrArray or a vector of small integers, as the host engine takes
     them. ``stats`` (the active IopScope) counts its device rounds. The
-    steps are timed as profiling tallies (rows_upload, rows_points,
-    rows_bind, rows_handoff)."""
+    steps are profiling spans (rows_upload, rows_points, rows_bind,
+    rows_handoff)."""
 
     def __init__(self, rows, terms, degree: int, device, head_rounds: int,
                  stats=None):
@@ -373,7 +392,7 @@ class DeviceGruen:
         self._host = None
         self._stats = stats
         self._rounds_left = head_rounds
-        with tally("rows_upload"):
+        with span("rows_upload"):
             self.x = upload(rows, device)
             self._terms = Terms(self.terms, device)
             self._init_off = torch.zeros(self.P, dtype=torch.int64,
@@ -381,7 +400,7 @@ class DeviceGruen:
 
     def _fetch_host(self) -> None:
         """Hand the rows to a host GruenInstance (one fetch)."""
-        with tally("rows_handoff"):
+        with span("rows_handoff"):
             flat = self.x.cpu().numpy().view(np.uint64).reshape(
                 self.P, self.n, 4)
             self._host = GruenInstance(
@@ -395,7 +414,7 @@ class DeviceGruen:
         if self._host is not None:
             return self._host.round_points(nevals, whi, whi_shift, wlo,
                                            log_wlo)
-        with tally("rows_points"):
+        with span("rows_points"):
             w = weights(whi, whi_shift, wlo, log_wlo, self.device)
             out = points(self.x, self.n, nevals, self._terms, w)
             telemetry.count("iop_rows")
@@ -408,7 +427,7 @@ class DeviceGruen:
         if self._host is not None:
             self._host.bind(r)
             return
-        with tally("rows_bind"):
+        with span("rows_bind"):
             c = torch.from_numpy(mont_rows([r])).to(self.device)
             self.x = bind_rows(self.x, c, self.n, self._init_off)
             telemetry.count("iop_rows")
@@ -480,23 +499,22 @@ def active() -> IopScope | None:
     return _SCOPE
 
 
-def try_setup(mlpolys, terms, degree: int) -> DeviceGruen | None:
-    """A DeviceGruen for this instance under the active scope, or None (the
-    caller uses the host engine; the reason is counted in the scope)."""
+def try_setup(rows, terms, degree: int) -> DeviceGruen | None:
+    """A DeviceGruen for this instance under the active scope, or None (no
+    scope, or the gate declined: the caller uses the host engine; the
+    reason is counted in the scope). ``rows``: as the host GruenInstance
+    takes them, each an FrArray or a vector of small integers."""
     sc = _SCOPE
-    if sc is None or not mlpolys:
+    if sc is None or not rows:
         return None
     sc.offered += 1
-    P, n = len(mlpolys), len(mlpolys[0])
-    why = sc.gate.decline(P, n, degree)
-    if why is None and any(len(p) != n for p in mlpolys):
+    P, n = len(rows), len(rows[0])
+    why = sc.gate.decline(P, n, degree, sum(len(f) for _, f in terms))
+    if why is None and any(len(rw) != n for rw in rows):
         why = "rows of unequal length"
-    if why is None:  # as the host engine takes them (sumcheck.py)
-        with tally("rows_to_field"):
-            rows = [p.ints if p.is_small() else p.to_field()
-                    for p in mlpolys]
-        if not all(isinstance(rw, (FrArray, np.ndarray)) for rw in rows):
-            why = "rows not field vectors"
+    if why is None and not all(isinstance(rw, (FrArray, np.ndarray))
+                               for rw in rows):
+        why = "rows not field vectors"
     if why is not None:
         sc.decline(why)
         return None

@@ -109,7 +109,8 @@ class AtlasProver:
         # versions), the last t rounds on the host.
         # iop_gate: which of the IOP's dense Gruen sumchecks run their head
         # rounds on the device (device/rows.py); None: on a CUDA device,
-        # rows of >= 2048 elements, 2 rounds.
+        # rows of >= 2048 elements and a first round of >= 2^20 row values
+        # (rows.work), 2 rounds.
         # rows.forced(head_rounds=, min_n=) runs them on any device (a CPU
         # device: the plain versions).
         device = torch.device(device)

@@ -89,25 +89,16 @@ class RowsInstance:
         self._eq_offset = 0
         native = vec.native_available()
         if eq_r is not None and native and mlpolys:
-            # the head rounds on the card (device/rows.py), while the
-            # prover's IOP scope is active; byte-identical messages
-            from ..device import rows as drows
-            if drows.active() is not None:
-                dg = drows.try_setup(mlpolys, terms, degree)
-                if dg is not None:
-                    from ..poly.spliteq import SplitEq
-                    self._gruen = dg
-                    self._se = SplitEq(eq_r, pre_vars=eq_pre,
-                                       post_vars=eq_post)
-                    self._rows_terms = terms
-                    self._mlrows = mlpolys
-                    return
             if (len(mlpolys) <= frvec.GruenInstance.MAXP
                     and max(1, degree) <= frvec.GruenInstance.MAXE):
+                from ..device import rows as drows
                 from ..poly.spliteq import SplitEq
                 rows = [p.ints if p.is_small() else p.to_field()
                         for p in mlpolys]
-                self._gruen = frvec.GruenInstance(rows, terms, degree)
+                # the head rounds on the card (device/rows.py) while the
+                # prover's IOP scope is active; byte-identical messages
+                self._gruen = (drows.try_setup(rows, terms, degree)
+                               or frvec.GruenInstance(rows, terms, degree))
                 self._se = SplitEq(eq_r, pre_vars=eq_pre, post_vars=eq_post)
                 self._rows_terms = terms
                 self._mlrows = mlpolys

@@ -60,27 +60,6 @@ def span(name: str):
                   flush=True)
 
 
-_TALLIES: dict[str, list] = {}
-
-
-@contextmanager
-def tally(name: str):
-    """Add the block's wall time and one call to a running total under
-    ``name`` (no event, no RSS read): for steps that run hundreds of times
-    a prove, where a span would add an event and two reads of
-    /proc/self/status each time."""
-    if not _ENABLED:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        t = _TALLIES.setdefault(name, [0.0, 0])
-        t[0] += time.perf_counter() - t0
-        t[1] += 1
-
-
 def report() -> str:
     lines = [f"{'phase':<48} {'wall_s':>9} {'dRSS_MB':>9}"]
     for name, dt, dm in _EVENTS:
@@ -90,4 +69,3 @@ def report() -> str:
 
 def reset() -> None:
     _EVENTS.clear()
-    _TALLIES.clear()

@@ -15,12 +15,13 @@ between the engine and the host GruenInstance:
 - floor: the engine (forced, 2 head rounds) against the host at each row
   length n, engine, host, host, engine: where the card stops losing
   (device/rows.py:MIN_N);
-- gates: every instance under each of five gates (the host alone; the
-  reference's 2 head rounds from 256 elements; every round down to the
-  floor, at floors of 256, 2,048 and 4,096 elements; an instance a gate
-  declines runs on the host), six passes each in turns, forward then
-  backward: the median and quartiles that place the default gate
-  (device/rows.py).
+- gates: every instance under each of seven gates (the host alone; 2
+  head rounds from 256 elements, the reference's, and from 2,048; every
+  round down to the floor, at floors of 256, 2,048 and 4,096 elements;
+  the default, device/rows.py:RowsGate(), which also declines instances
+  of little work; an instance a gate declines runs on the host), six
+  passes each in turns, forward then backward: the median and quartiles
+  that place the default gate.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -110,12 +111,14 @@ def sweep(dev, dims=(65, 64, 64, 4, 4)) -> dict:
     def down_to(floor):
         """Every round whose rows hold at least ``floor`` elements."""
         return lambda n: drows.RowsGate(
-            n.bit_length() - floor.bit_length() + 1, floor)
+            n.bit_length() - floor.bit_length() + 1, floor, min_work=0)
 
     gates = {"host": None, "2 rounds, n >= 256": lambda n: drows.RowsGate(
-        2, 256), "down to 256, n >= 256": down_to(256),
+        2, 256, min_work=0), "2 rounds, n >= 2048": lambda n: drows.RowsGate(
+        2, 2048, min_work=0), "down to 256, n >= 256": down_to(256),
         "down to 2048, n >= 2048": down_to(2048),
-        "down to 4096, n >= 4096": down_to(4096)}
+        "down to 4096, n >= 4096": down_to(4096),
+        "default": lambda n: default}
     order = (list(gates) + list(gates)[::-1]) * 3
     passes = {name: [] for name in gates}
     for name in order:

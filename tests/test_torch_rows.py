@@ -323,10 +323,10 @@ def test_forced_engine_bytes_equal_reference(case, monkeypatch):
     engaged = []
     real = R.try_setup
 
-    def spy(mlpolys, terms, degree):
-        got = real(mlpolys, terms, degree)
+    def spy(rows, terms, degree):
+        got = real(rows, terms, degree)
         if got is not None:
-            engaged.append((len(mlpolys), len(mlpolys[0])))
+            engaged.append((len(rows), len(rows[0])))
         return got
     monkeypatch.setattr(R, "try_setup", spy)
     telemetry.reset()
@@ -374,19 +374,40 @@ def _polys(P, n, gen):
     (97, 256, R.forced(), "P > 96"),
     (2, 1, R.forced(min_n=1), "n < 2"),
     (2, 8, R.forced(head_rounds=0), "no head rounds"),
+    (2, 4096, R.RowsGate(forced=True), "work < 1048576"),
 ])
 def test_gate_declines_with_its_reason(P, n, gate, why):
+    """try_setup, offered rows as setup_rows converts them, declines and
+    counts the reason (setup_rows offers no more than 96 rows)."""
     gen = np.random.default_rng(P + n)
-    inst = _Rows()
+    rows = [gen.integers(-50, 50, size=n) for _ in range(P)]
     telemetry.reset()
     with R.IopScope(torch.device("cpu"), gate) as sc:
-        inst.setup_rows(_polys(P, n, gen), [(Fr.one(), [0, 1])], 3,
-                        eq_r=[Fr(3)] * max(n.bit_length() - 1, 1))
-    assert not isinstance(inst._gruen, R.DeviceGruen)
+        assert R.try_setup(rows, [(Fr.one(), [0, 1])], 3) is None
     assert (sc.offered, sc.engaged, sc.declined) == (1, 0, {why: 1})
     tele = telemetry.snapshot()["decisions"]
     assert tele["iop"] == "none engaged (1 instances offered)"
     assert tele["iop:declined"] == f"{why}: 1"
+
+
+def test_declined_instance_runs_on_host():
+    """Under the default gate, a one-term instance of 4,096 elements a row
+    (work 2,048 x 2 x 3 < 2^20) is declined and set up on the host engine,
+    and its messages equal those of a set-up outside any scope."""
+    gen = np.random.default_rng(17)
+    polys = _polys(2, 4096, gen)
+    eq_r = [Fr(3 + k) for k in range(12)]
+    a, b = _Rows(), _Rows()
+    with R.IopScope(torch.device("cpu"), R.RowsGate(forced=True)) as sc:
+        a.setup_rows(polys, [(Fr.one(), [0, 1])], 3, eq_r=eq_r)
+    b.setup_rows(polys, [(Fr.one(), [0, 1])], 3, eq_r=eq_r)
+    assert isinstance(a._gruen, GruenInstance)
+    assert sc.declined == {"work < 1048576": 1}
+    for k in range(3):
+        assert [c.v for c in a.rows_message(Fr(k)).coeffs] == \
+            [c.v for c in b.rows_message(Fr(k)).coeffs]
+        a.rows_bind(Fr(5 + k))
+        b.rows_bind(Fr(5 + k))
 
 
 def test_gate_engages_on_eq_rows_only():
@@ -414,10 +435,12 @@ def test_default_gate_per_device():
     assert telemetry.snapshot()["decisions"]["iop"] == \
         "host path (device=cpu)"
     sc = R.iop_scope("cuda")
-    assert (sc.gate.head_rounds, sc.gate.min_n, sc.gate.forced) == (
-        2, 2048, False)
-    assert sc.gate.decline(96, 2048, 20) is None
-    assert R.forced().head_rounds == 2
+    assert (sc.gate.head_rounds, sc.gate.min_n, sc.gate.min_work,
+            sc.gate.forced) == (2, 2048, 1 << 20, False)
+    # work: 1,024 pairs x factors x 20 points against 2^20
+    assert sc.gate.decline(96, 2048, 20, 52) is None
+    assert sc.gate.decline(96, 2048, 20, 51) == "work < 1048576"
+    assert (R.forced().head_rounds, R.forced().min_work) == (2, 0)
 
 
 def test_opening_reduction_rows_never_engage(monkeypatch):
