@@ -8,8 +8,11 @@ script exits non-zero when any phase fails:
   1. device   a CUDA device is present; its name and power limit
   2. build    the CUDA kernels (sm_90a, one nvcc per source, in parallel)
               and the host C++ engines, from source; ptxas's registers,
-              spills and shared memory per kernel, and the SASS of one
-              fq_mul (device/kernel_report.py)
+              spills and shared memory per kernel, the SASS of one fq_mul
+              (device/kernel_report.py), kernel 7's registers and shared
+              memory by launch plan, and kernels 1-6 and 8 held to their
+              recorded SASS digests (KEPT_SASS) under the nvcc that
+              recorded them
   3. pp_add   kernel 1 against its plain PyTorch version on the card: 2^16
               random pairs plus doubling, P + (-P), the identity on either
               side and coordinates near p; bit-equal, timed at the gate's
@@ -42,9 +45,10 @@ script exits non-zero when any phase fails:
               on the first two; proof bytes equal; the port's verifier
               accepts it and rejects a flipped commitment
  10. trace    one more gate-path prove under torch.profiler (the device's
-              idle share, kernels 2-7's device ms and launches, the
-              busiest kernels), and one split MSM whose host prefix must
-              overlap its device kernels.
+              idle share, kernels 2-8's device ms and launches, the
+              busiest kernels; kernel 7 launched once a device round), and
+              one split MSM whose host prefix must overlap its device
+              kernels.
  11. reduction  kernels 4-6 (the opening reduction's bind, q0 and tail)
               and the BLAKE2b test kernel against their plain versions at
               small shapes and the edges (late joiners, l1 = 0, padding
@@ -56,10 +60,12 @@ script exits non-zero when any phase fails:
               instances, in turns: messages, challenges, transcript state
               and final claims equal.
  12. rows     kernel 7 (the IOP rows engine's points) against its plain
-              version at P = 1, 2, 27 and 96 rows and 1, 2, 6 and 20
-              points on every weight layout, and kernel 4 in the rows
-              layout, bit-equal; kernel 7 timed on the bench's largest
-              class beside its bound; the engine against the host
+              version at P = 1, 2, 27 and 96 rows (and 27 rows with the
+              bench class's grouped terms) and 1, 2, 6 and 20 points on
+              every weight layout, and kernel 4 in the rows layout,
+              bit-equal; kernel 7 timed on the bench's largest class
+              beside its bound, and at neighbouring launch plans; the
+              engine against the host
               GruenInstance on the bench's own instances (captured from
               the host-path prove), in turns: every round message and
               final row value equal, the engine's ms split into
@@ -69,15 +75,17 @@ script exits non-zero when any phase fails:
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
-card's IMAD peak (``bound``).
+card's IMAD peak (``bound``). Kernel times are the profiler's device
+durations (``device_ms``); the wrapper's call time, host work included,
+is printed beside them.
 
 Each path (gate calibration, split, the two device proves) runs with the
 launch counts set to 0 just before it and read just after; the kernels
 JSON sums them, and gives the traced prove's own launches. Every shape a
 path launched a kernel at (its lane count; for kernel 3 also its blocks
 per window; for kernels 4 and 5 their branch class; for kernel 7 its rows,
-points, terms and weight layout) must be one that phases 3-5, 11 and 12
-held against the plain version, or the run fails. The
+points, terms, weight layout and launch plan) must be one that phases
+3-5, 11 and 12 held against the plain version, or the run fails. The
 second line from the end is that JSON, the last line {"ok": true,
 "device": {...}}. Imports nothing of JAX or jolt_atlas_tpu.
 """
@@ -89,6 +97,7 @@ import copy
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -124,6 +133,49 @@ def cuda_ms(fn, reps: int, warmup: bool = True):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps, out
+
+
+def _profiler_pad() -> None:
+    """A short device activity and a pause, so that the launches traced
+    between two pads lie inside the profiler's window (its first and last
+    activities can go unrecorded)."""
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    time.sleep(0.005)
+
+
+def device_ms(fn, reps: int, kernel: str, counted: str | None = None):
+    """(mean device milliseconds a call of fn() spends in the CUDA kernels
+    whose name holds ``kernel``, from torch.profiler's kernel durations;
+    mean milliseconds a call on CUDA events around the loop, the wrapper's
+    call time, host work included; the last call's result). A kernel
+    shorter than its wrapper's host cost shows only in the first. The
+    launches are the wrappers' own count (telemetry name ``counted``,
+    ``kernel`` by default). A trace that missed some is taken again, twice
+    at most; if the last still misses some, a call's device time is the
+    mean duration of the launches it holds times the launches a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jolt_atlas_tpu_torch.device import telemetry
+    name = counted or kernel
+    call, out = cuda_ms(fn, reps)
+    for _ in range(3):
+        before = telemetry.launches().get(name, 0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _profiler_pad()
+            for _ in range(reps):
+                out = fn()
+            _profiler_pad()
+        launched = telemetry.launches().get(name, 0) - before
+        hits = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(hits) == launched:
+            break
+    if not hits or launched < reps:
+        raise AssertionError(f"the profiler saw {len(hits)} of {launched} "
+                             f"launches of {kernel} in {reps} calls")
+    return sum(hits) / len(hits) * launched / 1e3 / reps, call, out
 
 
 def max_abs_err(got, want) -> float:
@@ -191,14 +243,33 @@ def bound(adds: int, nbytes: int, peak: float,
 
 
 def timed(results, kernel: str, shape: str, ms: float, adds: int,
-          nbytes: int, imads_per: int = IMADS_PER_ADD) -> str:
-    """Record one timed shape of a kernel beside its bound; its line."""
+          nbytes: int, imads_per: int = IMADS_PER_ADD,
+          call_ms: float | None = None) -> str:
+    """Record one timed shape of a kernel (device ms, and the wrapper's
+    call ms: device_ms) beside its bound; its line."""
     b, by = bound(adds, nbytes, results["imad_peak"], imads_per)
     results.setdefault("timed", {}).setdefault(kernel, []).append({
-        "shape": shape, "ms": ms, "bound_ms": b, "bound_by": by,
-        "share": b / ms, "adds": adds})
-    return (f"{shape}: kernel {ms:.4f} ms, bound {b:.4f} ms ({by}), share "
+        "shape": shape, "ms": ms, "call_ms": call_ms, "bound_ms": b,
+        "bound_by": by, "share": b / ms, "adds": adds})
+    return (f"{shape}: kernel {ms:.4f} ms on the device (a call "
+            f"{call_ms:.4f} ms), bound {b:.4f} ms ({by}), share "
             f"{b / ms:.3f}")
+
+
+# The SASS digests (kernel_report.sass) of kernels 1-6 and 8, which the
+# redesign of kernel 7 left as they were: equal for the parent's sources and
+# this tree's, built with this nvcc (the chip machine's CUDA 12.9)
+KEPT_SASS = ("cuda_12.9.r12.9/compiler.36037853_0", {
+    "pp_add_kernel": "364ac1555b4b3cdb",
+    "bucket_accumulate_runs": "83e9666cacfd371c",
+    "bucket_accumulate_join": "d79a9ca3924cb2b6",
+    "bucket_combine_kernel": "7ae9ac1c24963eb6",
+    "bucket_combine_groups": "14ac1cf5de74f90b",
+    "reduction_bind_kernel": "be07dc0fe3190249",
+    "reduction_q0_kernel": "2615606d808143bb",
+    "reduction_tail_kernel": "36c99519604b1ec3",
+    "blake2b_transcript_kernel": "fc52dcd022b62eff",
+    "rows_from_i64_kernel": "67c51e4747e834c4"})
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +295,32 @@ def phase_build() -> None:
             f"{r['smem']} bytes smem")
     say("build", "one fq_mul in SASS (cuobjdump): " + json.dumps(
         kernel_report.fq_mul_sass(build.CUDA_SRC)))
+    from jolt_atlas_tpu_torch.device import rows as drows
+    r = kernel_report.parse_ptxas(build.ptxas_report())["rows_points_kernel"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    S = drows.DEFAULT_MAX_SLICES
+    bench = drows.points_plan(27, 1 << 14, 6, S, sms)["smem"]
+    say("build", f"kernel 7 (rows_points_kernel): {r['registers']} "
+        f"registers, {r['smem']} bytes static smem; dynamic smem by its "
+        f"launch plan: bench class (27 rows, {S} slices, n = 16,384, 6 "
+        f"points) {bench} bytes, "
+        f"96 rows at 20 points and 16 slices "
+        f"{drows.points_plan(96, 64, 20, 16, sms, group=20)['smem']} bytes")
+    toolkit = subprocess.run([build.nvcc_path(), "--version"], check=True,
+                             capture_output=True,
+                             text=True).stdout.split()[-1]
+    if toolkit != KEPT_SASS[0]:
+        say("build", f"nvcc {toolkit}: SASS digests not compared (recorded "
+            f"with {KEPT_SASS[0]})")
+        return
+    sass = kernel_report.sass(build.CUDA_SRC)
+    moved = sorted(k for k, d in KEPT_SASS[1].items()
+                   if sass.get(k, {}).get("digest") != d)
+    if moved:
+        raise AssertionError(f"SASS of {moved} differs from the recorded "
+                             f"digests: {sass}")
+    say("build", f"SASS of the {len(KEPT_SASS[1])} kernels of kernels 1-6 "
+        f"and 8 equal to the recorded digests (nvcc {toolkit})")
 
 
 def phase_pp_add(dev, bases, results) -> None:
@@ -250,13 +347,14 @@ def phase_pp_add(dev, bases, results) -> None:
     m = 1 << 17
     X = tuple(t.repeat(2, 1)[:m] for t in R1)
     Y = tuple(t.roll(3, 0) for t in X)
-    ms, got = cuda_ms(lambda: curve.pp_add(X, Y), 20)
+    ms, call_ms, got = device_ms(lambda: curve.pp_add(X, Y), 20, "pp_add")
     plain_ms, want = cuda_ms(lambda: curve.pp_add_plain(X, Y), 1,
                              warmup=False)
     err = max(err, require_equal(f"pp_add ({m} lanes)", got, want))
     for lanes in (n, Pe[0].shape[0], m):
         checked(results, "pp_add", lanes)
-    line = timed(results, "pp_add", f"{m} lanes", ms, m, m * 3 * POINT_BYTES)
+    line = timed(results, "pp_add", f"{m} lanes", ms, m, m * 3 * POINT_BYTES,
+                 call_ms=call_ms)
     results["pp_add"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          **results["timed"]["pp_add"][-1]}
     say("pp_add", f"bit-equal to the plain version on {n} random pairs, "
@@ -303,7 +401,9 @@ def phase_bucket(dev, bases, results,
         raw = random_scalars(n, 78 + i)
         lanes = dmsm.digit_lanes(dmsm.scalars_tensor(raw, n, dev), c)
         dmsm.rows_for(raw, n, c)  # the reference's skew gate passes
-        ms, got = cuda_ms(lambda: dmsm.bucket_accumulate(bases, lanes), 5)
+        ms, call_ms, got = device_ms(
+            lambda: dmsm.bucket_accumulate(bases, lanes), 5,
+            "bucket_accumulate")
         plain_ms, want = cuda_ms(
             lambda: dmsm.bucket_accumulate_plain(bases, lanes), 1,
             warmup=False)
@@ -314,15 +414,16 @@ def phase_bucket(dev, bases, results,
         sums.setdefault(c, got)
         adds, nbytes = accumulate_work(lanes, n)
         shapes.append(timed(results, "bucket_accumulate",
-                            f"n={n} c={c}", ms, adds, nbytes)
+                            f"n={n} c={c}", ms, adds, nbytes,
+                            call_ms=call_ms)
                       + f", plain {plain_ms:.1f} ms")
         if n == main:
             results["bucket_accumulate"] = {
                 "ms": ms, "plain_ms": plain_ms,
                 **results["timed"]["bucket_accumulate"][-1]}
             for run in (8, 32):  # the run length against its neighbours
-                rms, got = cuda_ms(lambda: dmsm.bucket_accumulate(
-                    bases, lanes, run=run), 5)
+                rms, _, got = device_ms(lambda: dmsm.bucket_accumulate(
+                    bases, lanes, run=run), 5, "bucket_accumulate")
                 err = max(err, require_equal(
                     f"bucket_accumulate (n={n}, run={run})", got,
                     dmsm.bucket_accumulate_plain(bases, lanes, run)))
@@ -378,8 +479,8 @@ def phase_combine(dev, bases, results, sums: dict,
     16 at c = 12) and 17 MSMs at c = 14, the fold batch at one window."""
     from jolt_atlas_tpu_torch.device import msm as dmsm
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    err, lines, fold_ms, fold_plain, fold_adds, fold_bytes = (
-        0.0, [], 0.0, 0.0, 0, 0)
+    err, lines, fold_ms, fold_call, fold_plain, fold_adds, fold_bytes = (
+        0.0, [], 0.0, 0.0, 0.0, 0, 0)
     cases = [(f"k=1 c={cc} real sums", tuple(a.unsqueeze(0) for a in acc),
               cc) for cc, acc in sorted(sums.items())]
     cases += [(f"k={k} c={c}", random_bucket_sums(dev, bases, k, c, 2025 + k),
@@ -387,7 +488,8 @@ def phase_combine(dev, bases, results, sums: dict,
     for name, acc, c in cases:
         k = acc[0].shape[0]
         G = dmsm.combine_groups(k, c, sms)
-        ms, got = cuda_ms(lambda: dmsm.bucket_combine(acc, c, G), 5)
+        ms, call_ms, got = device_ms(
+            lambda: dmsm.bucket_combine(acc, c, G), 5, "bucket_combine")
         plain_ms, want = cuda_ms(
             lambda: dmsm.bucket_combine_plain(acc, c, G), 1, warmup=False)
         err = max(err, require_equal(f"bucket_combine ({name}, G={G})", got,
@@ -395,16 +497,19 @@ def phase_combine(dev, bases, results, sums: dict,
         checked(results, "bucket_combine", (acc[0].shape[1], G))
         adds, nbytes = combine_work(k, c)
         lines.append(timed(results, "bucket_combine", f"{name} G={G}", ms,
-                           adds, nbytes) + f", plain {plain_ms:.1f} ms")
+                           adds, nbytes, call_ms=call_ms)
+                     + f", plain {plain_ms:.1f} ms")
         if name in ("k=1 c=14", "k=16 c=12"):  # the fold batch's launches
             fold_ms += ms
+            fold_call += call_ms
             fold_plain += plain_ms
             fold_adds += adds
             fold_bytes += nbytes
         del acc
     b, by = bound(fold_adds, fold_bytes, results["imad_peak"])
     results["bucket_combine"] = {
-        "max_abs_err": err, "ms": fold_ms, "plain_ms": fold_plain,
+        "max_abs_err": err, "ms": fold_ms, "call_ms": fold_call,
+        "plain_ms": fold_plain,
         "shape": "fold batch: k=1 c=14 + k=16 c=12", "bound_ms": b,
         "bound_by": by, "share": b / fold_ms}
     say("combine", f"bit-equal to the plain version at every shape "
@@ -634,9 +739,7 @@ def trace_prove(prove) -> dict:
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
     kernels = {}
     for kernel in ("bucket_accumulate", "bucket_combine") + REDUCTION + ROWS:
-        # kernel 7's wrapper launches rows_points_kernel and rows_sum_kernel
-        hit = [v for name, v in per.items() if kernel in name
-               or (kernel == "rows_points" and "rows_sum" in name)]
+        hit = [v for name, v in per.items() if kernel in name]
         kernels[kernel] = {"ms": sum(ms for ms, _ in hit),
                            "n": sum(k for _, k in hit)}
     return {"wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
@@ -807,6 +910,14 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
         results, ("bucket_accumulate", "bucket_combine") + ROWS + REDUCTION,
         lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
     results["launches_per_prove"] = tele["launches"]
+    # kernel 7: one launch a device round, in telemetry and in the trace
+    rounds = re.search(r"(\d+) device rounds", tele["decisions"]["iop"])
+    k7 = (tele["launches"].get("rows_points", 0),
+          trace["kernels"]["rows_points"]["n"])
+    if rounds is None or k7 != (int(rounds.group(1)),) * 2:
+        raise AssertionError(f"kernel 7 launched {k7} times (telemetry, "
+                             f"trace) in a prove of "
+                             f"{tele['decisions']['iop']}")
     overlap = trace_split(dev, srs)
     say("trace", "gate-path prove under torch.profiler: "
         + json.dumps(trace) + "; split MSM, host prefix against the device "
@@ -998,7 +1109,8 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
     del insts
     d = dred.random_round(dev, gen, jp, lanes, lg)
     args = (d["buf"], d["init"], d["c"], d["init_off"], jp, lanes, lg)
-    ms, out = cuda_ms(lambda: dred.bind(*args), 5)
+    ms, call_ms, out = device_ms(lambda: dred.bind(*args), 5,
+                                 "reduction_bind")
     plain_ms, want = cuda_ms(lambda: dred.bind_plain(*args), 1, warmup=False)
     err["reduction_bind"] = max(err["reduction_bind"], require_equal(
         "reduction_bind (bench round)", [out], [want]))
@@ -1007,12 +1119,12 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
     shape = f"round {r}: {jp} of {lanes} lanes continue, 2^{lg} each"
     lines.append("bind " + timed(results, "reduction_bind", shape, ms, nc,
                                  (3 * nc + 2 * nn) * FR_BYTES,
-                                 IMADS_PER_MUL)
+                                 IMADS_PER_MUL, call_ms)
                  + f", plain {plain_ms:.1f} ms")
     results["reduction_bind"] = {"ms": ms, "plain_ms": plain_ms,
                                  **results["timed"]["reduction_bind"][-1]}
     qa = (out, tab, lanep, lanes, lg)
-    ms, part = cuda_ms(lambda: dred.q0(*qa), 5)
+    ms, call_ms, part = device_ms(lambda: dred.q0(*qa), 5, "reduction_q0")
     plain_ms, want = cuda_ms(lambda: dred.q0_plain(*qa), 1, warmup=False)
     err["reduction_q0"] = max(err["reduction_q0"], require_equal(
         "reduction_q0 (bench round)", [part], [want]))
@@ -1021,7 +1133,7 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
         results, "reduction_q0", f"round {r}: {lanes} lanes of 2^{lg}, its "
         f"split-eq tables", ms, q0_products(lanep.cpu(), lg),
         (terms + tab.shape[0] + part.shape[0] + lanes) * FR_BYTES,
-        IMADS_PER_MUL) + f", plain {plain_ms:.1f} ms")
+        IMADS_PER_MUL, call_ms) + f", plain {plain_ms:.1f} ms")
     results["reduction_q0"] = {"ms": ms, "plain_ms": plain_ms,
                                **results["timed"]["reduction_q0"][-1]}
     del d, out, part, want, args, qa, tab, lanep
@@ -1034,12 +1146,13 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
     msg = torch.empty((2, 4), dtype=torch.int64, device=dev)
     targs = (t["partials"], bpl, J, t["Q"], t["es"], t["qinit"], t["coeff"],
              t["l0"], t["l1"], t["inv_l1"], t["const_b0"], t["state"])
-    ms, _ = cuda_ms(lambda: dred.tail(*targs, c, msg), 20)
+    ms, call_ms, _ = device_ms(lambda: dred.tail(*targs, c, msg), 20,
+                               "reduction_tail")
     plain_ms, _ = cuda_ms(lambda: dred.tail_plain(*targs), 1, warmup=False)
     lines.append("tail " + timed(
         results, "reduction_tail", f"{L} lanes, {J} joined, {bpl} partials "
         "a lane", ms, 10 * J + 3, (J * bpl + 8 * L + 4) * FR_BYTES,
-        IMADS_PER_MUL) + f", plain {plain_ms:.1f} ms")
+        IMADS_PER_MUL, call_ms) + f", plain {plain_ms:.1f} ms")
     results["reduction_tail"] = {"ms": ms, "plain_ms": plain_ms,
                                  **results["timed"]["reduction_tail"][-1]}
     st = torch.from_numpy(db.bytes_to_words(gen.bytes(32 * b2_n)).reshape(
@@ -1047,7 +1160,8 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
     rd = torch.arange(b2_n, dtype=torch.int64, device=dev)
     pl = torch.from_numpy(db.bytes_to_words(gen.bytes(72 * b2_n)).reshape(
         b2_n, 9)).to(dev)
-    ms, got = cuda_ms(lambda: db.transcript_step(st, rd, pl), 20)
+    ms, call_ms, got = device_ms(lambda: db.transcript_step(st, rd, pl), 20,
+                                 "blake2b_transcript")
     plain_ms, want = cuda_ms(lambda: db.transcript_absorb_long_plain(
         st, rd, pl), 1, warmup=False)
     err["blake2b_transcript"] = max(err["blake2b_transcript"], require_equal(
@@ -1055,7 +1169,7 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
     lines.append("blake2b_transcript " + timed(
         results, "blake2b_transcript", f"{b2_n} round-message absorbs (9 "
         "words, 2 compressions)", ms, b2_n * 2 * B2_OPS_PER_COMPRESS,
-        b2_n * (32 + 8 + 72 + 32), 1) + f", plain {plain_ms:.1f} ms")
+        b2_n * (32 + 8 + 72 + 32), 1, call_ms) + f", plain {plain_ms:.1f} ms")
     results["blake2b_transcript"] = {
         "ms": ms, "plain_ms": plain_ms,
         **results["timed"]["blake2b_transcript"][-1]}
@@ -1192,42 +1306,88 @@ def rows_run(inst, dev=None, gate=None) -> dict:
             "engaged": engaged}
 
 
+# the factor lists of the bench nanoGPT's largest rows class (27 rows, 36
+# terms): two 5-factor heads, each times 8 rows and alone, and 18 linear
+# terms; True where the coefficient is one
+_HEADS = {"A": [22, 23, 20, 21, 7], "B": [2, 3, 0, 1, 5]}
+BENCH_TERMS = ([(True, ["A", 8]), (True, ["B", 8])]
+               + [(False, [h, f]) for f in (9, 12, 13, 14, 15, 16, 17)
+                  for h in "AB"]
+               + [(False, ["B"]), (False, [6]), (False, ["A"])]
+               + [(False, [f]) for f in (4, 26, 8, 9, 12, 13, 14, 15, 16,
+                                         17, 18, 19, 10, 11, 4, 24, 25)])
+
+
+def bench_terms(gen: np.random.Generator) -> list:
+    """BENCH_TERMS with random coefficients where not one."""
+    from jolt_atlas_tpu_torch.field.constants import FR_MODULUS
+    from jolt_atlas_tpu_torch.field.scalar import Fr
+    out = []
+    for one, f in BENCH_TERMS:
+        rows = [i for g in f for i in (_HEADS[g] if g in _HEADS else [g])]
+        out.append((Fr.one() if one else Fr(int.from_bytes(
+            gen.bytes(32), "little") % FR_MODULUS), rows))
+    return out
+
+
 def rows_products(x, n: int, nevals: int, terms, w) -> tuple:
-    """(products this run's data needs, products with no zero skipped) of
-    kernel 7's function: per pair and point, a product for each further
-    factor of a term while the chain is nonzero and one by a coefficient
-    other than one where the term is nonzero; the weight factors out by
-    table (sum_h whi[h] sum_{j in h} wlo[j] s(j)), so per point one
-    product by wlo on each pair whose term sum s(j) is nonzero and one by
-    whi for each whi row such a pair reaches."""
+    """(products this run's data needs as kernel 7 evaluates the terms,
+    term by term, term by term with no zero skipped) of kernel 7's
+    function. A product chain costs a product for each further factor while
+    it is nonzero and one by a coefficient other than one where it is
+    nonzero. Kernel 7 evaluates the terms by their groups (Terms.groups):
+    the head's chain, on pairs where it is nonzero each member's tail
+    chain, and the head times the members' sum where that is nonzero (an
+    exact cancellation inside the sum is not looked for). The weight
+    factors out by table (sum_h whi[h] sum_{j in h} wlo[j] s(j)), so per
+    point one product by wlo on each pair whose term sum s(j) is nonzero
+    and one by whi for each whi row such a pair reaches."""
     from jolt_atlas_tpu_torch.device import rows as drows
     from jolt_atlas_tpu_torch.field.constants import FR_MODULUS, FR_R
     one = FR_R % FR_MODULUS
-    coeff_one = [int.from_bytes(r.astype("<u8").tobytes(), "little") == one
-                 for r in terms.coeffs.cpu().numpy()]
+    coeff = [int.from_bytes(r.astype("<u8").tobytes(), "little")
+             for r in terms.coeffs.cpu().numpy()]
     half = n // 2
     _, _, whi_n, whi_shift, _, log_wlo = w
     hrow = ((torch.arange(half, device=x.device) >> min(whi_shift, 63))
             & (whi_n - 1))
     lo_w, hi_w = log_wlo >= 0, whi_n > 1
-    dense = sum(max(len(f) - 1, 0) + (bool(f) and not c1)
-                for f, c1 in zip(terms.factors, coeff_one))
-    need = 0
+    dense = sum(max(len(f) - 1, 0) + (bool(f) and c != one)
+                for f, c in zip(terms.factors, coeff))
+    need = direct = 0
     for E, inner in drows.term_sums(x, n, nevals, terms):
         nz = (E != 0).any(0)
-        for f, c1 in zip(terms.factors, coeff_one):
-            if not f:
-                continue
-            run = nz[f[0]]
+
+        def chain(f, c, run):
+            """(products, pairs where the chain is nonzero) from ``run``."""
+            k, run = 0, run & nz[f[0]]
             for g in f[1:]:
-                need += int(run.sum())
+                k += int(run.sum())
                 run = run & nz[g]
-            if not c1:
-                need += int(run.sum())
+            return k + (c != one) * int(run.sum()), run
+        every = torch.ones(half, dtype=torch.bool, device=x.device)
+        for f, c in zip(terms.factors, coeff):
+            if f:
+                direct += chain(f, c, every)[0]
+        for head, mem in terms.groups:
+            k, hl = chain(head, one, every) if head else (0, every)
+            need += k
+            live = torch.zeros_like(every)
+            for t, tail in mem:
+                if tail:
+                    k, run = chain(tail, coeff[t], hl)
+                    need += k
+                    live |= run
+                elif coeff[t]:
+                    live |= hl
+            if head:
+                need += int(live.sum())
         live = (inner != 0).any(0)
-        need += lo_w * int(live.sum())
-        need += hi_w * int(torch.unique(hrow[live]).numel())
-    return need, nevals * (half * (dense + lo_w) + hi_w * int(
+        weight = lo_w * int(live.sum()) + hi_w * int(
+            torch.unique(hrow[live]).numel())
+        need += weight
+        direct += weight
+    return need, direct, nevals * (half * (dense + lo_w) + hi_w * int(
         torch.unique(hrow).numel()))
 
 
@@ -1326,8 +1486,21 @@ def phase_rows(dev, results, rows_cap,
                     [drows.points(x, n, nevals, terms, w)],
                     [drows.points_plain(x, n, nevals, terms, w)]))
                 checked(results, "rows_points",
-                        drows.points_case(P, nevals, T, w))
+                        drows.kernel_case(x, n, nevals, terms, w))
                 ncmp += 1
+    # the bench class's own factor lists: grouped terms (shared heads)
+    x = drows.random_rows_for(27, 256, gen, dev)
+    terms = drows.Terms(bench_terms(gen), dev)
+    for nevals in evals:
+        for kind in drows.WEIGHT_KINDS:
+            w = drows.weights(*drows.random_weights(256, kind, gen), dev)
+            err["rows_points"] = max(err["rows_points"], require_equal(
+                f"rows_points (bench terms, {nevals} points, {kind})",
+                [drows.points(x, 256, nevals, terms, w)],
+                [drows.points_plain(x, 256, nevals, terms, w)]))
+            checked(results, "rows_points",
+                    drows.kernel_case(x, 256, nevals, terms, w))
+            ncmp += 1
     for P, n in bind_shapes:
         x = drows.random_rows_for(P, n, gen, dev)
         c = dred.random_rows(6, gen, dev)[5:]
@@ -1352,7 +1525,8 @@ def phase_rows(dev, results, rows_cap,
             [drows.from_i64_plain(src)]))
     checked(results, "rows_from_i64", 0)
     lines = [f"kernel 7 bit-equal to its plain version at {ncmp} shapes "
-             f"(P, n) in {[s[:2] for s in shapes]} x points {list(evals)} x "
+             f"(P, n) in {[s[:2] for s in shapes]} and (27, 256) with the "
+             f"bench class's terms x points {list(evals)} x "
              f"{len(drows.WEIGHT_KINDS)} weight layouts; kernel 4 in the "
              f"rows layout at (P, n) in {list(bind_shapes)}; kernel 8 at "
              f"{[2 * m for m in i64_sizes]} values (the int64 edges, full "
@@ -1366,7 +1540,7 @@ def phase_rows(dev, results, rows_cap,
 
     def check(x, n, nevals, terms, w):
         got = real(x, n, nevals, terms, w)
-        case = drows.points_case(x.shape[0] // n, nevals, terms.T, w)
+        case = drows.kernel_case(x, n, nevals, terms, w)
         if case not in seen:
             seen.add(case)
             err["rows_points"] = max(err["rows_points"], require_equal(
@@ -1394,33 +1568,59 @@ def phase_rows(dev, results, rows_cap,
     se = SplitEq(big["eq"][0], pre_vars=big["eq"][1], post_vars=big["eq"][2])
     nevals = message_nevals(se, 0, big["degree"])
     w = drows.weights(*se.tables(0), dev)
-    ms, got = cuda_ms(lambda: drows.points(x, n, nevals, terms, w), 10)
+    ms, call_ms, got = device_ms(
+        lambda: drows.points(x, n, nevals, terms, w), 10, "rows_points")
     plain_ms, want = cuda_ms(lambda: drows.points_plain(x, n, nevals, terms,
                                                         w), 1, warmup=False)
     err["rows_points"] = max(err["rows_points"], require_equal(
         "rows_points (timed)", [got], [want]))
-    need, dense = rows_products(x, n, nevals, terms, w)
+    need, direct, dense = rows_products(x, n, nevals, terms, w)
     shape = (f"{rows_class(big)} (P, degree, terms, most factors), n = {n}, "
              f"{nevals} points, round 0's weight")
-    dense_ms, _ = bound(dense, P * n * FR_BYTES, results["imad_peak"],
-                        IMADS_PER_MUL)
+    nbytes = (P * n + nevals + w[0].shape[0]) * FR_BYTES
+    direct_ms = bound(direct, nbytes, results["imad_peak"], IMADS_PER_MUL)[0]
+    dense_ms = bound(dense, nbytes, results["imad_peak"], IMADS_PER_MUL)[0]
+    plan = drows.points_plan(P, n, nevals, terms.slices,
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count)
     lines.append("points " + timed(
-        results, "rows_points", shape, ms, need,
-        (P * n + nevals + w[0].shape[0]) * FR_BYTES, IMADS_PER_MUL)
-        + f" ({need} products this data needs; {dense} with no zero "
-        f"skipped: bound {dense_ms:.4f} ms), plain {plain_ms:.1f} ms")
-    results["rows_points"] = {"ms": ms, "plain_ms": plain_ms,
-                              **results["timed"]["rows_points"][-1]}
+        results, "rows_points", shape, ms, need, nbytes, IMADS_PER_MUL,
+        call_ms) + f" ({need} products this data needs as kernel 7 groups "
+        f"the terms; {direct} term by term: bound {direct_ms:.4f} ms; "
+        f"{dense} with no zero skipped: bound {dense_ms:.4f} ms), plan "
+        f"{json.dumps(plan)}, plain {plain_ms:.1f} ms")
+    results["rows_points"] = {
+        "plain_ms": plain_ms, "plan": plan,
+        "bound_term_by_term_ms": direct_ms,
+        **results["timed"]["rows_points"][-1]}
+    # the launch plan against its neighbours, on the same data
+    alt = {}
+    for slices in (3, 4, 6, 8):
+        ts = drows.Terms(big["terms"], dev, slices)
+        for group in (1, 2, nevals):
+            ams, _, got = device_ms(lambda: drows.points(
+                x, n, nevals, ts, w, 32, group), 10, "rows_points")
+            err["rows_points"] = max(err["rows_points"], require_equal(
+                f"rows_points (tile 32, group {group}, {slices} slices)",
+                [got], [want]))
+            alt[f"tile 32, group {group}, {slices} slices"] = ams
+    lines.append("points at other launch plans, device ms: "
+                 + json.dumps(alt))
     c = dred.random_rows(6, gen, dev)[5:]
-    bms, _ = cuda_ms(lambda: drows.bind_rows(x, c, n), 10)
+    bms, bcall, _ = device_ms(lambda: drows.bind_rows(x, c, n), 10,
+                              "reduction_bind")
     bb, bby = bound(P * n // 2, (3 * P * n // 2) * FR_BYTES,
                     results["imad_peak"], IMADS_PER_MUL)
+    results["rows_bind"] = {"ms": bms, "call_ms": bcall, "bound_ms": bb,
+                            "shape": f"{P} rows of {n}"}
     lines.append(f"kernel 4 in the rows layout on that instance ({P} rows "
-                 f"of {n}): {bms:.4f} ms, bound {bb:.4f} ms ({bby})")
+                 f"of {n}): {bms:.4f} ms on the device (a call {bcall:.4f} "
+                 f"ms), bound {bb:.4f} ms ({bby})")
     ints = [a for k, a in big["rows"] if k == "ints"] or [
         gen.integers(-(1 << 16), 1 << 16, size=n)]
     src = torch.from_numpy(np.concatenate(ints).astype(np.int64)).to(dev)
-    ms8, got = cuda_ms(lambda: drows.from_i64(src), 10)
+    ms8, call8, got = device_ms(lambda: drows.from_i64(src), 10,
+                                "rows_from_i64")
     plain8, want = cuda_ms(lambda: drows.from_i64_plain(src), 1,
                            warmup=False)
     err["rows_from_i64"] = max(err["rows_from_i64"], require_equal(
@@ -1428,8 +1628,8 @@ def phase_rows(dev, results, rows_cap,
     m8 = src.shape[0]
     lines.append("from_i64 " + timed(
         results, "rows_from_i64", f"that instance's {len(ints)} integer "
-        f"rows, {m8} values", ms8, m8, m8 * (8 + FR_BYTES), IMADS_PER_I64)
-        + f", plain {plain8:.1f} ms")
+        f"rows, {m8} values", ms8, m8, m8 * (8 + FR_BYTES), IMADS_PER_I64,
+        call8) + f", plain {plain8:.1f} ms")
     results["rows_from_i64"] = {"ms": ms8, "plain_ms": plain8,
                                 **results["timed"]["rows_from_i64"][-1]}
     for k, v in err.items():
@@ -1518,7 +1718,8 @@ def main() -> int:
                "launches_per_prove": results["launches_per_prove"].get(
                    name, 0),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
                "shape": r["shape"]}
         if name == "blake2b_transcript":
@@ -1526,6 +1727,10 @@ def main() -> int:
         if name == "reduction_bind":  # also the rows engine's bind
             row["also_replaces"] = \
                 "jolt_atlas_tpu/parallel/shardedrows.py:130"
+            row["rows_layout"] = results["rows_bind"]
+        if name == "rows_points":
+            row["plan"] = r["plan"]
+            row["bound_term_by_term_ms"] = r["bound_term_by_term_ms"]
         kernels.append(row)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

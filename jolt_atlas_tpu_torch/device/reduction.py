@@ -28,6 +28,8 @@ card with no host synchronisation and one fetch at the end:
   ``try_prove`` raises. The instances resume on the host
   (``resume_from_device``) and ``BatchedSumcheck.prove_tail`` finishes the
   last ``tail_rounds`` rounds. The proof bytes equal the host path's.
+  The card's transcript step is BLAKE2b's, so under any other transcript
+  (``KeccakTranscript``) the engine declines and the host path runs.
 
 Lanes are the joined instances in join order, padded to a power of two.
 At round r the joined lanes are 0 .. J_r - 1 and every one holds 2^(max_rounds
@@ -56,6 +58,7 @@ import torch
 
 from ..field.constants import FR_MODULUS, FR_R, FR_R_INV
 from ..field.scalar import Fr
+from ..transcripts.blake2b import Blake2bTranscript
 from ..utils.profiling import span
 from . import blake2b, telemetry
 from .field import FR, NLIMBS, from_planes, int_to_limbs64, to_planes
@@ -563,6 +566,11 @@ def try_prove(instances, accumulator, transcript, device=None, gate=None):
     if len(head) > TAIL_MAX_LANES:
         telemetry.decide("reduction", f"{len(head)} lanes > "
                          f"{TAIL_MAX_LANES}")
+        return None
+    # the card's transcript step is BLAKE2b; KeccakTranscript subclasses
+    # Blake2bTranscript and differs only in HASH
+    if getattr(type(transcript), "HASH", None) is not Blake2bTranscript.HASH:
+        telemetry.decide("reduction", "transcript not BLAKE2b")
         return None
 
     telemetry.decide("reduction", f"ENGAGED ({total} elems, {len(head)} "

@@ -54,9 +54,24 @@ from . import telemetry
 from .field import FR, NLIMBS, from_planes, to_planes
 from .reduction import _check, bind, mont_rows
 
-ROWS_THREADS = 128   # csrc/rows.cu: pairs a block of kernel 7
 MAX_P = 96           # the host GruenInstance.MAXP
 MAX_EVALS = 20       # GruenInstance.MAXE
+# kernel 7's launch plan (csrc/rows.cu; ``points_plan``): a block takes a
+# tile of pairs (a power of two, >= 32: a warp's worth) times the terms'
+# slices in threads, at most MAX_BLOCK; the tile grows while the block has
+# at most BLOCK_THREADS threads and its shared memory fits SMEM_MAX. A
+# block walks all the points unless that leaves fewer than BLOCKS_PER_SM
+# blocks an SM. Measured on an H100 on the bench's largest class
+# (scripts/rows_points_bench.py --terms bench --plans; PERF.md): 6 slices
+# and all 6 points a block 0.120 ms, 8 slices 0.134, 4 slices 0.125, 2
+# points a block 0.128, one 0.137.
+TILE_MIN = 32
+BLOCK_THREADS = 256
+MAX_BLOCK = 512
+MAX_SLICES = 16
+DEFAULT_MAX_SLICES = 6
+SMEM_MAX = 232448 - 2048  # Hopper's 227 KB a block, less the static part
+BLOCKS_PER_SM = 1
 # The default gate, measured on an H100 host against the host engine on
 # the bench's own instances (scripts/rows_sweep.py, chip_smoke.py phase 12;
 # PERF.md): with 2 head rounds the card lost at 1,024 elements a row in
@@ -122,24 +137,142 @@ def forced(head_rounds: int = HEAD_ROUNDS, min_n: int = 2) -> RowsGate:
 # kernel 7: the round's points
 # ---------------------------------------------------------------------------
 
-class Terms:
-    """A term list [(Fr coeff, [row indices])] on a device, as kernel 7
-    reads it: one int64 buffer holding the coefficients ((T, 4) Montgomery
-    limbs, first: 16-byte aligned), the T + 1 CSR offsets and the factor
-    indices (at least one entry)."""
+def group_terms(terms) -> list:
+    """The terms [(coeff, factors)] as groups that share a head:
+    [(head, [(k, tail), ...])], k the term's index. A term's factors are
+    ordered by how many terms hold them (most first, then by row); its head
+    is all but the last and its tail the last, or the whole term is the
+    head (empty tail) where that is another term's head. Terms of one
+    factor or none, and a head that only one term has, go headless with
+    their factors as given. The sum of c_k prod(head) prod(tail) over the
+    members is prod(head) times the members' sum: one product of the head a
+    group instead of one a term (the bench's 36-term class: two 5-factor
+    heads of 9 terms each)."""
+    held: dict = {}
+    for _, fs in terms:
+        for f in set(fs):
+            held[f] = held.get(f, 0) + 1
+    order = [sorted(fs, key=lambda f: (-held[f], f)) for _, fs in terms]
+    heads = {tuple(o[:-1]) for o in order if len(o) >= 2}
+    groups: dict = {}
+    for k, o in enumerate(order):
+        if tuple(o) in heads:
+            head, tail = tuple(o), []
+        elif len(o) >= 2:
+            head, tail = tuple(o[:-1]), o[-1:]
+        else:
+            head, tail = (), o
+        groups.setdefault(head, []).append((k, tail))
+    alone = [(k, terms[k][1]) for h, m in groups.items() if h and len(m) == 1
+             for k, _ in m]
+    out = [(list(h), m) for h, m in groups.items() if h and len(m) > 1]
+    return out + [([], groups.get((), []) + alone)] if (
+        alone or () in groups) else out
 
-    def __init__(self, terms, device):
+
+def part_cost(head: list, members: list, ones: list) -> int:
+    """A part's work a pair and point: its head's product chain and the
+    head's product by the members' sum (if it has a head), and each
+    member's tail chain, its coefficient product (unless one) and add.
+    ``ones[k]``: term k's coefficient is one."""
+    c = len(head)
+    for k, tail in members:
+        c += 1 + max(len(tail) - 1, 0) + (bool(tail) and not ones[k])
+    return c
+
+
+def deal_terms(costs: list, slices: int) -> list:
+    """The indices of each slice: longest first, each to the slice with
+    the least work so far (ties to the lowest slice)."""
+    out = [[] for _ in range(slices)]
+    load = [0] * slices
+    for k in sorted(range(len(costs)), key=lambda k: -costs[k]):
+        s = min(range(slices), key=lambda s: (load[s], s))
+        out[s].append(k)
+        load[s] += costs[k]
+    return out
+
+
+def make_parts(groups: list, ones: list, slices: int) -> list:
+    """The units ``slices`` threads share, [(head, members)]: each member
+    of a headless group alone, and each group with a head whole, or split
+    into as many parts (each with the head) as bring it within a slice's
+    share of the work."""
+    parts = []
+    for head, mem in groups:
+        parts += [(head, mem)] if head else [([], [m]) for m in mem]
+    total = sum(part_cost(h, m, ones) for h, m in parts)
+    share = max(1, -(-total // slices))
+    out = []
+    for head, mem in parts:
+        k = min(len(mem), -(-part_cost(head, mem, ones) // share))
+        if not head or k <= 1:
+            out.append((head, mem))
+            continue
+        bins = deal_terms([part_cost([], [m], ones) for m in mem], k)
+        out += [(head, [mem[i] for i in b]) for b in bins if b]
+    return out
+
+
+def default_slices(T: int) -> int:
+    """Term slices a pair for T terms: DEFAULT_MAX_SLICES, or T if fewer
+    (at least one)."""
+    return max(1, min(DEFAULT_MAX_SLICES, T))
+
+
+class Terms:
+    """A term list [(Fr coeff, [row indices])] on a device. ``factors``
+    and ``coeffs`` ((T, 4) Montgomery limbs) keep the terms as given (the
+    plain version's); ``groups`` (``group_terms``) share heads. Kernel 7
+    reads the groups' parts (``make_parts``) dealt into ``slices``
+    (``deal_terms``; default ``default_slices``), slice after slice, from
+    one int64 buffer: the members' coefficients (``kcoeffs``, (T, 4),
+    first: 16-byte aligned), the parts (``parts``, (parts, 4): head
+    factors [ha, hb) and members [ma, mb)), the members (``members``, (T,
+    2): tail factors [ta, tb)), the factor indices ``fidx`` (at least one
+    entry) and the slices' slices + 1 ``bounds`` into the parts."""
+
+    def __init__(self, terms, device, slices: int | None = None):
+        terms = [(c, [int(i) for i in f]) for c, f in terms]
         self.T = len(terms)
-        self.factors = [[int(i) for i in f] for _, f in terms]
-        offs = np.cumsum([0] + [len(f) for f in self.factors])
-        fidx = [i for f in self.factors for i in f] or [0]
-        buf = np.concatenate([mont_rows([c for c, _ in terms]).reshape(-1),
-                              offs.astype(np.int64),
-                              np.asarray(fidx, dtype=np.int64)])
+        self.slices = default_slices(self.T) if slices is None else slices
+        if not 1 <= self.slices <= MAX_SLICES:
+            raise ValueError(f"Terms: 1 <= slices <= {MAX_SLICES}, got "
+                             f"{self.slices}")
+        self.factors = [f for _, f in terms]
+        ones = [c.is_one() for c, _ in terms]
+        self.groups = group_terms(terms)
+        parts = make_parts(self.groups, ones, self.slices)
+        dealt = deal_terms([part_cost(h, m, ones) for h, m in parts],
+                           self.slices)
+        fidx, ptab, mtab, order = [], [], [], []
+        for q in (q for sl in dealt for q in sl):
+            head, mem = parts[q]
+            ha = len(fidx)
+            fidx += head
+            ptab.append([ha, len(fidx), len(order), len(order) + len(mem)])
+            for k, tail in mem:
+                mtab.append([len(fidx), len(fidx) + len(tail)])
+                fidx += tail
+                order.append(k)
+        bounds = np.cumsum([0] + [len(sl) for sl in dealt])
+        buf = np.concatenate([
+            mont_rows([c for c, _ in terms]).reshape(-1),
+            mont_rows([terms[k][0] for k in order]).reshape(-1),
+            np.asarray(ptab, dtype=np.int64).reshape(-1),
+            np.asarray(mtab, dtype=np.int64).reshape(-1),
+            np.asarray(fidx or [0], dtype=np.int64),
+            bounds.astype(np.int64)])
         buf = torch.from_numpy(buf).to(device)
-        self.coeffs = buf[:4 * self.T].view(self.T, 4)
-        self.offs = buf[4 * self.T:5 * self.T + 1]
-        self.fidx = buf[5 * self.T + 1:]
+        T, o = self.T, 8 * self.T
+        self.coeffs = buf[:4 * T].view(T, 4)
+        self.kcoeffs = buf[4 * T:o].view(T, 4)
+        self.parts = buf[o:o + 4 * len(ptab)]
+        o += 4 * len(ptab)
+        self.members = buf[o:o + 2 * T]
+        o += 2 * T
+        self.fidx = buf[o:o + max(len(fidx), 1)]
+        self.bounds = buf[o + max(len(fidx), 1):]
 
 
 def weights(whi, whi_shift: int, wlo, log_wlo: int, device) -> tuple:
@@ -166,14 +299,71 @@ def layout(w: tuple) -> int:
     return int(w[2] > 1) + 2 * int(w[5] >= 0)
 
 
-def points_case(P: int, nevals: int, T: int, w: tuple) -> tuple:
-    """The shape class of a kernel 7 launch: (P, nevals, terms, layout)."""
-    return (P, nevals, T, layout(w))
+def smem_bytes(P: int, slices: int, tile: int, group: int) -> int:
+    """Kernel 7's shared memory a block (csrc/rows.cu rows_points_smem):
+    the P rows' e and d, the weights and the slices' sums, rows of ``tile``
+    Fr elements, and a sum a point of the group and warp of pairs."""
+    return (2 * P + 1 + slices) * tile * 32 + group * (tile // 32) * 32
 
 
-def rows_blocks(n: int) -> int:
-    """Blocks (partials a point) of kernel 7 over n / 2 pairs."""
-    return -(-(n // 2) // ROWS_THREADS)
+def points_plan(P: int, n: int, nevals: int, slices: int, sms: int,
+                tile: int | None = None, group: int | None = None) -> dict:
+    """Kernel 7's launch over the n / 2 pairs of P rows at ``nevals``
+    points with ``slices`` term slices on a card of ``sms`` SMs: the tile
+    (pairs a block; ``TILE_MIN`` up, doubled while the block stays within
+    BLOCK_THREADS threads and SMEM_MAX, and below n / 2), the group (points
+    a block, so that the grid has about BLOCKS_PER_SM blocks an SM), the
+    grid (tiles, groups) and the shared bytes. ``tile`` and ``group`` may
+    be given (measurement)."""
+    half = n // 2
+    if tile is None:
+        tile = TILE_MIN
+        while (2 * tile * slices <= BLOCK_THREADS and 2 * tile <= half
+               and smem_bytes(P, slices, 2 * tile, nevals) <= SMEM_MAX):
+            tile *= 2
+    tiles = -(-half // tile)
+    if group is None:
+        groups = min(nevals, max(1, -(-BLOCKS_PER_SM * sms // tiles)))
+        group = -(-nevals // groups)
+    groups = -(-nevals // group)
+    smem = smem_bytes(P, slices, tile, group)
+    if (tile < TILE_MIN or tile & (tile - 1) or tile * slices > MAX_BLOCK
+            or not 1 <= group <= nevals or smem > SMEM_MAX):
+        raise ValueError(f"points_plan: no launch for P = {P}, {slices} "
+                         f"slices, tile {tile}, group {group}")
+    return {"tile": tile, "slices": slices, "group": group, "tiles": tiles,
+            "groups": groups, "threads": tile * slices, "smem": smem}
+
+
+def points_case(P: int, nevals: int, T: int, w: tuple, plan: dict) -> tuple:
+    """The shape class of a kernel 7 launch: (P, nevals, terms, layout)
+    and the tile, slices and group of its plan, which partition it."""
+    return (P, nevals, T, layout(w), plan["tile"], plan["slices"],
+            plan["group"])
+
+
+def kernel_case(x, n: int, nevals: int, terms: Terms, w: tuple) -> tuple:
+    """The shape class ``points`` records for this launch on x's CUDA
+    device (its default plan)."""
+    P = x.shape[0] // n
+    plan = points_plan(P, n, nevals, terms.slices, _card(x.device)[0])
+    return points_case(P, nevals, terms.T, w, plan)
+
+
+_CARDS: dict = {}
+
+
+def _card(device) -> tuple:
+    """(SMs, kernel 7's ticket counter) of a CUDA device, made at its first
+    launch: the counter is one u32, zero between launches (the kernel's
+    last block resets it)."""
+    k = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if k not in _CARDS:
+        _CARDS[k] = (torch.cuda.get_device_properties(k).multi_processor_count,
+                     torch.zeros(1, dtype=torch.int32,
+                                 device=torch.device("cuda", k)))
+    return _CARDS[k]
 
 
 def _weight_planes(w: tuple, half: int, device):
@@ -241,10 +431,13 @@ def points_plain(x, n: int, nevals: int, terms: Terms, w: tuple):
     return from_planes(torch.cat(out, 1))
 
 
-def points(x, n: int, nevals: int, terms: Terms, w: tuple) -> torch.Tensor:
+def points(x, n: int, nevals: int, terms: Terms, w: tuple,
+           tile: int | None = None, group: int | None = None
+           ) -> torch.Tensor:
     """Kernel 7 on CUDA tensors, its plain version on CPU ones: the
     (nevals, 4) points of the P = len(x) / n rows in x under ``terms``
-    and the weight ``w`` (``weights``)."""
+    and the weight ``w`` (``weights``). ``tile`` and ``group`` override
+    the launch plan (``points_plan``)."""
     device = x.device
     _check("points x", x, device)
     _check("points coeffs", terms.coeffs, device, terms.T)
@@ -255,32 +448,44 @@ def points(x, n: int, nevals: int, terms: Terms, w: tuple) -> torch.Tensor:
     if not 1 <= nevals <= MAX_EVALS:
         raise ValueError(f"points: 1 <= nevals <= {MAX_EVALS}, got {nevals}")
     P = x.shape[0] // n
-    if terms.offs.device != device or any(i >= P for f in terms.factors
+    if terms.fidx.device != device or any(i >= P for f in terms.factors
                                           for i in f):
-        raise ValueError(f"points: terms on {terms.offs.device} over rows "
+        raise ValueError(f"points: terms on {terms.fidx.device} over rows "
                          f">= {P}")
     if device.type == "cpu":
         return points_plain(x, n, nevals, terms, w)
     if device.type != "cuda":
         raise ValueError(f"points: no kernel for device {device}")
+    return _launch(x, n, nevals, terms, w, tile, group)
+
+
+def _launch(x, n: int, nevals: int, terms: Terms, w: tuple,
+            tile: int | None = None, group: int | None = None
+            ) -> torch.Tensor:
+    """One launch of kernel 7 on CUDA tensors that ``points`` checked
+    (the kernel itself takes any even n >= 2)."""
     from . import build
-    nblk = rows_blocks(n)
+    device = x.device
+    P = x.shape[0] // n
+    sms, counter = _card(device)
+    plan = points_plan(P, n, nevals, terms.slices, sms, tile, group)
     out = torch.empty((nevals, 4), dtype=torch.int64, device=device)
-    part = (torch.empty((nevals * nblk, 4), dtype=torch.int64, device=device)
-            if nblk > 1 else out)
+    part = torch.empty((nevals * plan["tiles"], 4), dtype=torch.int64,
+                       device=device)
     tab, whi_off, whi_n, whi_shift, wlo_off, log_wlo = w
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = build.cuda_library().jolt_rows_points(
-            x.data_ptr(), n, nevals, terms.coeffs.data_ptr(),
-            terms.offs.data_ptr(), terms.fidx.data_ptr(), terms.T,
-            tab.data_ptr(), whi_off, whi_n, whi_shift, wlo_off, log_wlo,
-            part.data_ptr(), out.data_ptr(), stream)
+            x.data_ptr(), n, P, nevals, terms.kcoeffs.data_ptr(),
+            terms.parts.data_ptr(), terms.members.data_ptr(),
+            terms.fidx.data_ptr(), terms.bounds.data_ptr(), terms.slices,
+            tab.data_ptr(), whi_off,
+            whi_n, whi_shift, wlo_off, log_wlo, plan["tile"], plan["group"],
+            part.data_ptr(), counter.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"rows_points kernel launch failed: CUDA error "
                            f"{rc}")
-    for _ in range(2 if nblk > 1 else 1):
-        telemetry.launch("rows_points", points_case(P, nevals, terms.T, w))
+    telemetry.launch("rows_points", points_case(P, nevals, terms.T, w, plan))
     return out
 
 

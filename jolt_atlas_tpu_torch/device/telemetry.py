@@ -7,9 +7,9 @@ kernel wrapper adds one where it launches its kernel (and nowhere else),
 so a run can show that its main path really went through the kernels.
 ``lanes`` keeps the shapes each kernel was launched at (its lane count,
 or for kernel 3 the lane count and blocks per window: what fixes its
-partition; for kernel 7 its rows, points, terms and weight layout), so a
-run can check that each one was held against the plain version. The plain
-PyTorch versions count nothing.
+partition; for kernel 7 its rows, points, terms, weight layout and launch
+plan), so a run can check that each one was held against the plain
+version. The plain PyTorch versions count nothing.
 """
 
 from __future__ import annotations

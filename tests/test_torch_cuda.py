@@ -258,29 +258,58 @@ def test_forced_reduction_matches_host_on_gpu(gpu, tail_rounds):
 # kernel 7 and kernel 4 in the rows layout (device/rows.py)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("P,n,T,mf,nevals", [
-    (1, 2, 1, 1, 1), (2, 256, 3, 2, 2), (27, 1024, 36, 6, 6),
-    (96, 64, 8, 5, 20), (3, 512, 1, 3, 3), (5, 8192, 6, 4, 6)])
-def test_rows_points_kernel_matches_plain(gpu, P, n, T, mf, nevals):
+@pytest.mark.parametrize("P,n,T,mf,nevals,slices", [
+    (1, 2, 1, 1, 1, None), (2, 256, 3, 2, 2, None), (27, 1024, 36, 6, 6, None),
+    (96, 64, 8, 5, 20, None), (3, 512, 1, 3, 3, None), (5, 8192, 6, 4, 6, None),
+    # tile edges: n / 2 below a tile, exactly one tile of 32 (8 slices)
+    (4, 16, 5, 3, 6, None), (27, 64, 36, 6, 6, None),
+    # 96 rows at 20 points and 16 slices: the most shared memory
+    (96, 128, 40, 6, 20, 16),
+    # no terms; constant terms only (max_factors 0)
+    (3, 64, 0, 1, 3, None), (3, 64, 4, 0, 4, None)])
+def test_rows_points_kernel_matches_plain(gpu, P, n, T, mf, nevals, slices):
     """Kernel 7 against its plain version on every weight layout: one row
     and 96, 1 to 20 points, repeated factors, a constant term, a
-    coefficient of one, an all-zero row, pairs that leave a block partly
-    empty (n < 256), one full block (n = 256) and several."""
+    coefficient of one, an all-zero row, no terms and constant terms only,
+    n / 2 below one tile, one tile and several, 1 to 16 term slices; one
+    launch a call, back to back (the last block's ticket resets)."""
     from jolt_atlas_tpu_torch.device import rows as drows
-    gen = np.random.default_rng(50 + P + n)
+    gen = np.random.default_rng(50 + P + n + T)
     x = drows.random_rows_for(P, n, gen, gpu)
-    terms = drows.random_terms(P, T, mf, gen)
-    tg, tc = drows.Terms(terms, gpu), drows.Terms(terms, "cpu")
+    terms = drows.random_terms(P, T, max(mf, 1), gen)
+    if mf == 0:
+        terms = [(c, []) for c, _ in terms]
+    tg = drows.Terms(terms, gpu, slices)
+    tc = drows.Terms(terms, "cpu", slices)
     before = telemetry.launches().get("rows_points", 0)
+    got, want = [], []
     for kind in drows.WEIGHT_KINDS:
         args = drows.random_weights(n, kind, gen)
-        got = drows.points(x, n, nevals, tg, drows.weights(*args, gpu))
-        want = drows.points_plain(x.cpu(), n, nevals, tc,
-                                  drows.weights(*args, "cpu"))
-        assert _equal([got.cpu()], [want]), kind
-    per = 2 if drows.rows_blocks(n) > 1 else 1
-    assert telemetry.launches()["rows_points"] - before == per * len(
+        got.append(drows.points(x, n, nevals, tg, drows.weights(*args, gpu)))
+        want.append(drows.points_plain(x.cpu(), n, nevals, tc,
+                                       drows.weights(*args, "cpu")))
+    assert _equal([g.cpu() for g in got], want)
+    assert telemetry.launches()["rows_points"] - before == len(
         drows.WEIGHT_KINDS)
+
+
+@pytest.mark.parametrize("tile,group", [(32, 1), (32, 6), (64, 4), (128, 2)])
+def test_rows_points_kernel_plans_and_ragged_tile(gpu, tile, group):
+    """Kernel 7 at launch plans other than the default, and with one pair
+    more than a tile (n / 2 = tile + 1: the last tile holds one pair),
+    twice in a row without a synchronisation."""
+    from jolt_atlas_tpu_torch.device import rows as drows
+    gen = np.random.default_rng(80 + tile + group)
+    terms = drows.random_terms(17, 32, 3, gen)
+    tg, tc = drows.Terms(terms, gpu, 4), drows.Terms(terms, "cpu", 4)
+    for n in (2 * tile, 2 * (tile + 1), 4 * tile):
+        x = drows.random_rows_for(17, n, gen, gpu)
+        w = drows.random_weights(n, "split", gen)
+        wg, wc = drows.weights(*w, gpu), drows.weights(*w, "cpu")
+        a = drows._launch(x, n, 6, tg, wg, tile, group)
+        b = drows._launch(x, n, 6, tg, wg, tile, group)
+        want = drows.points_plain(x.cpu(), n, 6, tc, wc)
+        assert _equal([a.cpu(), b.cpu()], [want, want]), n
 
 
 @pytest.mark.parametrize("P,n", [(1, 2), (3, 4), (27, 256), (27, 16384)])

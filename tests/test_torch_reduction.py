@@ -16,7 +16,9 @@ the CPU, where every kernel wrapper runs its plain version.
   device path is byte-identical to its host path by
   tests/test_tpu_reduction.py);
 - a tampered device state makes the replay check raise; the gate's
-  reasons; the constants of the CUDA sources; no module of the port (nor
+  reasons; a KeccakTranscript prove under a forced gate keeps the host
+  path (the card's transcript is BLAKE2b) with the reference's Keccak
+  bytes; the constants of the CUDA sources; no module of the port (nor
   chip_smoke.py) imports jax or the reference.
 
 Tolerance: exact everywhere.
@@ -378,6 +380,29 @@ def test_gate_declines_with_its_reason(device, gate, why):
     insts = [_Inst(4), _Inst(4), _Inst(3), _Inst(3)]
     assert R.try_prove(insts, None, None, torch.device(device), gate) is None
     assert telemetry.snapshot()["decisions"]["reduction"] == why
+
+
+def test_keccak_transcript_keeps_the_host_path():
+    """The card's transcript is BLAKE2b: under KeccakTranscript a forced
+    gate declines before any device work, and the proof bytes equal the
+    host path's and the reference's Keccak proof."""
+    from jolt_atlas_tpu.transcripts import KeccakTranscript as RefKeccak
+    from jolt_atlas_tpu_torch.transcripts import KeccakTranscript
+    model, inputs = _mlp()
+    ref_pp = RefPP.preprocess(model)
+    ref_bytes = ref_serde.serialize_proof(RefProver(
+        ref_pp, transcript_factory=RefKeccak).prove(inputs)[0])
+    pp = _port_pp(model, ref_pp)
+    host, _ = AtlasProver(pp, device="cpu",
+                          transcript_factory=KeccakTranscript).prove(inputs)
+    telemetry.reset()
+    got, _ = AtlasProver(pp, device="cpu", transcript_factory=KeccakTranscript,
+                         reduction_gate=R.forced(0)).prove(inputs)
+    tele = telemetry.snapshot()
+    assert tele["decisions"]["reduction"] == "transcript not BLAKE2b"
+    assert not tele["dispatches"].get("reduction")
+    assert serde.serialize_proof(got) == serde.serialize_proof(host) \
+        == ref_bytes
 
 
 def test_zk_prove_keeps_the_host_path():

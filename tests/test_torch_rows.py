@@ -9,6 +9,11 @@ version.
   1, 6, 20), an all-zero row, and every weight layout SplitEq gives (split,
   prefix-eq, suffix-eq, wlo only, none, a folded one-row whi, a shift past
   the pairs);
+- kernel 7's launch plan (tile of pairs, term slices, points a block,
+  shared bytes) for every P <= 96 within Hopper's 227 KB, a model of its
+  indexing that reaches every (pair, point, term) once, and the grouped
+  terms it reads (shared heads, split and dealt into slices) summing to
+  the term list;
 - the plain rows bind (kernel 4 with P continuing lanes) against big-int
   lo + c (hi - lo);
 - the engine's sequence, DeviceGruen with the plain versions: points,
@@ -32,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from examples.nanogpt_style import build_model as ref_build_nanogpt
 from jolt_atlas_tpu import serde as ref_serde
 from jolt_atlas_tpu.field import frvec as ref_frvec
@@ -119,6 +125,201 @@ def test_points_wrapper_refuses_bad_shapes():
     with pytest.raises(ValueError, match="power of two"):
         R.points(x, 6, 2, ok, w)
     assert telemetry.launches().get("rows_points", 0) == 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 7's launch plan: tiles of pairs, term slices, point groups, shared
+# memory (device/rows.py:points_plan, Terms; csrc/rows.cu)
+# ---------------------------------------------------------------------------
+
+def test_cuda_plan_constants():
+    """csrc/rows.cu's caps and shared-memory budget are rows.py's."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(R.__file__), "..", "csrc",
+                            "rows.cu")).read()
+
+    def const(name):
+        expr = re.search(rf"constexpr int {name} = ([0-9 \-]+);", src)
+        return eval(expr.group(1))
+    assert const("ROWS_MAX_EVALS") == R.MAX_EVALS
+    assert const("ROWS_MAX_P") == R.MAX_P
+    assert const("ROWS_MAX_SLICES") == R.MAX_SLICES
+    assert const("ROWS_MAX_BLOCK") == R.MAX_BLOCK
+    assert const("ROWS_SMEM_MAX") == R.SMEM_MAX
+    assert "(2 * P + 1 + slices) * tile * 32" in src  # rows_points_smem
+    assert "group * (tile / 32) * 32" in src
+
+
+@pytest.mark.parametrize("slices", [1, 3, 8, 16])
+def test_points_plan_fits_every_shape(slices):
+    """Every P <= 96 at every point count launches within Hopper's 227 KB
+    of shared memory a block and 512 threads, and the tiles and groups
+    cover the pairs and points exactly."""
+    for P in range(1, R.MAX_P + 1):
+        for nevals in (1, 2, 6, 20):
+            for n in (2, 64, 1 << 14, 1 << 20):
+                for sms in (1, 132):
+                    pl = R.points_plan(P, n, nevals, slices, sms)
+                    assert pl["smem"] <= R.SMEM_MAX < 227 * 1024
+                    assert pl["smem"] == R.smem_bytes(
+                        P, slices, pl["tile"], pl["group"])
+                    assert pl["threads"] == pl["tile"] * slices
+                    assert pl["threads"] <= R.MAX_BLOCK
+                    assert pl["tile"] >= 32 and not pl["tile"] & (
+                        pl["tile"] - 1)
+                    half = n // 2
+                    assert (pl["tiles"] - 1) * pl["tile"] < half \
+                        <= pl["tiles"] * pl["tile"]
+                    assert (pl["groups"] - 1) * pl["group"] < nevals \
+                        <= pl["groups"] * pl["group"]
+
+
+def test_points_plan_of_the_bench_class():
+    """The bench's largest class (27 rows, 36 terms of up to 6 factors, 6
+    points, n = 16,384) on a 132-SM card: 6 slices of 32 pairs, all 6
+    points a block, 256 blocks; at n = 4,096, 64 tiles, 3 groups of 2
+    points."""
+    gen = np.random.default_rng(27)
+    terms = R.Terms(R.random_terms(27, 36, 6, gen), "cpu")
+    assert terms.slices == 6
+    pl = R.points_plan(27, 1 << 14, 6, terms.slices, 132)
+    assert (pl["tile"], pl["group"], pl["tiles"], pl["groups"]) == (
+        32, 6, 256, 1)
+    pl = R.points_plan(27, 1 << 12, 6, terms.slices, 132)
+    assert (pl["tile"], pl["group"], pl["tiles"], pl["groups"]) == (
+        32, 2, 64, 3)
+    with pytest.raises(ValueError, match="no launch"):
+        R.points_plan(96, 64, 20, 16, 132, tile=64)
+
+
+@pytest.mark.parametrize("P,n,T,nevals,slices,tile,group", [
+    (3, 16, 5, 3, None, None, None),    # n / 2 below one tile
+    (27, 64, 36, 6, None, None, None),  # exactly one tile
+    (4, 128, 9, 6, 3, 32, 4),           # two tiles, a ragged point group
+    (5, 256, 7, 20, 2, 64, 7),
+    (2, 8, 0, 2, None, None, None),     # no terms
+])
+def test_points_partition_covers_each_pair_point_term_once(
+        P, n, T, nevals, slices, tile, group):
+    """A model of kernel 7's indexing: blocks (tile, point group), threads
+    (slice, pair), the walk over a group's points, the slices' parts and
+    the staging of rows into shared planes reach every (pair, point, term)
+    and every shared slot exactly once."""
+    gen = np.random.default_rng(P + n + T)
+    terms = R.Terms(R.random_terms(P, T, 4, gen), "cpu", slices)
+    pl = R.points_plan(P, n, nevals, terms.slices, 132, tile, group)
+    bounds = terms.bounds.tolist()
+    parts = terms.parts.numpy().reshape(-1, 4)
+    assert bounds[0] == 0 and bounds[-1] == len(parts)
+    half, tile = n // 2, pl["tile"]
+    cnt = np.zeros((half, nevals, max(T, 1)), dtype=np.int64)
+    for bx in range(pl["tiles"]):
+        for by in range(pl["groups"]):
+            i0 = by * pl["group"]
+            t = 0 if i0 == 0 else i0 + 1
+            for g in range(min(pl["group"], nevals - i0)):
+                if g:
+                    t += 2 if i0 + g == 1 else 1
+                assert t == (i0 + g + 1 if i0 + g else 0)
+                for tid in range(pl["threads"]):
+                    p, s = tid % tile, tid // tile
+                    j = bx * tile + p
+                    if j < half:
+                        for q in range(bounds[s], bounds[s + 1]):
+                            for k in range(parts[q, 2], parts[q, 3]):
+                                cnt[j, i0 + g, k] += 1
+    assert (cnt[:, :, :T] == 1).all()
+    rowq, lt = 2 * tile, tile.bit_length() - 1
+    dst = sorted((c >> (lt + 1)) * rowq + (c & 1) * tile
+                 + ((c & (rowq - 1)) >> 1) for c in range(P * rowq))
+    assert dst == list(range(P * rowq))
+
+
+def _grouped_sum(terms: R.Terms, e: list) -> Fr:
+    """Kernel 7's sum at one pair from the arrays it reads: each part's
+    head product times its members' sum, members c_k prod(tail)."""
+    coeffs = [fr_of_row(r) for r in terms.kcoeffs.numpy()]
+    parts = terms.parts.numpy().reshape(-1, 4)
+    mem = terms.members.numpy().reshape(-1, 2)
+    fidx, bounds = terms.fidx.numpy(), terms.bounds.numpy()
+    v = Fr.zero()
+    for q in range(int(bounds[0]), int(bounds[-1])):
+        ha, hb, ma, mb = parts[q]
+        inner = Fr.zero()
+        for k in range(ma, mb):
+            p = coeffs[k]
+            for f in fidx[mem[k, 0]:mem[k, 1]]:
+                p = p * e[f]
+            inner = inner + p
+        for f in fidx[ha:hb]:
+            inner = inner * e[f]
+        v = v + inner
+    return v
+
+
+def test_grouped_terms_sum_to_the_terms():
+    """The groups share the bench class's two 5-factor heads (42 products a
+    pair and point against 122 term by term); at every slice count the
+    parts the kernel reads hold each term once and sum to the term list at
+    random row values, also with repeated factors, constants, a term
+    equal to another's head and one row."""
+    gen = np.random.default_rng(9)
+    bench = cs.bench_terms(gen)
+    groups = R.group_terms(bench)
+    heads = sorted(h for h, _ in groups if h)
+    assert heads == [[0, 1, 2, 3, 5], [7, 20, 21, 22, 23]]
+    ones = [c.is_one() for c, _ in bench]
+    prods = sum(R.part_cost(h, m, ones) - len(m) for h, m in groups)
+    assert prods == 42
+    cases = [(27, bench), (7, R.random_terms(7, 23, 6, gen)),
+             (1, R.random_terms(1, 4, 3, gen)),
+             (3, [(Fr(5), [0, 1]), (Fr(7), [1, 0]), (Fr(2), [0]),
+                  (Fr(9), []), (Fr.one(), [0, 1, 2]), (Fr(3), [0, 0, 1])])]
+    for P, raw in cases:
+        e = [Fr(int.from_bytes(gen.bytes(32), "little") % FR_MODULUS)
+             for _ in range(P)]
+        want = Fr.zero()
+        for c, f in raw:
+            for i in f:
+                c = c * e[i]
+            want = want + c
+        for slices in (1, 3, 8, 16):
+            t = R.Terms(raw, "cpu", slices)
+            assert t.slices == slices and t.bounds.shape == (slices + 1,)
+            parts = t.parts.numpy().reshape(-1, 4)
+            assert sorted(k for q in parts for k in range(q[2], q[3])) \
+                == list(range(len(raw)))
+            assert _grouped_sum(t, e) == want, (P, slices)
+
+
+def test_parts_are_dealt_evenly():
+    """deal_terms places each unit once, longest first onto the least
+    loaded slice; make_parts splits a head's group only to bring it within
+    a slice's share; the dealt order leaves the points unchanged."""
+    gen = np.random.default_rng(10)
+    raw = R.random_terms(7, 23, 6, gen)
+    ones = [c.is_one() for c, _ in raw]
+    groups = R.group_terms(raw)
+    for slices in (1, 2, 5, 8):
+        parts = R.make_parts(groups, ones, slices)
+        costs = [R.part_cost(h, m, ones) for h, m in parts]
+        dealt = R.deal_terms(costs, slices)
+        assert sorted(q for sl in dealt for q in sl) == list(range(
+            len(parts)))
+        loads = [sum(costs[q] for q in sl) for sl in dealt]
+        assert max(loads) - min(loads) <= max(costs)
+    assert len(R.make_parts(R.group_terms(cs.bench_terms(gen)), [False] * 36,
+                            1)) == 20
+    assert [R.default_slices(T) for T in (0, 1, 5, 36)] == [1, 1, 5, 6]
+    x = R.random_rows_for(7, 16, gen, "cpu")
+    w = R.weights(*R.random_weights(16, "split", gen), "cpu")
+    want = R.points(x, 16, 6, R.Terms(raw, "cpu", 1), w)
+    for slices in (3, 16):
+        assert torch.equal(R.points(x, 16, 6, R.Terms(raw, "cpu", slices),
+                                    w), want)
+    with pytest.raises(ValueError, match="slices"):
+        R.Terms(raw, "cpu", 17)
 
 
 @pytest.mark.parametrize("P,n", [(1, 2), (3, 4), (27, 16)])
