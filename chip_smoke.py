@@ -10,9 +10,10 @@ script exits non-zero when any phase fails:
               and the host C++ engines, from source; ptxas's registers,
               spills and shared memory per kernel, the SASS of one fq_mul
               (device/kernel_report.py), kernel 7's registers and shared
-              memory by launch plan, and kernels 1-6 and 8 held to their
+              memory by launch plan, kernels 1-4, 7 and 8 held to their
               recorded SASS digests (KEPT_SASS) under the nvcc that
-              recorded them
+              recorded them, and no stack frame for kernel 6 and the
+              BLAKE2b test kernel
   3. pp_add   kernel 1 against its plain PyTorch version on the card: 2^16
               random pairs plus doubling, P + (-P), the identity on either
               side and coordinates near p; bit-equal, timed at the gate's
@@ -52,13 +53,19 @@ script exits non-zero when any phase fails:
  11. reduction  kernels 4-6 (the opening reduction's bind, q0 and tail)
               and the BLAKE2b test kernel against their plain versions at
               small shapes and the edges (late joiners, l1 = 0, padding
-              lanes, every weight layout of kernel 5), bit-equal, and the
-              test kernel against hashlib; kernels 4 and 5 timed at the
-              largest round of the bench's reduction (kernel 5 on that
-              round's own weight tables), kernel 6 at its lanes; the
-              engine against the host BatchedSumcheck on the bench's own
-              instances, in turns: messages, challenges, transcript state
-              and final claims equal.
+              lanes, every weight layout of kernel 5, kernel 5's lazy sum
+              at its worst case of every factor r - 1, a lane of 2^21
+              elements for its lane fold), bit-equal, and the test kernel
+              against hashlib; kernels 4 and 5 timed at the largest round
+              of the bench's reduction (kernel 5 on that round's own
+              weight tables, bound by Montgomery products and by the lazy
+              design's own count), kernel 6 at its lanes (bound by bytes
+              and by the latency of its serial path: its dependent chain
+              from SASS times the measured integer latency), kernels 5
+              and 6 as a pair at the bench's round 0; the engine against
+              the host BatchedSumcheck on the bench's own instances, in
+              turns: messages, challenges, transcript state and final
+              claims equal.
  12. rows     kernel 7 (the IOP rows engine's points) against its plain
               version at P = 1, 2, 27 and 96 rows (and 27 rows with the
               bench class's grouped terms) and 1, 2, 6 and 20 points on
@@ -256,9 +263,10 @@ def timed(results, kernel: str, shape: str, ms: float, adds: int,
             f"{b / ms:.3f}")
 
 
-# The SASS digests (kernel_report.sass) of kernels 1-6 and 8, which the
-# redesign of kernel 7 left as they were: equal for the parent's sources and
-# this tree's, built with this nvcc (the chip machine's CUDA 12.9)
+# The SASS digests (kernel_report.sass) of kernels 1-4, 7 and 8, which the
+# redesign of kernels 5 and 6 left as they were: equal for the parent's
+# sources and this tree's, built with this nvcc (the chip machine's CUDA
+# 12.9)
 KEPT_SASS = ("cuda_12.9.r12.9/compiler.36037853_0", {
     "pp_add_kernel": "364ac1555b4b3cdb",
     "bucket_accumulate_runs": "83e9666cacfd371c",
@@ -266,10 +274,10 @@ KEPT_SASS = ("cuda_12.9.r12.9/compiler.36037853_0", {
     "bucket_combine_kernel": "7ae9ac1c24963eb6",
     "bucket_combine_groups": "14ac1cf5de74f90b",
     "reduction_bind_kernel": "be07dc0fe3190249",
-    "reduction_q0_kernel": "2615606d808143bb",
-    "reduction_tail_kernel": "36c99519604b1ec3",
-    "blake2b_transcript_kernel": "fc52dcd022b62eff",
+    "rows_points_kernel": "e031ea250e180281",
     "rows_from_i64_kernel": "67c51e4747e834c4"})
+# kernels that must keep their message words and state in registers
+NO_STACK = ("reduction_tail_kernel", "blake2b_transcript_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -290,8 +298,9 @@ def phase_build() -> None:
     from jolt_atlas_tpu_torch.device import kernel_report
     for name, r in sorted(kernel_report.parse_ptxas(
             build.ptxas_report()).items()):
-        say("build", f"ptxas -v {name}: {r['registers']} registers, spill "
-            f"stores/loads {r['spill_stores']}/{r['spill_loads']} bytes, "
+        say("build", f"ptxas -v {name}: {r['registers']} registers, "
+            f"{r['stack']} bytes stack frame, spill stores/loads "
+            f"{r['spill_stores']}/{r['spill_loads']} bytes, "
             f"{r['smem']} bytes smem")
     say("build", "one fq_mul in SASS (cuobjdump): " + json.dumps(
         kernel_report.fq_mul_sass(build.CUDA_SRC)))
@@ -306,6 +315,10 @@ def phase_build() -> None:
         f"points) {bench} bytes, "
         f"96 rows at 20 points and 16 slices "
         f"{drows.points_plan(96, 64, 20, 16, sms, group=20)['smem']} bytes")
+    ptx = kernel_report.parse_ptxas(build.ptxas_report())
+    framed = {k: ptx[k]["stack"] for k in NO_STACK if ptx[k]["stack"]}
+    if framed:
+        raise AssertionError(f"stack frames (bytes) in {framed}")
     toolkit = subprocess.run([build.nvcc_path(), "--version"], check=True,
                              capture_output=True,
                              text=True).stdout.split()[-1]
@@ -319,8 +332,9 @@ def phase_build() -> None:
     if moved:
         raise AssertionError(f"SASS of {moved} differs from the recorded "
                              f"digests: {sass}")
-    say("build", f"SASS of the {len(KEPT_SASS[1])} kernels of kernels 1-6 "
-        f"and 8 equal to the recorded digests (nvcc {toolkit})")
+    say("build", f"SASS of the {len(KEPT_SASS[1])} kernels of kernels 1-4, "
+        f"7 and 8 equal to the recorded digests (nvcc {toolkit}); no stack "
+        f"frame in {', '.join(NO_STACK)}")
 
 
 def phase_pp_add(dev, bases, results) -> None:
@@ -961,18 +975,22 @@ def largest_round(nrs: list) -> tuple:
     return r, prev, lanes, lg
 
 
-def _check_tail(dev, gen, lanes: int, joined: int, bpl: int):
+def tail_args(t: dict, joined: int) -> tuple:
+    """kernel 6's arguments from random_tail's inputs, up to the state."""
+    return (t["q0s"], joined, t["Q"], t["es"], t["qinit"], t["coeff"],
+            t["l0"], t["l1"], t["inv_l1"], t["const_b0"])
+
+
+def _check_tail(dev, gen, lanes: int, joined: int):
     """Kernel 6 against its plain version on random inputs (lane 0 with
     l1 = 0, lane 1 with l0 = 0, unjoined and zero-padding lanes): (max
-    abs error, kernel inputs, plain inputs)."""
+    abs error, the inputs)."""
     from jolt_atlas_tpu_torch.device import reduction as dred
-    d = dred.random_tail(dev, gen, lanes, joined, bpl)
+    d = dred.random_tail(dev, gen, lanes, joined)
     k = {n: t.clone() for n, t in d.items()}
     c = torch.empty((1, 4), dtype=torch.int64, device=dev)
     msg = torch.empty((2, 4), dtype=torch.int64, device=dev)
-    args = lambda x: (x["partials"], bpl, joined, x["Q"], x["es"],
-                      x["qinit"], x["coeff"], x["l0"], x["l1"], x["inv_l1"],
-                      x["const_b0"])
+    args = lambda x: tail_args(x, joined)
     dred.tail(*args(k), k["state"], c, msg)
     want = dred.tail_plain(*args(d), d["state"])
     return require_equal(f"reduction_tail ({lanes} lanes, {joined} joined)",
@@ -1037,10 +1055,94 @@ def q0_products(lanep, lg: int) -> int:
     return n
 
 
-def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
-                                                    (256, 175, 64),
-                                                    (256, 256, 1)),
-                    b2_n=4096) -> None:
+def q0_lazy_imads(lanep, lg: int, per: int = 8, threads: int = 256) -> int:
+    """The 32-bit multiplies kernel 5's lazy design needs on these lanes
+    of 2^lg, thread by thread as it lays the terms out (csrc/reduction.cu):
+    a wide product (128) a term whose weight varies over the thread, and a
+    Montgomery product (264) more where both weights vary; a reduction
+    (136) a thread that multiplied; a Montgomery product a thread for each
+    weight that is the same over its terms, where that table exists. A
+    thread of a lane with no tables only adds."""
+    from jolt_atlas_tpu_torch.device.reduction import ABSENT_SHIFT
+    half, lper = 1 << (lg - 1), per.bit_length() - 1
+    lthr = threads.bit_length() - 1
+    tid = np.arange(threads)
+    total = 0
+    for _, shift, _, mask in lanep.tolist():
+        sh = min(shift, 63)
+        log_wlo = int(mask).bit_count()
+        d = sh - lper
+        kb = d if lthr > d >= 5 else lthr
+        hfix, lfix = kb + lper <= sh, kb >= log_wlo
+        has_hi, has_lo = shift < ABSENT_SHIFT, mask > 0
+        j0 = (tid & ((1 << kb) - 1)) | ((tid >> kb) << (kb + lper))
+        chunk = threads * per
+        for part in range(-(-half // chunk)):
+            j = (part * chunk) | j0[:, None] | (np.arange(per)[None] << kb)
+            terms = (j < half).sum(1)
+            live = int((terms > 0).sum())
+            n = int(terms.sum())
+            if not (hfix and lfix):
+                total += n * 128 + live * 136
+                if not (hfix or lfix):
+                    total += n * IMADS_PER_MUL
+            total += live * IMADS_PER_MUL * ((hfix and has_hi)
+                                             + (lfix and has_lo))
+    return total
+
+
+def kernels_ms(fn, names: tuple, reps: int = 10) -> float:
+    """Mean device milliseconds a call of fn() spends in the CUDA kernels
+    named by ``names`` (telemetry names, found in the kernels' names), from
+    torch.profiler's kernel durations between two pads: each kernel's mean
+    duration times its launches, counted by its wrapper's telemetry (or,
+    where fn calls a library directly and telemetry counts none, the
+    launches the trace holds), as device_ms does. fn() runs once before,
+    untraced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jolt_atlas_tpu_torch.device import telemetry
+    fn()
+    before = telemetry.launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _profiler_pad()
+        for _ in range(reps):
+            fn()
+        _profiler_pad()
+    after = telemetry.launches()
+    total = 0.0
+    for name in names:
+        hits = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and name in e.name]
+        launched = after.get(name, 0) - before.get(name, 0) or len(hits)
+        if not hits or launched < reps:
+            raise AssertionError(f"the profiler saw {len(hits)} launches of "
+                                 f"{name} in {reps} calls")
+        total += sum(hits) / len(hits) * launched
+    return total / 1e3 / reps
+
+
+def tail_latency_bound(results) -> dict:
+    """Kernel 6's latency bound: the longest dependent chain of its serial
+    work a round (kernel_report.tail_path_chain: one lane's message terms,
+    a canonical conversion, the long absorb and the squeeze, the challenge,
+    one lane's update; not the block sums nor the loads' latency), counted
+    from SASS, times the integer pipe's dependent-issue latency measured on
+    this card (kernel_report.int_latency), over the card's maximum SM
+    clock."""
+    from jolt_atlas_tpu_torch.device import build, kernel_report
+    path = kernel_report.tail_path_chain(build.CUDA_SRC)
+    lat = kernel_report.int_latency()
+    mhz = results["imad_peak"] / (
+        64 * torch.cuda.get_device_properties(0).multi_processor_count * 1e6)
+    return {**path, "latency_cycles": lat, "sm_mhz": mhz,
+            "ms": path["chain"] * lat["per_instruction"] / (mhz * 1e3)}
+
+
+def phase_reduction(dev, results, cap, tail_shapes=((8, 5), (2, 0),
+                                                    (256, 175), (256, 256)),
+                    b2_n=4096, long_lg=21) -> None:
     """Kernels 4-6 and the BLAKE2b test kernel against their plain versions
     at small shapes and at the edges, bit for bit, and the test kernel
     against hashlib; kernels 4 and 5 timed at the largest round of the
@@ -1052,10 +1154,10 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
     gen = np.random.default_rng(4040)
     err = {k: 0.0 for k in REDUCTION + ("blake2b_transcript",)}
     # -- small shapes: a first round, late joiners, a pure bind, lanes of
-    # several q0 blocks (2^13: with a table of 1024 rows, every weight
+    # several q0 blocks (2^14: with a table of 1024 rows, every weight
     # layout of kernel 5) and of one element's half
     for jp, lanes, lg, table in ((0, 3, 4, 64), (2, 5, 3, 64), (4, 4, 2, 64),
-                                 (3, 3, 13, 64), (0, 12, 13, 1024),
+                                 (3, 3, 14, 64), (0, 12, 14, 1024),
                                  (1, 2, 1, 64)):
         d = dred.random_round(dev, gen, jp, lanes, lg, table)
         args = (d["buf"], d["init"], d["c"], d["init_off"], jp, lanes, lg)
@@ -1069,8 +1171,28 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
             f"reduction_q0 ({lanes} lanes, 2^{lg})", [dred.q0(*qa)],
             [dred.q0_plain(*qa)]))
         checked(results, "reduction_q0", dred.q0_case(lg))
-    for lanes, joined, bpl in tail_shapes:
-        e, _ = _check_tail(dev, gen, lanes, joined, bpl)
+    # kernel 5's lazy sum at its worst case (every lo and every table row
+    # r - 1; 6 lanes of 2^14: every weight layout) and lanes of 2^long_lg
+    # (2^(long_lg - 12) partials a lane for the fold), random and worst
+    top = torch.from_numpy(dred.mont_rows([dred.FR_MODULUS - 1])).to(dev)
+    for lanes, lg, worst in ((6, 14, True), (1, long_lg, False),
+                             (2, long_lg, True)):
+        d = dred.random_round(dev, gen, 0, lanes, lg)
+        buf, tab = d["init"][:lanes << lg], d["tab"]
+        if worst:
+            buf = top.expand(lanes << lg, 4).contiguous()
+            tab = top.expand(tab.shape[0], 4).contiguous()
+        qa = (buf, tab, d["lanep"], lanes, lg)
+        want = dred.q0_plain(*qa)
+        for _ in range(2):  # the lane counters are back at 0
+            err["reduction_q0"] = max(err["reduction_q0"], require_equal(
+                f"reduction_q0 ({lanes} lanes, 2^{lg}, "
+                f"{'every factor r - 1' if worst else 'random'})",
+                [dred.q0(*qa)], [want]))
+        checked(results, "reduction_q0", dred.q0_case(lg))
+        del d, buf, tab, qa, want
+    for lanes, joined in tail_shapes:
+        e, _ = _check_tail(dev, gen, lanes, joined)
         err["reduction_tail"] = max(err["reduction_tail"], e)
         checked(results, "reduction_tail", lanes)
     hashed = 0
@@ -1096,8 +1218,10 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
                 raise AssertionError(f"blake2b_transcript differs from "
                                      f"hashlib ({npw} words, row {i})")
             hashed += 1
-    lines = [f"bit-equal to the plain versions at 6 round shapes, "
-             f"{len(tail_shapes)} tail shapes and 5 transcript lengths; "
+    lines = [f"bit-equal to the plain versions at 6 round shapes, kernel "
+             f"5 at every factor r - 1 (2^14, 2^{long_lg}) and at a random "
+             f"lane of 2^{long_lg}, twice each, {len(tail_shapes)} tail "
+             f"shapes and 5 transcript lengths; "
              f"{hashed} digests equal hashlib's"]
 
     # -- timed at the bench's largest round, q0 on that round's own tables
@@ -1129,32 +1253,74 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5, 3), (2, 0, 1),
     err["reduction_q0"] = max(err["reduction_q0"], require_equal(
         "reduction_q0 (bench round)", [part], [want]))
     terms = lanes << (lg - 1)
+    nbytes = (terms + tab.shape[0] + part.shape[0] + lanes) * FR_BYTES
     lines.append("q0 " + timed(
         results, "reduction_q0", f"round {r}: {lanes} lanes of 2^{lg}, its "
-        f"split-eq tables", ms, q0_products(lanep.cpu(), lg),
-        (terms + tab.shape[0] + part.shape[0] + lanes) * FR_BYTES,
+        f"split-eq tables", ms, q0_products(lanep.cpu(), lg), nbytes,
         IMADS_PER_MUL, call_ms) + f", plain {plain_ms:.1f} ms")
+    lazy = q0_lazy_imads(lanep.cpu(), lg, dred.Q0_PER_THREAD)
+    lb, lby = bound(lazy, nbytes, results["imad_peak"], 1)
+    lines.append(f"q0 against the lazy design's own count ({lazy} IMAD): "
+                 f"bound {lb:.4f} ms ({lby}), share {lb / ms:.3f}")
     results["reduction_q0"] = {"ms": ms, "plain_ms": plain_ms,
-                               **results["timed"]["reduction_q0"][-1]}
+                               **results["timed"]["reduction_q0"][-1],
+                               "bound_lazy_ms": lb, "bound_lazy_by": lby,
+                               "lazy_imads": lazy}
     del d, out, part, want, args, qa, tab, lanep
     L = max(1 << (len(nrs) - 1).bit_length(), 2)
-    J, bpl = len(nrs), dred.q0_blocks(max(nrs))
-    e, t = _check_tail(dev, gen, L, J, bpl)
+    J = len(nrs)
+    e, t = _check_tail(dev, gen, L, J)
     err["reduction_tail"] = max(err["reduction_tail"], e)
     checked(results, "reduction_tail", L)
     c = torch.empty((1, 4), dtype=torch.int64, device=dev)
     msg = torch.empty((2, 4), dtype=torch.int64, device=dev)
-    targs = (t["partials"], bpl, J, t["Q"], t["es"], t["qinit"], t["coeff"],
-             t["l0"], t["l1"], t["inv_l1"], t["const_b0"], t["state"])
+    targs = tail_args(t, J) + (t["state"],)
     ms, call_ms, _ = device_ms(lambda: dred.tail(*targs, c, msg), 20,
                                "reduction_tail")
     plain_ms, _ = cuda_ms(lambda: dred.tail_plain(*targs), 1, warmup=False)
     lines.append("tail " + timed(
-        results, "reduction_tail", f"{L} lanes, {J} joined, {bpl} partials "
-        "a lane", ms, 10 * J + 3, (J * bpl + 8 * L + 4) * FR_BYTES,
-        IMADS_PER_MUL, call_ms) + f", plain {plain_ms:.1f} ms")
-    results["reduction_tail"] = {"ms": ms, "plain_ms": plain_ms,
-                                 **results["timed"]["reduction_tail"][-1]}
+        results, "reduction_tail", f"{L} lanes, {J} joined", ms, 10 * J + 3,
+        (J + 8 * L + 4) * FR_BYTES, IMADS_PER_MUL, call_ms)
+        + f", plain {plain_ms:.1f} ms")
+    lat = tail_latency_bound(results)
+    row = results["timed"]["reduction_tail"][-1]
+    row.update(bound_throughput_ms=row["bound_ms"],
+               bound_throughput_by=row["bound_by"], latency=lat)
+    if lat["ms"] > row["bound_ms"]:  # dependent operations at their latency
+        row.update(bound_ms=lat["ms"], bound_by="operations",
+                   share=lat["ms"] / ms)
+    lines.append(f"tail latency bound: {lat['chain']} dependent "
+                 f"instructions of {lat['instructions']} ({lat['branches']} "
+                 f"branches) x {lat['latency_cycles']['per_instruction']:.2f}"
+                 f" cycles at {lat['sm_mhz']:.0f} MHz = {lat['ms']:.5f} ms, "
+                 f"share {lat['ms'] / ms:.3f}")
+    results["reduction_tail"] = {"ms": ms, "plain_ms": plain_ms, **row}
+    # -- kernels 5 and 6 as a pair at the bench's round 0, on its tables
+    insts, _ = reduction_instances(cap)
+    joined0 = sum(1 for n in nrs if n == max(nrs))
+    tab0, lanep0 = bench_round_weights(insts, 0, dev)
+    del insts
+    d0 = dred.random_round(dev, gen, 0, joined0, max(nrs))
+    buf0 = d0["init"][:joined0 << max(nrs)]
+    q0a = (buf0, tab0, lanep0, joined0, max(nrs))
+    err["reduction_q0"] = max(err["reduction_q0"], require_equal(
+        "reduction_q0 (bench round 0)", [dred.q0(*q0a)],
+        [dred.q0_plain(*q0a)]))
+    t0 = dred.random_tail(dev, gen, L, joined0)
+
+    def pair():
+        t0["q0s"] = dred.q0(*q0a)
+        dred.tail(*tail_args(t0, joined0), t0["state"], c, msg)
+    pms = kernels_ms(pair, ("reduction_q0", "reduction_tail"))
+    pcall, _ = cuda_ms(pair, 10)
+    results["reduction_pair"] = {
+        "shape": f"round 0: {joined0} lanes of 2^{max(nrs)}, its split-eq "
+                 f"tables; tail over {L} lanes", "ms": pms,
+        "call_ms": pcall}
+    lines.append(f"q0 + tail at round 0 ({joined0} lanes of 2^{max(nrs)}, "
+                 f"tail over {L} lanes): {pms:.4f} ms on the device (a call "
+                 f"{pcall:.4f} ms)")
+    del d0, buf0, q0a, t0, tab0, lanep0
     st = torch.from_numpy(db.bytes_to_words(gen.bytes(32 * b2_n)).reshape(
         b2_n, 4)).to(dev)
     rd = torch.arange(b2_n, dtype=torch.int64, device=dev)
@@ -1728,6 +1894,11 @@ def main() -> int:
             row["also_replaces"] = \
                 "jolt_atlas_tpu/parallel/shardedrows.py:130"
             row["rows_layout"] = results["rows_bind"]
+        for extra in ("bound_lazy_ms", "bound_throughput_ms", "latency"):
+            if extra in r:  # kernels 5 and 6: their second bounds
+                row[extra] = r[extra]
+        if name in ("reduction_q0", "reduction_tail"):
+            row["pair_round0"] = results["reduction_pair"]
         if name == "rows_points":
             row["plan"] = r["plan"]
             row["bound_term_by_term_ms"] = r["bound_term_by_term_ms"]

@@ -1,4 +1,4 @@
-// BLAKE2b-256 and the Fiat-Shamir transcript steps built on it, as device
+// BLAKE2b-256 and the Fiat-Shamir transcript step built on it, as device
 // functions: the tail kernel of the opening reduction (reduction.cu) absorbs
 // each round message and squeezes the round challenge on the card.
 //
@@ -16,8 +16,11 @@
 // two compressions), a squeeze none. Words are little-endian u64 of the
 // message bytes, so state word 0 holds state bytes 0..7.
 //
-// One transcript step is a serial chain of 12 x 8 mixing steps; it runs on
-// one thread, once a round, and is bound by its latency, not by the card.
+// A transcript step is a serial chain of 12 rounds of two mix steps, each
+// of four independent mixes; it runs once a round and is bound by its
+// latency, not by the card. Four lanes of a warp run one step together, a
+// mix each (blake2b_compress_x4), so a warp issues one mix's instructions
+// a step where one thread would issue four.
 #pragma once
 
 #include <cstdint>
@@ -47,107 +50,104 @@ __device__ __forceinline__ u64 bswap64(u64 x) {
   return ((u64)bswap32((u32)x) << 32) | bswap32((u32)(x >> 32));
 }
 
-__device__ __forceinline__ void b2_mix(u64 v[16], int a, int b, int c, int d,
-                                       u64 x, u64 y) {
-  v[a] = v[a] + v[b] + x;
-  v[d] = b2_rotr(v[d] ^ v[a], 32);
-  v[c] = v[c] + v[d];
-  v[b] = b2_rotr(v[b] ^ v[c], 24);
-  v[a] = v[a] + v[b] + y;
-  v[d] = b2_rotr(v[d] ^ v[a], 16);
-  v[c] = v[c] + v[d];
-  v[b] = b2_rotr(v[b] ^ v[c], 63);
+// ---------------------------------------------------------------------------
+// One compression spread over four lanes of a warp (q = lane & 3; the
+// calling lanes are q = 0..3 of one group and run it together). Lane q
+// holds column q of the work vector, a = v[q], b = v[4 + q], c = v[8 + q],
+// d = v[12 + q], and runs that column's mix; the diagonal mixes take b, c
+// and d from lanes q + 1, q + 2, q + 3 by shuffles and hand them back. The
+// four mixes of a step are then one instruction stream, not four after one
+// another. h: lane q holds h[q] (hl) and h[4 + q] (hh); m: the block's 16
+// words in shared memory, read by each lane's own SIGMA entries (SIGMA's
+// rows packed a nibble an entry).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ u64 b2_sigma(int r) {
+  constexpr u64 S[12] = {
+      0xfedcba9876543210ull, 0x357b20c16df984aeull, 0x491763eadf250c8bull,
+      0x8f04a562ebcd1397ull, 0xd386cb1efa427509ull, 0x91ef57d438b0a6c2ull,
+      0xb8293670a4def15cull, 0xa2684f05931ce7bdull, 0x5a417d2c803b9ef6ull,
+      0x0dc3e9bf5167482aull, 0xfedcba9876543210ull, 0x357b20c16df984aeull};
+  return S[r];
 }
 
-// One BLAKE2b compression of the block m into h; t is the byte count so
-// far (this block included), last sets the final-block flag.
-__device__ __forceinline__ void blake2b_compress(u64 h[8], const u64 m[16],
-                                                 u64 t, bool last) {
-  constexpr unsigned char SIGMA[12][16] = {
-      {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15},
-      {14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3},
-      {11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4},
-      {7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8},
-      {9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13},
-      {2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9},
-      {12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11},
-      {13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10},
-      {6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5},
-      {10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0},
-      {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15},
-      {14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3}};
-  u64 v[16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    v[i] = h[i];
-    v[i + 8] = b2_iv(i);
-  }
-  v[12] ^= t;
-  if (last) v[14] = ~v[14];
+// b2_iv(q) or b2_iv(4 + q) for a lane's own q, without indexing a local
+// array
+__device__ __forceinline__ u64 b2_iv_lane(int q, int hi) {
+  const u64 a = b2_iv(4 * hi), b = b2_iv(4 * hi + 1), c = b2_iv(4 * hi + 2),
+            d = b2_iv(4 * hi + 3);
+  return q == 0 ? a : q == 1 ? b : q == 2 ? c : d;
+}
+
+__device__ __forceinline__ void b2_g(u64& a, u64& b, u64& c, u64& d, u64 x,
+                                     u64 y) {
+  a = a + b + x;
+  d = b2_rotr(d ^ a, 32);
+  c = c + d;
+  b = b2_rotr(b ^ c, 24);
+  a = a + b + y;
+  d = b2_rotr(d ^ a, 16);
+  c = c + d;
+  b = b2_rotr(b ^ c, 63);
+}
+
+__device__ __forceinline__ void blake2b_compress_x4(u64& hl, u64& hh,
+                                                    const u64* m, u64 t,
+                                                    bool last) {
+  const int q = threadIdx.x & 3;
+  const unsigned g = 0xfu << (threadIdx.x & 28);  // this group's lanes
+  u64 a = hl, b = hh, c = b2_iv_lane(q, 0), d = b2_iv_lane(q, 1);
+  if (q == 0) d ^= t;
+  if (q == 2 && last) d = ~d;
 #pragma unroll
   for (int r = 0; r < 12; ++r) {
-    const unsigned char* s = SIGMA[r];
-    b2_mix(v, 0, 4, 8, 12, m[s[0]], m[s[1]]);
-    b2_mix(v, 1, 5, 9, 13, m[s[2]], m[s[3]]);
-    b2_mix(v, 2, 6, 10, 14, m[s[4]], m[s[5]]);
-    b2_mix(v, 3, 7, 11, 15, m[s[6]], m[s[7]]);
-    b2_mix(v, 0, 5, 10, 15, m[s[8]], m[s[9]]);
-    b2_mix(v, 1, 6, 11, 12, m[s[10]], m[s[11]]);
-    b2_mix(v, 2, 7, 8, 13, m[s[12]], m[s[13]]);
-    b2_mix(v, 3, 4, 9, 14, m[s[14]], m[s[15]]);
+    const u64 s = b2_sigma(r);
+    b2_g(a, b, c, d, m[(s >> (8 * q)) & 15], m[(s >> (8 * q + 4)) & 15]);
+    b = __shfl_sync(g, b, q + 1, 4);
+    c = __shfl_sync(g, c, q + 2, 4);
+    d = __shfl_sync(g, d, q + 3, 4);
+    b2_g(a, b, c, d, m[(s >> (32 + 8 * q)) & 15],
+         m[(s >> (36 + 8 * q)) & 15]);
+    b = __shfl_sync(g, b, q + 3, 4);
+    c = __shfl_sync(g, c, q + 2, 4);
+    d = __shfl_sync(g, d, q + 1, 4);
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] ^= v[i] ^ v[i + 8];
+  hl ^= a ^ c;
+  hh ^= b ^ d;
 }
 
-// st = BLAKE2b-256(st || 28 zero bytes || n_rounds big-endian || payload),
-// payload being np little-endian u64 words (8 * np bytes)
-__device__ __forceinline__ void transcript_absorb_long(u64 st[4],
-                                                       u32 n_rounds,
-                                                       const u64* payload,
-                                                       int np) {
-  u64 h[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = b2_iv(i);
-  h[0] ^= 0x01010020ull;  // keyless, 32-byte digest
+// One transcript step on four lanes (as blake2b_compress_x4): lane q holds
+// state word st (word q) and gets the new one; payload: np words (shared or
+// global memory); m: a 16-word block buffer in shared memory.
+__device__ __forceinline__ void transcript_step_x4(u64& st, u32 n_rounds,
+                                                   const u64* payload,
+                                                   int np, u64* m) {
+  const int q = threadIdx.x & 3;
+  const unsigned g = 0xfu << (threadIdx.x & 28);
   const int nwords = 8 + np;
-  int done = 0;  // message words compressed so far
-  u64 m[16];
-  for (;;) {
-    const bool last = nwords - done <= 16;
+  u64 hl = b2_iv_lane(q, 0) ^ (q == 0 ? 0x01010020ull : 0ull);
+  u64 hh = b2_iv_lane(q, 1);
+  for (int done = 0; done < nwords; done += 16) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int k = done + j;
+    for (int j = 0; j < 4; ++j) {  // words k = done + 4 j + q
+      const int k = done + 4 * j + q;
       u64 w = 0;
       if (k < 4) {
-        w = st[k];
+        w = st;
       } else if (k == 7) {
-        w = (u64)bswap32(n_rounds) << 32;  // bytes 60..63
+        w = (u64)bswap32(n_rounds) << 32;
       } else if (k >= 8 && k < nwords) {
         w = payload[k - 8];
       }
-      m[j] = w;
+      m[4 * j + q] = w;
     }
-    if (last) {
-      blake2b_compress(h, m, 8ull * nwords, true);
-      break;
-    }
-    done += 16;
-    blake2b_compress(h, m, 8ull * done, false);
+    __syncwarp(g);
+    const bool last = nwords - done <= 16;
+    blake2b_compress_x4(hl, hh, m, last ? 8ull * nwords : 8ull * (done + 16),
+                        last);
+    __syncwarp(g);  // m is written again
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) st[i] = h[i];
-}
-
-// an absorb of one 32-byte payload (four words): one compression
-__device__ __forceinline__ void transcript_absorb(u64 st[4], u32 n_rounds,
-                                                  const u64 payload[4]) {
-  transcript_absorb_long(st, n_rounds, payload, 4);
-}
-
-// a squeeze: the 64-byte prefix alone; st becomes the 32-byte digest
-__device__ __forceinline__ void transcript_squeeze(u64 st[4], u32 n_rounds) {
-  transcript_absorb_long(st, n_rounds, nullptr, 0);
+  st = hl;
 }
 
 }  // namespace jolt

@@ -215,6 +215,140 @@ __device__ __forceinline__ U256 mont_sub(const U256& a, const U256& b) {
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// Lazy sums of products (kernel 5): sum_k a_k b_k with one reduction for the
+// whole sum, not one a product. Each a_k b_k is a plain 256 x 256 -> 512-bit
+// product (8 mad_row rows, 128 IMAD) added into a 16-limb accumulator T;
+// one Montgomery reduction (8 steps of m = t[i] N0, t += m p: 136 IMAD) then
+// gives T / R mod p. Bounds, for canonical inputs (< p < 2^254, p / R =
+// 0.189): n products sum below n p^2, under 2^512 (16 limbs) for n <= 27.
+// The reduction returns u + H with u = (L + M p) / R <= p (L the low half
+// of T, M < R) and H = floor(T / R) < 0.189 n p, so below (1 + 0.189 n) p;
+// that must fit 256 bits, so n <= 22, the most terms a sum may take before
+// it is reduced. Two conditional subtractions (2p, then p) make any value
+// below 4p canonical: n <= 15; n = 16 to 22 take a third (4p) first.
+// ---------------------------------------------------------------------------
+
+struct U512 {
+  u32 v[16];
+};
+
+__device__ __forceinline__ U512 wide_zero() {
+  U512 r;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) r.v[j] = 0;
+  return r;
+}
+
+// acc += a * b (the full 512-bit product); the caller keeps acc < 2^512
+__device__ __forceinline__ void wide_mad(U512& acc, const U256& a,
+                                         const U256& b) {
+  u32 t[17];
+#pragma unroll
+  for (int j = 0; j < 17; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mad_row(t + i, a.v, b.v[i]);  // t < 2^512
+  u32 c;
+  asm("add.cc.u32  %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32    %8, 0, 0;"
+      : "+r"(acc.v[0]), "+r"(acc.v[1]), "+r"(acc.v[2]), "+r"(acc.v[3]),
+        "+r"(acc.v[4]), "+r"(acc.v[5]), "+r"(acc.v[6]), "+r"(acc.v[7]),
+        "=r"(c)
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
+        "r"(t[6]), "r"(t[7]));
+  // c + 0xffffffff sets the carry flag exactly when c = 1
+  asm("add.cc.u32  %8, %8, 0xffffffff;\n\t"
+      "addc.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.u32    %7, %7, %16;"
+      : "+r"(acc.v[8]), "+r"(acc.v[9]), "+r"(acc.v[10]), "+r"(acc.v[11]),
+        "+r"(acc.v[12]), "+r"(acc.v[13]), "+r"(acc.v[14]), "+r"(acc.v[15]),
+        "+r"(c)
+      : "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]), "r"(t[12]),
+        "r"(t[13]), "r"(t[14]), "r"(t[15]));
+}
+
+// r -= (p << S) where r >= p << S (S = 1, 2: 2p, 4p; both below 2^256)
+template <class F, int S>
+__device__ __forceinline__ void mont_cond_sub_shifted(U256& r) {
+  u32 m[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    m[j] = (F::p(j) << S) | (j ? F::p(j - 1) >> (32 - S) : 0u);
+  u32 d[8], borrow;
+  asm("sub.cc.u32  %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+        "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(borrow)
+      : "r"(r.v[0]), "r"(r.v[1]), "r"(r.v[2]), "r"(r.v[3]), "r"(r.v[4]),
+        "r"(r.v[5]), "r"(r.v[6]), "r"(r.v[7]), "r"(m[0]), "r"(m[1]),
+        "r"(m[2]), "r"(m[3]), "r"(m[4]), "r"(m[5]), "r"(m[6]), "r"(m[7]));
+  const bool take = borrow == 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = take ? d[j] : r.v[j];
+}
+
+// T / R mod p, canonical, for T a sum of at most N products of canonical
+// values (the bounds above)
+template <class F, int N>
+__device__ __forceinline__ U256 mont_redc_sum(const U512& T) {
+  static_assert(N >= 1 && N <= 22, "a lazy sum takes at most 22 products");
+  u32 t[10];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = T.v[j];
+  t[8] = 0;
+  t[9] = 0;
+  u32 p[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) p[j] = F::p(j);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // as mont_mul's reduction rows
+    const u32 m = t[0] * F::N0;
+    mad_row(t, p, m);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) t[j] = t[j + 1];
+    t[9] = 0;
+  }
+  U256 r;  // u + H: below 2^256 by the bound on N
+  asm("add.cc.u32  %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32    %7, %15, %23;"
+      : "=r"(r.v[0]), "=r"(r.v[1]), "=r"(r.v[2]), "=r"(r.v[3]),
+        "=r"(r.v[4]), "=r"(r.v[5]), "=r"(r.v[6]), "=r"(r.v[7])
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
+        "r"(t[6]), "r"(t[7]), "r"(T.v[8]), "r"(T.v[9]), "r"(T.v[10]),
+        "r"(T.v[11]), "r"(T.v[12]), "r"(T.v[13]), "r"(T.v[14]),
+        "r"(T.v[15]));
+  if (N > 15) mont_cond_sub_shifted<F, 2>(r);
+  mont_cond_sub_shifted<F, 1>(r);
+  mont_cond_sub<F>(r, 0);
+  return r;
+}
+
 __device__ __forceinline__ Fq fq_mul(const Fq& a, const Fq& b) {
   return mont_mul<FqField>(a, b);
 }
@@ -333,6 +467,22 @@ __device__ __forceinline__ Fr load_fr(const u64* base, int64_t i) {
 
 __device__ __forceinline__ void store_fr(u64* base, int64_t i, const Fr& a) {
   store_fq(base, i, a);
+}
+
+// a load of data other blocks of this launch wrote (through L2, not L1)
+__device__ __forceinline__ Fr ldcg_fr(const u64* base, int64_t i) {
+  const uint4* q = reinterpret_cast<const uint4*>(base + 4 * i);
+  const uint4 lo = __ldcg(q), hi = __ldcg(q + 1);
+  Fr r;
+  r.v[0] = lo.x;
+  r.v[1] = lo.y;
+  r.v[2] = lo.z;
+  r.v[3] = lo.w;
+  r.v[4] = hi.x;
+  r.v[5] = hi.y;
+  r.v[6] = hi.z;
+  r.v[7] = hi.w;
+  return r;
 }
 
 __device__ __forceinline__ Fr fr_zero() {

@@ -18,23 +18,28 @@
 //   init[init_off[s] + j] for the lanes that join this round. Bound by
 //   bytes (one product per element against 96 bytes moved).
 // - kernel 5, q0: per lane, q(0) = sum_j whi[j >> shift] wlo[j & mask]
-//   lo[j] over the lane's lower half, mod r. Each block sums a contiguous
-//   chunk of one lane (a warp-shuffle tree, then one warp) into one
-//   canonical partial; the tail adds a lane's partials. The reference keeps
-//   16-bit lazy limb sums because the TPU has no u64; canonical sums are
-//   the same number in any order. A thread's terms are laid out so that
-//   one weight (whi, or else wlo) is the same for all of them: it sums the
-//   other weight times lo and multiplies by that one once. The split-eq
-//   tables (shift == log2(mask + 1)) then cost one product per element, and
-//   none where a table is missing. Bound by IMAD throughput.
-// - kernel 6, tail: one block, a thread a lane: q(0) from the partials,
-//   q(1) = (Q - l0 q0) / l1, the coefficient-weighted lane sums b0 (plus
-//   the constant of the lanes not yet joined) and b2, then thread 0 absorbs
-//   "UniPoly\x01" || b0 || b2 (big-endian canonical bytes) in one long
-//   absorb, squeezes, masks the digest's low 16 bytes to 125 bits and
-//   multiplies by 2^384 mod r (the challenge in Montgomery form), and every
-//   lane advances Q and its eq scalar at the challenge. A serial transcript
-//   step: bound by latency.
+//   lo[j] over the lane's lower half, mod r. The reference keeps 16-bit
+//   lazy limb sums because the TPU has no u64; canonical sums are the same
+//   number in any order. A thread's terms are laid out so that one weight
+//   (whi, or else wlo) is the same for all of them: it sums the other
+//   weight times lo and multiplies by that one once. That sum is lazy
+//   (csrc/fq.cuh, mont_redc_sum): each term a plain 512-bit product into a
+//   wide accumulator, one Montgomery reduction a thread, so a split-eq lane
+//   costs 128 IMAD a term where a Montgomery product costs 264, and a lane
+//   without tables only adds. Each block sums a chunk of one lane (a
+//   warp-shuffle tree, then one warp); the last block of a lane to finish
+//   (a ticket on a per-lane counter, which it resets) adds the lane's
+//   partials and writes the lane's one canonical q(0). Bound by integer
+//   throughput.
+// - kernel 6, tail: one block, a thread a lane: q(1) = (Q - l0 q0) / l1,
+//   the coefficient-weighted lane sums b0 (plus the constant of the lanes
+//   not yet joined) and b2 summed side by side, their canonical forms on
+//   two threads at once, then four lanes absorb "UniPoly\x01" || b0 || b2
+//   (big-endian canonical bytes) in one long absorb and squeeze
+//   (csrc/blake2b.cuh, a mix a lane), lane 0 masks the digest's low 16
+//   bytes to 125 bits and multiplies by 2^384 mod r (the challenge in
+//   Montgomery form), and every lane advances Q and its eq scalar at the
+//   challenge. A serial transcript step: bound by latency.
 //
 // Every kernel launches on the caller's stream and synchronises nothing, so
 // all rounds queue back to back with no host round trip.
@@ -48,7 +53,11 @@ namespace jolt {
 constexpr int BIND_THREADS = 256;
 constexpr int LOG_Q0_THREADS = 8;
 constexpr int Q0_THREADS = 1 << LOG_Q0_THREADS;
-constexpr int LOG_Q0_PER_THREAD = 3;  // a thread sums 8 terms
+#ifndef JOLT_LOG_Q0_PER_THREAD
+#define JOLT_LOG_Q0_PER_THREAD 4
+#endif
+constexpr int LOG_Q0_PER_THREAD = JOLT_LOG_Q0_PER_THREAD;  // 16 terms
+
 constexpr int Q0_PER_THREAD = 1 << LOG_Q0_PER_THREAD;
 constexpr int TAIL_MAX_LANES = 1024;
 
@@ -80,16 +89,21 @@ __global__ void __launch_bounds__(BIND_THREADS)
 // two). Block b of a lane sums its terms j in [b, b + 1) * Q0_THREADS *
 // Q0_PER_THREAD. Thread t's k-th term has the chunk index t's low kb bits,
 // then k, then t's other bits: kb = 8 puts k at the top (a warp reads 32
-// consecutive terms for every k), kb = shift - 3 in [5, 8) keeps all of a
-// thread's terms in one whi row at still 32 consecutive terms a warp read.
-// whi is then the same over a thread's terms when k's bits lie below
-// shift, wlo when they lie at or above log2(mask + 1).
+// consecutive terms for every k), kb = shift - LOG_Q0_PER_THREAD in [5, 8)
+// keeps all of a thread's terms in one whi row at still 32 consecutive
+// terms a warp read. whi is then the same over a thread's terms when k's
+// bits lie below shift, wlo when they lie at or above log2(mask + 1).
+// Lanes of one block write q(0) directly; a lane of bpl > 1 blocks goes
+// through partials (bpl rows a lane) and its counter.
 __global__ void __launch_bounds__(Q0_THREADS)
     reduction_q0_kernel(const u64* __restrict__ buf,
                         const u64* __restrict__ tab,
                         const int64_t* __restrict__ lanep,
-                        u64* __restrict__ partials, int lg, int64_t bpl) {
+                        u64* __restrict__ partials,
+                        unsigned* __restrict__ counters, u64* __restrict__ out,
+                        int lg, int64_t bpl) {
   __shared__ Fr warp_sums[32];
+  __shared__ bool last;
   const int64_t s = blockIdx.x / bpl;
   const int64_t part = blockIdx.x % bpl;
   const int64_t half = (int64_t)1 << (lg - 1);
@@ -102,47 +116,108 @@ __global__ void __launch_bounds__(Q0_THREADS)
   const int kb = (d >= 5 && d < LOG_Q0_THREADS) ? d : LOG_Q0_THREADS;
   const bool hfix = kb + LOG_Q0_PER_THREAD <= sh;
   const bool lfix = kb >= log_wlo;
-  const int64_t t = threadIdx.x;
+  const int tid = threadIdx.x;
   const int64_t j0 = (part << (LOG_Q0_THREADS + LOG_Q0_PER_THREAD)) |
-                     (t & ((1 << kb) - 1)) |
-                     ((t >> kb) << (kb + LOG_Q0_PER_THREAD));
+                     (tid & ((1 << kb) - 1)) |
+                     ((int64_t)(tid >> kb) << (kb + LOG_Q0_PER_THREAD));
   const u64* lo = buf + 4 * (s << lg);
   Fr acc = fr_zero();
-  for (int k = 0; k < Q0_PER_THREAD; ++k) {
-    const int64_t j = j0 | ((int64_t)k << kb);
-    if (j < half) {
-      Fr x = load_fr(lo, j);
-      if (!hfix) x = fr_mul(x, load_fr(tab, whi_off + (j >> sh)));
-      if (!lfix) x = fr_mul(x, load_fr(tab, wlo_off + (j & wlo_mask)));
-      acc = fr_add(acc, x);
+  if (hfix && lfix) {  // one weight for all: adds only
+    for (int k = 0; k < Q0_PER_THREAD; ++k) {
+      const int64_t j = j0 | ((int64_t)k << kb);
+      if (j < half) acc = fr_add(acc, load_fr(lo, j));
     }
+  } else {  // the varying weight (both, multiplied, if neither is fixed)
+    U512 wide = wide_zero();
+    for (int k = 0; k < Q0_PER_THREAD; ++k) {
+      const int64_t j = j0 | ((int64_t)k << kb);
+      if (j < half) {
+        Fr w;
+        if (hfix) {
+          w = load_fr(tab, wlo_off + (j & wlo_mask));
+        } else {
+          w = load_fr(tab, whi_off + (j >> sh));
+          if (!lfix) w = fr_mul(w, load_fr(tab, wlo_off + (j & wlo_mask)));
+        }
+        wide_mad(wide, w, load_fr(lo, j));
+      }
+    }
+    acc = mont_redc_sum<FrField, Q0_PER_THREAD>(wide);
   }
   if (j0 < half) {  // j0 is the thread's least term
     if (hfix) acc = fr_mul(acc, load_fr(tab, whi_off + (j0 >> sh)));
     if (lfix) acc = fr_mul(acc, load_fr(tab, wlo_off + (j0 & wlo_mask)));
   }
   acc = block_sum(acc, warp_sums);
-  if (threadIdx.x == 0) store_fr(partials, blockIdx.x, acc);
+  if (bpl == 1) {
+    if (tid == 0) store_fr(out, s, acc);
+    return;
+  }
+  // -- the lane's last block to finish adds the lane's partials
+  if (tid == 0) {
+    store_fr(partials, blockIdx.x, acc);
+    __threadfence();
+    last = atomicAdd(counters + s, 1u) == (unsigned)(bpl - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  acc = fr_zero();
+  for (int64_t b = tid; b < bpl; b += Q0_THREADS)
+    acc = fr_add(acc, ldcg_fr(partials, s * bpl + b));
+  acc = block_sum(acc, warp_sums);
+  if (tid == 0) {
+    store_fr(out, s, acc);
+    counters[s] = 0;
+  }
 }
 
-// state: 4 u64 transcript state words, then n_rounds; msg: b0, b2
+// Sums x and y over the block (blockDim.x a multiple of 32, at most 1024)
+// side by side: x valid in thread 0, y in thread 1. sums: 64 elements of
+// shared memory.
+__device__ __forceinline__ void block_sum2(Fr& x, Fr& y, Fr* sums) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    x = fr_add(x, fr_shfl_down(x, d));
+    y = fr_add(y, fr_shfl_down(y, d));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    sums[warp] = x;
+    sums[32 + warp] = y;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    const Fr* mine = sums + 32 * threadIdx.x;
+    Fr t = mine[0];
+    for (int k = 1; k < (int)(blockDim.x >> 5); ++k) t = fr_add(t, mine[k]);
+    if (threadIdx.x == 0) x = t; else y = t;
+  }
+}
+
+#ifndef TAIL_STAMP  // a stage mark of kernel 6 (scripts/ builds time them)
+#define TAIL_STAMP(k)
+#endif
+
+// q0s: one q(0) a lane; state: 4 u64 transcript state words, then n_rounds;
+// msg: b0, b2
 __global__ void reduction_tail_kernel(
-    const u64* __restrict__ partials, int64_t bpl, int64_t joined,
-    int64_t lanes, u64* __restrict__ Q, u64* __restrict__ es,
-    const u64* __restrict__ qinit, const u64* __restrict__ coeff,
-    const u64* __restrict__ l0p, const u64* __restrict__ l1p,
-    const u64* __restrict__ inv_l1p, const u64* __restrict__ const_b0,
-    u64* __restrict__ state, u64* __restrict__ c_out,
-    u64* __restrict__ msg) {
-  __shared__ Fr warp_sums[32];
+    const u64* __restrict__ q0s, int64_t joined, int64_t lanes,
+    u64* __restrict__ Q, u64* __restrict__ es, const u64* __restrict__ qinit,
+    const u64* __restrict__ coeff, const u64* __restrict__ l0p,
+    const u64* __restrict__ l1p, const u64* __restrict__ inv_l1p,
+    const u64* __restrict__ const_b0, u64* __restrict__ state,
+    u64* __restrict__ c_out, u64* __restrict__ msg) {
+  __shared__ Fr sums[64];
+  __shared__ u64 words[9 + 16];  // the round message's payload, a block
   __shared__ Fr c_shared;
-  const int64_t t = threadIdx.x;
+  TAIL_STAMP(0)
+  const int t = threadIdx.x;
   const bool in = t < joined;
   Fr q0 = fr_zero(), dq = fr_zero(), dl = fr_zero(), l0 = fr_zero();
   Fr esv = fr_zero(), s0 = fr_zero(), s2 = fr_zero();
   if (in) {
-    for (int64_t k = 0; k < bpl; ++k)
-      q0 = fr_add(q0, load_fr(partials, t * bpl + k));
+    q0 = load_fr(q0s, t);
     l0 = load_fr(l0p, t);
     esv = load_fr(es, t);
     const Fr l0q0 = fr_mul(l0, q0);
@@ -153,50 +228,54 @@ __global__ void reduction_tail_kernel(
     s0 = fr_mul(cf, fr_mul(esv, l0q0));
     s2 = fr_mul(cf, fr_mul(esv, fr_mul(dl, dq)));
   }
-  Fr b0 = block_sum(s0, warp_sums);
-  const Fr b2 = block_sum(s2, warp_sums);
-  if (t == 0) {
-    b0 = fr_add(b0, load_fr(const_b0, 0));
-    store_fr(msg, 0, b0);
-    store_fr(msg, 1, b2);
+  TAIL_STAMP(1)
+  block_sum2(s0, s2, sums);
+  if (t < 2) {  // b0 on thread 0, b2 on thread 1, in one instruction stream
+    const Fr b = t == 0 ? fr_add(s0, load_fr(const_b0, 0)) : s2;
+    TAIL_STAMP(2)
+    store_fr(msg, t, b);
     Fr raw_one = fr_zero();
     raw_one.v[0] = 1;
-    const Fr cb0 = fr_mul(b0, raw_one);  // canonical
-    const Fr cb2 = fr_mul(b2, raw_one);
-    u64 payload[9];
-    payload[0] = 0x01796c6f50696e55ull;  // "UniPoly\x01"
+    const Fr cb = fr_mul(b, raw_one);  // canonical
+    // payload: "UniPoly\x01", then b0 and b2, 32 bytes big-endian each
+    // (limb 3 first)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {  // 32 bytes big-endian: limb 3 first
+    for (int j = 0; j < 4; ++j) {
       const int k = 3 - j;
-      payload[1 + j] =
-          bswap64((u64)cb0.v[2 * k] | ((u64)cb0.v[2 * k + 1] << 32));
-      payload[5 + j] =
-          bswap64((u64)cb2.v[2 * k] | ((u64)cb2.v[2 * k + 1] << 32));
+      words[1 + 4 * t + j] =
+          bswap64((u64)cb.v[2 * k] | ((u64)cb.v[2 * k + 1] << 32));
     }
-    u64 st[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) st[i] = state[i];
+    if (t == 0) words[0] = 0x01796c6f50696e55ull;
+  }
+  __syncthreads();
+  TAIL_STAMP(3)
+  if (t < 4) {  // the transcript on four lanes: lane t holds state word t
+    u64 st = state[t];
     const u32 n = (u32)state[4];
-    transcript_absorb_long(st, n, payload, 9);
-    transcript_squeeze(st, n + 1);
+    transcript_step_x4(st, n, words, 9, words + 9);  // the long absorb
+    transcript_step_x4(st, n + 1, words, 0, words + 9);  // the squeeze
+    TAIL_STAMP(4)
+    state[t] = st;
+    const u64 st1 = __shfl_sync(0xfu, st, 1);
+    if (t == 0) {
+      state[4] = n + 2;
+      // digest bytes 0..15 little-endian, masked to 125 bits, times
+      // 2^-128: in Montgomery form, the masked value times 2^384 mod r
+      Fr ch = fr_zero();
+      ch.v[0] = (u32)st;
+      ch.v[1] = (u32)(st >> 32);
+      ch.v[2] = (u32)st1;
+      ch.v[3] = (u32)(st1 >> 32) & 0x1fffffffu;
+      Fr two384;  // 2^384 mod r
+      constexpr u32 T384[8] = {0xef8cfeb9u, 0xb075da81u, 0xa5b6cd8cu,
+                               0xa7f12accu, 0x7957bf7bu, 0x32c47504u,
+                               0x48ffa25eu, 0x03d581d7u};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) state[i] = st[i];
-    state[4] = n + 2;
-    // digest bytes 0..15 little-endian, masked to 125 bits, times 2^-128:
-    // in Montgomery form, the masked value times 2^384 mod r
-    Fr ch = fr_zero();
-    ch.v[0] = (u32)st[0];
-    ch.v[1] = (u32)(st[0] >> 32);
-    ch.v[2] = (u32)st[1];
-    ch.v[3] = (u32)(st[1] >> 32) & 0x1fffffffu;
-    Fr two384;  // 2^384 mod r
-    constexpr u32 T384[8] = {0xef8cfeb9u, 0xb075da81u, 0xa5b6cd8cu,
-                             0xa7f12accu, 0x7957bf7bu, 0x32c47504u,
-                             0x48ffa25eu, 0x03d581d7u};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) two384.v[j] = T384[j];
-    c_shared = fr_mul(ch, two384);
-    store_fr(c_out, 0, c_shared);
+      for (int j = 0; j < 8; ++j) two384.v[j] = T384[j];
+      c_shared = fr_mul(ch, two384);
+      store_fr(c_out, 0, c_shared);
+      TAIL_STAMP(5)
+    }
   }
   __syncthreads();
   if (t < lanes) {
@@ -208,31 +287,29 @@ __global__ void reduction_tail_kernel(
       store_fr(Q, t, load_fr(qinit, t));
     }
   }
+  TAIL_STAMP(6)
 }
 
-// n independent transcript steps: squeeze (np = 0), absorb (np = 4) or a
-// long absorb (any other np) of states[i] at n_rounds[i] with payload
-// words payload[i * np ..]
-__global__ void blake2b_transcript_kernel(const u64* __restrict__ states,
-                                          const int64_t* __restrict__ n_rounds,
-                                          const u64* __restrict__ payload,
-                                          int np, int64_t n,
-                                          u64* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  u64 st[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) st[k] = states[4 * i + k];
-  const u32 nr = (u32)n_rounds[i];
-  if (np == 0) {
-    transcript_squeeze(st, nr);
-  } else if (np == 4) {
-    transcript_absorb(st, nr, payload + 4 * i);
-  } else {
-    transcript_absorb_long(st, nr, payload + (int64_t)np * i, np);
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) out[4 * i + k] = st[k];
+constexpr int TRANSCRIPT_THREADS = 128;  // four a transcript
+
+// n independent transcript steps, each on four lanes (transcript_step_x4,
+// as kernel 6 runs it): a squeeze (np = 0), an absorb (np = 4) or a long
+// absorb (any other np) of states[i] at n_rounds[i] with payload words
+// payload[i * np ..]
+__global__ void __launch_bounds__(TRANSCRIPT_THREADS)
+    blake2b_transcript_kernel(const u64* __restrict__ states,
+                              const int64_t* __restrict__ n_rounds,
+                              const u64* __restrict__ payload, int np,
+                              int64_t n, u64* __restrict__ out) {
+  __shared__ u64 blocks[TRANSCRIPT_THREADS / 4][16];
+  const int64_t i =
+      ((int64_t)blockIdx.x * TRANSCRIPT_THREADS + threadIdx.x) >> 2;
+  if (i >= n) return;  // a whole group of four
+  const int q = threadIdx.x & 3;
+  u64 st = states[4 * i + q];
+  transcript_step_x4(st, (u32)n_rounds[i], payload + (int64_t)np * i, np,
+                     blocks[threadIdx.x >> 2]);
+  out[4 * i + q] = st;
 }
 
 }  // namespace jolt
@@ -259,14 +336,15 @@ extern "C" int jolt_reduction_bind(const void* buf, const void* init,
   return (int)cudaGetLastError();
 }
 
-// partials[s * bpl + b] = the sum of chunk b (Q0_THREADS * Q0_PER_THREAD
-// = 2048 elements) of lane s's q(0) terms, for s < lanes; buf holds the
-// lanes in segments of 2^lg (lg >= 1); bpl = the chunks of a lane's half;
-// lanep as the kernel's.
+// out[s] = lane s's q(0) (the sum over its lower half of its terms), for
+// s < lanes; buf holds the lanes in segments of 2^lg (lg >= 1); bpl = the
+// blocks of a lane's half (chunks of Q0_THREADS * Q0_PER_THREAD); partials
+// (lanes * bpl rows) is scratch where bpl > 1, and counters (lanes u32) are
+// zero, as every launch leaves them; lanep as the kernel's.
 extern "C" int jolt_reduction_q0(const void* buf, const void* tab,
                                  const void* lanep, void* partials,
-                                 int64_t lanes, int lg, int64_t bpl,
-                                 void* stream) {
+                                 void* counters, void* out, int64_t lanes,
+                                 int lg, int64_t bpl, void* stream) {
   using jolt::u64;
   if (lanes <= 0) return 0;
   constexpr int64_t chunk = jolt::Q0_THREADS * jolt::Q0_PER_THREAD;
@@ -275,35 +353,35 @@ extern "C" int jolt_reduction_q0(const void* buf, const void* tab,
   jolt::reduction_q0_kernel<<<(unsigned)(lanes * bpl), jolt::Q0_THREADS, 0,
                               (cudaStream_t)stream>>>(
       (const u64*)buf, (const u64*)tab, (const int64_t*)lanep,
-      (u64*)partials, lg, bpl);
+      (u64*)partials, (unsigned*)counters, (u64*)out, lg, bpl);
   return (int)cudaGetLastError();
 }
 
 // One round's message, transcript step and challenge over `lanes` lanes
-// (at most 1024), the first `joined` of them joined; Q and es advance in
-// place, state (5 u64) too; c_out gets the challenge, msg (2 elements) b0
-// and b2.
-extern "C" int jolt_reduction_tail(const void* partials, int64_t bpl,
-                                   int64_t joined, int64_t lanes, void* Q,
-                                   void* es, const void* qinit,
-                                   const void* coeff, const void* l0,
-                                   const void* l1, const void* inv_l1,
-                                   const void* const_b0, void* state,
-                                   void* c_out, void* msg, void* stream) {
+// (at most 1024), the first `joined` of them joined, from their q(0) (q0s,
+// a row a lane); Q and es advance in place, state (5 u64) too; c_out gets
+// the challenge, msg (2 elements) b0 and b2.
+extern "C" int jolt_reduction_tail(const void* q0s, int64_t joined,
+                                   int64_t lanes, void* Q, void* es,
+                                   const void* qinit, const void* coeff,
+                                   const void* l0, const void* l1,
+                                   const void* inv_l1, const void* const_b0,
+                                   void* state, void* c_out, void* msg,
+                                   void* stream) {
   using jolt::u64;
   if (lanes < 1 || lanes > jolt::TAIL_MAX_LANES || joined > lanes)
     return (int)cudaErrorInvalidValue;
   const int threads = (int)((lanes + 31) / 32 * 32);
   jolt::reduction_tail_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      (const u64*)partials, bpl, joined, lanes, (u64*)Q, (u64*)es,
-      (const u64*)qinit, (const u64*)coeff, (const u64*)l0, (const u64*)l1,
-      (const u64*)inv_l1, (const u64*)const_b0, (u64*)state, (u64*)c_out,
-      (u64*)msg);
+      (const u64*)q0s, joined, lanes, (u64*)Q, (u64*)es, (const u64*)qinit,
+      (const u64*)coeff, (const u64*)l0, (const u64*)l1, (const u64*)inv_l1,
+      (const u64*)const_b0, (u64*)state, (u64*)c_out, (u64*)msg);
   return (int)cudaGetLastError();
 }
 
 // out[i] (4 u64) = the transcript state after one step on states[i] (4
-// u64) at n_rounds[i] (int64) with np payload words each, for i < n.
+// u64) at n_rounds[i] (int64) with np payload words each, for i < n (four
+// threads a transcript).
 extern "C" int jolt_blake2b_transcript(const void* states,
                                        const void* n_rounds,
                                        const void* payload, int np, int64_t n,
@@ -311,9 +389,10 @@ extern "C" int jolt_blake2b_transcript(const void* states,
   using jolt::u64;
   if (n <= 0) return 0;
   if (np < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  jolt::blake2b_transcript_kernel<<<(unsigned)((n + threads - 1) / threads),
-                                    threads, 0, (cudaStream_t)stream>>>(
+  const int64_t per = jolt::TRANSCRIPT_THREADS / 4;
+  jolt::blake2b_transcript_kernel<<<(unsigned)((n + per - 1) / per),
+                                    jolt::TRANSCRIPT_THREADS, 0,
+                                    (cudaStream_t)stream>>>(
       (const u64*)states, (const int64_t*)n_rounds, (const u64*)payload, np,
       n, (u64*)out);
   return (int)cudaGetLastError();

@@ -119,22 +119,6 @@ __device__ __forceinline__ void sts_fr(uint4* row, int p, int tile,
   row[tile + p] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
 }
 
-// a load of data other blocks of this launch wrote (through L2, not L1)
-__device__ __forceinline__ Fr ldcg_fr(const u64* base, int64_t i) {
-  const uint4* q = reinterpret_cast<const uint4*>(base + 4 * i);
-  const uint4 lo = __ldcg(q), hi = __ldcg(q + 1);
-  Fr r;
-  r.v[0] = lo.x;
-  r.v[1] = lo.y;
-  r.v[2] = lo.z;
-  r.v[3] = lo.w;
-  r.v[4] = hi.x;
-  r.v[5] = hi.y;
-  r.v[6] = hi.z;
-  r.v[7] = hi.w;
-  return r;
-}
-
 // shared bytes of a launch: e and d of P rows, w, the slices' sums (rows of
 // `tile`), and one sum a point of the group and warp of the first slice
 __host__ __device__ inline int64_t rows_points_smem(int P, int slices,

@@ -185,8 +185,8 @@ SIGNATURES = {
     "jolt_bucket_combine": [_VP] * 3 + [_I64, _CI, _CI, _I64, _CI, _CI]
     + [_VP] * 7,
     "jolt_reduction_bind": [_VP] * 5 + [_I64, _I64, _CI, _VP],
-    "jolt_reduction_q0": [_VP] * 4 + [_I64, _CI, _I64, _VP],
-    "jolt_reduction_tail": [_VP, _I64, _I64, _I64] + [_VP] * 12,
+    "jolt_reduction_q0": [_VP] * 6 + [_I64, _CI, _I64, _VP],
+    "jolt_reduction_tail": [_VP, _I64, _I64] + [_VP] * 12,
     "jolt_blake2b_transcript": [_VP] * 3 + [_CI, _I64, _VP, _VP],
     "jolt_rows_points": [_VP, _I64, _CI, _CI] + [_VP] * 5 + [_CI, _VP, _I64,
                                                               _I64, _CI, _I64,

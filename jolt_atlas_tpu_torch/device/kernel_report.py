@@ -56,23 +56,24 @@ def _kernel_name(symbol: str) -> str:
 
 
 def parse_ptxas(text: str) -> dict:
-    """{kernel: {"registers", "spill_stores", "spill_loads", "smem"}} from
-    ptxas -v output."""
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads",
+    "smem"}} from ptxas -v output (stack: the bytes of its stack frame)."""
     out: dict = {}
     cur = None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             cur = out.setdefault(_kernel_name(m.group(1)), {
-                "registers": None, "spill_stores": 0, "spill_loads": 0,
-                "smem": 0})
+                "registers": None, "stack": 0, "spill_stores": 0,
+                "spill_loads": 0, "smem": 0})
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
@@ -105,31 +106,87 @@ def ptxas(csrc: str, defines: tuple = ()) -> dict:
 _SASS_INSN = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);")
 
 
+def sass_functions(text: str) -> dict:
+    """{kernel: [instruction text, ...]} from cuobjdump -sass output,
+    addresses and encodings left out."""
+    out: dict = {}
+    insns = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            insns = out.setdefault(_kernel_name(m.group(1)), [])
+            continue
+        m = _SASS_INSN.match(line)
+        if m and insns is not None:
+            insns.append(" ".join(m.group(1).split()))
+    return out
+
+
 def parse_sass(text: str) -> dict:
     """{kernel: {"instructions", "digest"}} from cuobjdump -sass output:
     the digest hashes each instruction's text (addresses and encodings
     left out)."""
-    out: dict = {}
-    name, insns = None, []
+    return {name: {"instructions": len(insns),
+                   "digest": hashlib.sha256(
+                       "\n".join(insns).encode()).hexdigest()[:16]}
+            for name, insns in sass_functions(text).items()}
 
-    def close():
-        if name is not None:
-            out[_kernel_name(name)] = {
-                "instructions": len(insns),
-                "digest": hashlib.sha256(
-                    "\n".join(insns).encode()).hexdigest()[:16]}
 
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            close()
-            name, insns = m.group(1), []
-            continue
-        m = _SASS_INSN.match(line)
-        if m and name is not None:
-            insns.append(" ".join(m.group(1).split()))
-    close()
+_NO_DEST = ("ST", "RED", "BAR", "BRA", "EXIT", "RET", "BSYNC", "BSSY",
+            "WARPSYNC", "CALL", "NOP", "MEMBAR", "FENCE", "CCTL", "DEPBAR",
+            "JMP", "YIELD", "ERRBAR")
+_REG = re.compile(r"\b(U?R)(\d+)(\.64)?\b|\b(U?P)(\d)\b")
+
+
+def _regs(operand: str, width: int = 1) -> list:
+    """The registers an operand names (R2.64 is R2 and R3; PT, RZ none)."""
+    out = []
+    for m in _REG.finditer(operand):
+        if m.group(1):
+            n = int(m.group(2))
+            w = 2 if m.group(3) else width
+            out += [f"{m.group(1)}{n + k}" for k in range(w)]
+        else:
+            out.append(f"{m.group(4)}{m.group(5)}")
     return out
+
+
+def chain_length(insns: list) -> int:
+    """The longest chain of dependent instructions in straight-line SASS
+    (each instruction one step after the latest writer of any register or
+    predicate it reads, a shared-memory load one step after the latest
+    shared-memory store): the fewest dependent issues the code needs.
+    Branches are read as straight-line code, so give it code without
+    them."""
+    depth: dict = {}
+    longest = 0
+    for ins in insns:
+        guard = []
+        if ins.startswith("@"):
+            g, ins = ins.split(None, 1)
+            guard = _regs(g)
+        op, _, args = ins.partition(" ")
+        ops = [a.strip() for a in args.split(",")] if args else []
+        nd = 0
+        if ops and not op.startswith(_NO_DEST):
+            nd = 1  # the first operand, then any carry-out predicates
+            while nd < len(ops) and re.fullmatch(r"U?P[T\d]", ops[nd]):
+                nd += 1
+            if op.startswith("SHFL"):  # SHFL Pout, Rout, ...
+                nd = 2
+        width = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) \
+            else 1
+        dests = [r for o in ops[:nd] for r in _regs(o, width)]
+        srcs = guard + [r for o in ops[nd:] for r in _regs(o)]
+        if op.startswith("LDS"):
+            srcs.append("smem")
+        d = 1 + max((depth.get(r, 0) for r in srcs), default=0)
+        for r in dests:
+            depth[r] = d
+        if op.startswith("STS"):
+            depth["smem"] = max(depth.get("smem", 0), d)
+        longest = max(longest, d)
+    return longest
 
 
 def sass(csrc: str, defines: tuple = ()) -> dict:
@@ -174,6 +231,151 @@ def fq_mul_sass(csrc: str) -> dict:
             "registers": parse_ptxas(log).get("fq_mul_probe", {}).get(
                 "registers"),
             "top": dict(ops.most_common(8))}
+
+
+# The serial work of one round of kernel 6 that no lane can share, as
+# straight-line code of the same device functions on the same four lanes:
+# one lane's message terms (l0 q0, q1, (l1 - l0)(q1 - q0) weighted by coeff
+# and es), one canonical conversion and its payload words, the round
+# message's long absorb (two compressions) and the squeeze, the challenge
+# product and one lane's update of Q and es. Its block sums and the latency
+# of its loads are left out, so its chain is a part of the kernel's
+# critical path.
+_TAIL_PATH_PROBE = r"""
+#include "fq.cuh"
+#include "blake2b.cuh"
+using namespace jolt;
+extern "C" __global__ void tail_path_probe(const u64* in, u64* out) {
+  __shared__ u64 words[9 + 16];
+  const int t = threadIdx.x & 3;
+  const Fr q0 = load_fr(in, 0), l0 = load_fr(in, 1), es = load_fr(in, 2);
+  const Fr l0q0 = fr_mul(l0, q0);
+  const Fr q1 = fr_mul(fr_sub(load_fr(in, 3), l0q0), load_fr(in, 4));
+  const Fr dq = fr_sub(q1, q0), dl = fr_sub(load_fr(in, 5), l0);
+  const Fr b = fr_mul(load_fr(in, 6), fr_mul(es, fr_mul(dl, dq)));
+  Fr one = fr_zero();
+  one.v[0] = 1;
+  const Fr cb = fr_mul(b, one);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 3 - j;
+    words[1 + 4 * (t & 1) + j] =
+        bswap64((u64)cb.v[2 * k] | ((u64)cb.v[2 * k + 1] << 32));
+  }
+  words[0] = 0x01796c6f50696e55ull;
+  __syncwarp(0xfu);
+  u64 st = in[32 + t];
+  const u32 n = (u32)in[36];
+  transcript_step_x4(st, n, words, 9, words + 9);
+  transcript_step_x4(st, n + 1, words, 0, words + 9);
+  const u64 st1 = __shfl_sync(0xfu, st, 1);
+  Fr ch = fr_zero();
+  ch.v[0] = (u32)st;
+  ch.v[1] = (u32)(st >> 32);
+  ch.v[2] = (u32)st1;
+  ch.v[3] = (u32)(st1 >> 32) & 0x1fffffffu;
+  const Fr c = fr_mul(ch, load_fr(in, 7));
+  store_fr(out, 2 * t, fr_add(q0, fr_mul(dq, c)));
+  store_fr(out, 2 * t + 1, fr_mul(es, fr_add(l0, fr_mul(dl, c))));
+}
+"""
+
+
+def tail_path_chain(csrc: str) -> dict:
+    """The serial work of one kernel 6 round (``_TAIL_PATH_PROBE``,
+    compiled against csrc's headers): its SASS instructions up to EXIT, its
+    longest dependent chain (``chain_length``) and its branches (0 for the
+    chain to be exact)."""
+    nvcc = build.nvcc_path()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cu")
+        with open(src, "w") as f:
+            f.write(_TAIL_PATH_PROBE)
+        cubin = os.path.join(tmp, "probe.cubin")
+        _run([nvcc, *ARCH, "-I", csrc, "-cubin", src, "-o", cubin])
+        insns = sass_functions(_run([cuobjdump, "-sass", cubin]))[
+            "tail_path_probe"]
+    body = insns[:insns.index("EXIT")] if "EXIT" in insns else insns
+    return {"instructions": len(body), "chain": chain_length(body),
+            "branches": sum(i.lstrip("@!P0123456T ").startswith("BRA")
+                            for i in body)}
+
+
+# Dependent-issue latency of the integer pipe: one thread runs a chain of
+# n steps and times it with clock64. Kind 0: x = rotl(x + y, 7), a 3-input
+# add and a funnel shift a step (BLAKE2b's mixes; the two cannot fuse);
+# kind 1: x = x * x + y, one IMAD a step (the field products).
+_CHAIN_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void chain_probe(unsigned long long* out, unsigned x, unsigned y,
+                            int n, int kind) {
+  const long long t0 = clock64();
+  if (kind == 0) {
+    for (int i = 0; i < n; ++i) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        asm volatile("add.u32 %0, %0, %1;\n\tshf.l.wrap.b32 %0, %0, %0, 7;"
+                     : "+r"(x) : "r"(y));
+    }
+  } else {
+    for (int i = 0; i < n; ++i) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        asm volatile("mad.lo.u32 %0, %0, %0, %1;" : "+r"(x) : "r"(y));
+    }
+  }
+  const long long t1 = clock64();
+  out[0] = (unsigned long long)(t1 - t0);
+  out[1] = x;
+}
+extern "C" int jolt_chain_probe(void* out, unsigned x, unsigned y, int n,
+                                int kind) {
+  chain_probe<<<1, 1>>>((unsigned long long*)out, x, y, n, kind);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def probe_library(source: str, csrc: str, tmp: str, defines: tuple = ()):
+    """``source`` built with nvcc (sm_90a, csrc on the include path) into a
+    shared library under ``tmp``, loaded with ctypes."""
+    import ctypes
+    src = os.path.join(tmp, "probe.cu")
+    with open(src, "w") as f:
+        f.write(source)
+    lib = os.path.join(tmp, "libprobe.so")
+    _run([build.nvcc_path(), *ARCH, *defines, "-shared", "-Xcompiler",
+          "-fPIC", "-I", csrc, src, "-o", lib])
+    return ctypes.CDLL(lib)
+
+
+def int_latency(steps: int = 4096) -> dict:
+    """Cycles a dependent step of each ``_CHAIN_PROBE`` chain takes on the
+    current CUDA device ("add_shf" two instructions a step, "imad" one),
+    and the least cycles of one dependent integer instruction of the two
+    ("per_instruction")."""
+    import ctypes
+    import torch
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = probe_library(_CHAIN_PROBE, build.CUDA_SRC, tmp)
+        f = lib.jolt_chain_probe
+        f.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint,
+                      ctypes.c_int, ctypes.c_int]
+        res = {}
+        for kind, name, per in ((0, "add_shf", 2), (1, "imad", 1)):
+            cyc = []
+            for _ in range(3):  # the first launch loads the module
+                if f(out.data_ptr(), 3, 5, steps // 32, kind):
+                    raise RuntimeError("chain probe launch failed")
+                torch.cuda.synchronize()
+                cyc.append(int(out[0]))
+            res[name] = min(cyc) / steps
+            res[name + "_per_instruction"] = res[name] / per
+    res["per_instruction"] = min(res["add_shf_per_instruction"],
+                                 res["imad_per_instruction"])
+    return res
 
 
 def report(csrc: str, defines: tuple = ()) -> dict:

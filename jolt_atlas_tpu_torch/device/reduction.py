@@ -18,8 +18,9 @@ card with no host synchronisation and one fetch at the end:
   (the init buffer, the one large copy);
 - per round three kernels (csrc/reduction.cu): kernel 4 ``bind`` binds the
   continuing lanes at the previous challenge and brings in the joining
-  ones; kernel 5 ``q0`` sums each lane's q(0) terms into per-block
-  partials; kernel 6 ``tail`` forms the batched round message, runs the
+  ones; kernel 5 ``q0`` sums each lane's q(0) terms (lazily reduced
+  sums of products, the lane's blocks folded on the card) into one q(0) a
+  lane; kernel 6 ``tail`` forms the batched round message, runs the
   Fiat-Shamir step on the card (csrc/blake2b.cuh) and advances each lane's
   claim and eq scalar at the new challenge; then one last bind;
 - one fetch: every round message and challenge, the transcript state, the
@@ -64,7 +65,7 @@ from . import blake2b, telemetry
 from .field import FR, NLIMBS, from_planes, int_to_limbs64, to_planes
 
 Q0_THREADS = 256       # csrc/reduction.cu
-Q0_PER_THREAD = 8      # terms a thread of kernel 5 sums
+Q0_PER_THREAD = 16     # terms a thread of kernel 5 sums
 TAIL_MAX_LANES = 1024  # one block of kernel 6
 SIZE_FLOOR = 1 << 21   # the reference's floor (tpu/reduction.py:328)
 ABSENT_SHIFT = 62      # j >> 62 = 0: a lane without a whi table
@@ -213,12 +214,10 @@ def q0_blocks(lg: int) -> int:
 
 
 def q0_plain(buf, tab, lanep, lanes: int, lg: int) -> torch.Tensor:
-    """Partial sums of q(0) = sum_j whi[j >> shift] wlo[j & mask] lo[j]
-    over each lane's lower half, one a chunk of Q0_THREADS * Q0_PER_THREAD
-    terms (the kernel's blocks): (lanes * bpl, 4)."""
+    """q(0) = sum_j whi[j >> shift] wlo[j & mask] lo[j] over each lane's
+    lower half: (lanes, 4), the reference's per-lane lazy limb sums
+    reduced mod r."""
     half = 1 << (lg - 1)
-    bpl = q0_blocks(lg)
-    chunk = Q0_THREADS * Q0_PER_THREAD
     device = buf.device
     j = torch.arange(half, dtype=torch.int64, device=device)
     lp = lanep[:lanes]
@@ -227,17 +226,29 @@ def q0_plain(buf, tab, lanep, lanes: int, lg: int) -> torch.Tensor:
     lo = buf[:lanes << lg].reshape(lanes, 2, half, 4)[:, 0]
     w = FR.mul(_planes(tab[whi.reshape(-1)]), _planes(tab[wlo.reshape(-1)]))
     p = FR.mul(w, _planes(lo)).reshape(NLIMBS, lanes, half)
-    if bpl > 1:
-        pad = bpl * chunk - half
-        if pad:
-            p = torch.cat([p, p.new_zeros((NLIMBS, lanes, pad))], 2)
-        p = p.reshape(NLIMBS, lanes * bpl, chunk)
     return from_planes(FR.sum(p))
 
 
+_COUNTERS: dict = {}
+
+
+def _counters(device, lanes: int) -> torch.Tensor:
+    """Kernel 5's per-lane ticket counters on a CUDA device, made at its
+    first launch and grown to ``lanes``: u32, zero between launches (each
+    lane's last block resets its own). Launches that share them run on one
+    stream."""
+    k = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if k not in _COUNTERS or _COUNTERS[k].shape[0] < lanes:
+        _COUNTERS[k] = torch.zeros(max(lanes, TAIL_MAX_LANES),
+                                   dtype=torch.int32,
+                                   device=torch.device("cuda", k))
+    return _COUNTERS[k]
+
+
 def q0(buf, tab, lanep, lanes: int, lg: int) -> torch.Tensor:
-    """Kernel 5 on CUDA tensors, its plain version on CPU ones: the
-    (lanes * q0_blocks(lg), 4) partials."""
+    """Kernel 5 on CUDA tensors, its plain version on CPU ones: each lane's
+    q(0), (lanes, 4)."""
     device = buf.device
     _check("q0 buf", buf, device)
     _check("q0 tab", tab, device)
@@ -255,13 +266,17 @@ def q0(buf, tab, lanep, lanes: int, lg: int) -> torch.Tensor:
         raise ValueError(f"q0: no kernel for device {device}")
     from . import build
     bpl = q0_blocks(lg)
-    out = torch.empty((lanes * bpl, 4), dtype=torch.int64, device=device)
+    out = torch.empty((lanes, 4), dtype=torch.int64, device=device)
     if lanes:
+        part = torch.empty((lanes * bpl if bpl > 1 else 0, 4),
+                           dtype=torch.int64, device=device)
+        counters = _counters(device, lanes)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = build.cuda_library().jolt_reduction_q0(
                 buf.data_ptr(), tab.data_ptr(), lanep.data_ptr(),
-                out.data_ptr(), lanes, lg, bpl, stream)
+                part.data_ptr(), counters.data_ptr(), out.data_ptr(), lanes,
+                lg, bpl, stream)
         if rc != 0:
             raise RuntimeError(f"reduction_q0 kernel launch failed: CUDA "
                                f"error {rc}")
@@ -278,10 +293,10 @@ def q0_case(lg: int) -> int:
 # kernel 6: the round's message, transcript step and challenge
 # ---------------------------------------------------------------------------
 
-def tail_plain(partials, bpl: int, joined: int, Q, es, qinit, coeff, l0,
-               l1, inv_l1, const_b0, state) -> tuple:
-    """(Q', es', state', c, msg): lanes < joined take q(0) from their bpl
-    partials and q(1) = (Q - l0 q0) / l1; b0 = sum coeff es l0 q0 +
+def tail_plain(q0s, joined: int, Q, es, qinit, coeff, l0, l1, inv_l1,
+               const_b0, state) -> tuple:
+    """(Q', es', state', c, msg): lanes < joined take their q(0) from q0s
+    and q(1) = (Q - l0 q0) / l1; b0 = sum coeff es l0 q0 +
     const_b0 and b2 = sum coeff es (l1 - l0)(q1 - q0) over them (msg); the
     transcript absorbs "UniPoly\\x01" || b0 || b2 and squeezes the
     challenge c (125 bits, times 2^-128); each joined lane's Q becomes
@@ -291,7 +306,7 @@ def tail_plain(partials, bpl: int, joined: int, Q, es, qinit, coeff, l0,
     Qn, esn = qinit.clone(), es.clone()
     zero = torch.zeros((NLIMBS, 1), dtype=torch.int64, device=device)
     if J:
-        q0v = FR.sum(_planes(partials[:J * bpl]).reshape(NLIMBS, J, bpl))
+        q0v = _planes(q0s[:J])
         lz, l1z = _planes(l0[:J]), _planes(l1[:J])
         esz = _planes(es[:J])
         l0q0 = FR.mul(lz, q0v)
@@ -326,14 +341,15 @@ def tail_plain(partials, bpl: int, joined: int, Q, es, qinit, coeff, l0,
     return Qn, esn, new_state, c, msg
 
 
-def tail(partials, bpl: int, joined: int, Q, es, qinit, coeff, l0, l1,
-         inv_l1, const_b0, state, c_out, msg_out) -> None:
-    """Kernel 6 on CUDA tensors, its plain version on CPU ones. Q, es and
-    state (5: four transcript words, then n_rounds) advance in place;
-    c_out (1, 4) takes the challenge, msg_out (2, 4) b0 and b2."""
+def tail(q0s, joined: int, Q, es, qinit, coeff, l0, l1, inv_l1, const_b0,
+         state, c_out, msg_out) -> None:
+    """Kernel 6 on CUDA tensors, its plain version on CPU ones: q0s holds
+    a q(0) a joined lane (kernel 5's output). Q, es and state (5: four
+    transcript words, then n_rounds) advance in place; c_out (1, 4) takes
+    the challenge, msg_out (2, 4) b0 and b2."""
     device = Q.device
     lanes = Q.shape[0]
-    for what, t, rows in (("partials", partials, None), ("Q", Q, lanes),
+    for what, t, rows in (("q0s", q0s, None), ("Q", Q, lanes),
                           ("es", es, lanes), ("qinit", qinit, lanes),
                           ("coeff", coeff, lanes), ("l0", l0, lanes),
                           ("l1", l1, lanes), ("inv_l1", inv_l1, lanes),
@@ -344,12 +360,12 @@ def tail(partials, bpl: int, joined: int, Q, es, qinit, coeff, l0, l1,
             state.device != device):
         raise ValueError("tail state: int64 (5,) tensor expected")
     if not 0 <= joined <= lanes <= TAIL_MAX_LANES or (
-            partials.shape[0] < joined * bpl):
+            q0s.shape[0] < joined):
         raise ValueError(f"tail: {joined} joined of {lanes} lanes (at most "
-                         f"{TAIL_MAX_LANES}), {bpl} partials a lane")
+                         f"{TAIL_MAX_LANES}), {q0s.shape[0]} q(0) rows")
     if device.type == "cpu":
-        outs = tail_plain(partials, bpl, joined, Q, es, qinit, coeff, l0,
-                          l1, inv_l1, const_b0, state)
+        outs = tail_plain(q0s, joined, Q, es, qinit, coeff, l0, l1, inv_l1,
+                          const_b0, state)
         for dst, src in zip((Q, es, state, c_out, msg_out), outs):
             dst.copy_(src)
         return
@@ -361,7 +377,7 @@ def tail(partials, bpl: int, joined: int, Q, es, qinit, coeff, l0, l1,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = build.cuda_library().jolt_reduction_tail(
-            partials.data_ptr(), bpl, joined, lanes, Q.data_ptr(),
+            q0s.data_ptr(), joined, lanes, Q.data_ptr(),
             es.data_ptr(), qinit.data_ptr(), coeff.data_ptr(), l0.data_ptr(),
             l1.data_ptr(), inv_l1.data_ptr(), const_b0.data_ptr(),
             state.data_ptr(), c_out.data_ptr(), msg_out.data_ptr(), stream)
@@ -505,8 +521,8 @@ def run_rounds(plan: Plan, init, state_words, n_rounds: int, device):
                 plan.rounds):
             telemetry.count("reduction", 3)  # bind + q0 + tail
             buf = bind(buf, init, cs[r:r + 1], init_off, j_prev, joined, lg)
-            part = q0(buf, elems[t0:t1], ints[p0:p1], joined, lg)
-            tail(part, q0_blocks(lg), joined, Q, es, qinit, coeff,
+            q = q0(buf, elems[t0:t1], ints[p0:p1], joined, lg)
+            tail(q, joined, Q, es, qinit, coeff,
                  elems[sc:sc + L], elems[sc + L:sc + 2 * L],
                  elems[sc + 2 * L:sc + 3 * L],
                  elems[sc + 3 * L:sc + 3 * L + 1], state, cs[r + 1:r + 2],
@@ -714,9 +730,9 @@ def random_round(device, gen: np.random.Generator, j_prev: int, lanes: int,
             "tab": tab, "lanep": torch.from_numpy(lanep).to(device)}
 
 
-def random_tail(device, gen: np.random.Generator, lanes: int, joined: int,
-                bpl: int) -> dict:
-    """Inputs of one tail launch: random partials, claims, eq scalars and
+def random_tail(device, gen: np.random.Generator, lanes: int,
+                joined: int) -> dict:
+    """Inputs of one tail launch: random q(0)s, claims, eq scalars and
     coefficients; lane 0 has l1 = 0 (1/l1 given as 0), lane 1 has l0 = 0;
     lanes past ``joined`` are unjoined, the padding lanes have coefficient
     and claim 0."""
@@ -733,7 +749,7 @@ def random_tail(device, gen: np.random.Generator, lanes: int, joined: int,
     coeff[pad:] = 0
     qinit[pad:] = 0
     words = gen.integers(-(1 << 63), (1 << 63) - 1, size=4, dtype=np.int64)
-    return {"partials": rows(max(joined * bpl, 1)), "Q": rows(lanes),
+    return {"q0s": rows(max(joined, 1)), "Q": rows(lanes),
             "es": rows(lanes), "qinit": qinit, "coeff": coeff, "l0": l0,
             "l1": l1, "inv_l1": inv, "const_b0": rows(1),
             "state": torch.tensor(

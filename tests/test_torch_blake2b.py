@@ -127,3 +127,79 @@ def test_step_rejects_bad_inputs():
     with pytest.raises(ValueError):
         B.transcript_absorb_plain(states, torch.zeros(2, dtype=torch.int64),
                                   torch.zeros((2, 5), dtype=torch.int64))
+
+
+def _cuh_array(name: str) -> list[int]:
+    import os
+    import re
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "jolt_atlas_tpu_torch", "csrc", "blake2b.cuh")
+    m = re.search(name + r"\[\d+\] = \{([^}]*)\}", open(path).read())
+    return [int(x.strip().rstrip("ul"), 16) for x in m.group(1).split(",")]
+
+
+def _x4_compress(h, m, t, last):
+    """csrc/blake2b.cuh's blake2b_compress_x4 lane by lane: lane q runs
+    column q's mix, the diagonal mixes take b, c, d from lanes q + 1, q + 2,
+    q + 3 (b2_sigma's packed rows name each lane's message words)."""
+    M = (1 << 64) - 1
+    rotr = lambda x, n: ((x >> n) | (x << (64 - n))) & M
+    sig = _cuh_array("S")
+    lanes = [[h[q], h[4 + q], B.IV[q], B.IV[4 + q]] for q in range(4)]
+    lanes[0][3] ^= t
+    if last:
+        lanes[2][3] ^= M
+
+    def g(v, x, y):
+        a, b, c, d = v
+        a = (a + b + x) & M
+        d = rotr(d ^ a, 32)
+        c = (c + d) & M
+        b = rotr(b ^ c, 24)
+        a = (a + b + y) & M
+        d = rotr(d ^ a, 16)
+        c = (c + d) & M
+        b = rotr(b ^ c, 63)
+        return [a, b, c, d]
+
+    def shfl(k, offs):  # component k of lane q from lane q + offs
+        return [lanes[(q + offs) % 4][k] for q in range(4)]
+    for r in range(12):
+        s = sig[r]
+        nib = lambda i: (s >> (4 * i)) & 15
+        lanes = [g(lanes[q], m[nib(2 * q)], m[nib(2 * q + 1)])
+                 for q in range(4)]
+        b, c, d = shfl(1, 1), shfl(2, 2), shfl(3, 3)
+        lanes = [[lanes[q][0], b[q], c[q], d[q]] for q in range(4)]
+        lanes = [g(lanes[q], m[nib(8 + 2 * q)], m[nib(9 + 2 * q)])
+                 for q in range(4)]
+        b, c, d = shfl(1, 3), shfl(2, 2), shfl(3, 1)
+        lanes = [[lanes[q][0], b[q], c[q], d[q]] for q in range(4)]
+    return ([h[q] ^ lanes[q][0] ^ lanes[q][2] for q in range(4)]
+            + [h[4 + q] ^ lanes[q][1] ^ lanes[q][3] for q in range(4)])
+
+
+@pytest.mark.parametrize("last", [False, True])
+def test_four_lane_compression_schedule(last):
+    """The packed SIGMA rows and the four-lane schedule of the card's
+    compression (one mix a lane, shuffles for the diagonals) give
+    BLAKE2b's compression: against hashlib's digest of one block."""
+    assert [[(s >> (4 * i)) & 15 for i in range(16)]
+            for s in _cuh_array("S")] == [B.SIGMA[r % 10] for r in range(12)]
+    assert _cuh_array("IV") == B.IV
+    rng = np.random.default_rng(5 + last)
+    data = rng.bytes(128 if not last else 77)
+    m = list(np.frombuffer(data.ljust(128, b"\0"), dtype="<u8").tolist())
+    h = list(B.IV)
+    h[0] ^= 0x01010020
+    if last:
+        got = _x4_compress(h, m, len(data), True)
+        assert b"".join(x.to_bytes(8, "little") for x in got[:4]) == \
+            hashlib.blake2b(data, digest_size=32).digest()
+    else:  # a first block of two: the second block finishes the digest
+        h2 = _x4_compress(h, m, 128, False)
+        tail = rng.bytes(40)
+        m2 = list(np.frombuffer(tail.ljust(128, b"\0"), dtype="<u8").tolist())
+        got = _x4_compress(h2, m2, 168, True)
+        assert b"".join(x.to_bytes(8, "little") for x in got[:4]) == \
+            hashlib.blake2b(data + tail, digest_size=32).digest()

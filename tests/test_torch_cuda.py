@@ -161,13 +161,14 @@ def test_split_msm_matches_host_on_gpu(gpu, srs):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("j_prev,lanes,lg,table", [
-    (0, 3, 4, 64), (2, 5, 3, 64), (4, 4, 2, 64), (3, 3, 13, 64),
-    (0, 12, 13, 1024), (1, 2, 1, 64)])
+    (0, 3, 4, 64), (2, 5, 3, 64), (4, 4, 2, 64), (3, 3, 14, 64),
+    (0, 12, 14, 1024), (1, 2, 1, 64)])
 def test_reduction_bind_and_q0_match_plain(gpu, j_prev, lanes, lg, table):
     """Kernels 4 and 5 against their plain versions: a first round (every
     lane joins), lanes joining late, a pure bind, lanes of several blocks
-    (2^13; with 1024 table rows, every weight layout of kernel 5) and of
-    one element's half; elements at 0, 1, r - 1, r - 2."""
+    (2^14; with 1024 table rows, every weight layout of kernel 5) and of
+    one element's half; elements at 0, 1, r - 1, r - 2. Kernel 5 twice on
+    the same inputs: its ticket counters are back at zero after a launch."""
     d = dred.random_round(gpu, np.random.default_rng(21 + lg), j_prev,
                           lanes, lg, table)
     before = telemetry.launches()
@@ -175,31 +176,59 @@ def test_reduction_bind_and_q0_match_plain(gpu, j_prev, lanes, lg, table):
                     lanes, lg)
     assert _equal([out], [dred.bind_plain(d["buf"], d["init"], d["c"],
                                           d["init_off"], j_prev, lanes, lg)])
-    part = dred.q0(out, d["tab"], d["lanep"], lanes, lg)
-    assert part.shape == (lanes * dred.q0_blocks(lg), 4)
-    assert _equal([part], [dred.q0_plain(out, d["tab"], d["lanep"], lanes,
-                                         lg)])
-    for k in ("reduction_bind", "reduction_q0"):
-        assert telemetry.launches()[k] - before.get(k, 0) == 1
+    want = dred.q0_plain(out, d["tab"], d["lanep"], lanes, lg)
+    for _ in range(2):
+        got = dred.q0(out, d["tab"], d["lanep"], lanes, lg)
+        assert got.shape == (lanes, 4)
+        assert _equal([got], [want])
+    assert telemetry.launches()["reduction_bind"] - before.get(
+        "reduction_bind", 0) == 1
+    assert telemetry.launches()["reduction_q0"] - before.get(
+        "reduction_q0", 0) == 2
 
 
-@pytest.mark.parametrize("lanes,joined,bpl", [(8, 5, 3), (256, 175, 64),
-                                              (2, 0, 1), (32, 32, 1)])
-def test_reduction_tail_matches_plain(gpu, lanes, joined, bpl):
+@pytest.mark.parametrize("lanes,lg,edge", [(6, 14, "r-1"), (1, 21, "random"),
+                                           (3, 21, "r-1")])
+def test_reduction_q0_worst_case_and_long_lane(gpu, lanes, lg, edge):
+    """Kernel 5's lazy sum at its worst case, every lo and every table
+    entry r - 1 (the largest wide sums), and lanes of 2^21 elements (512
+    partials a lane for the fold), twice each."""
+    d = dred.random_round(gpu, np.random.default_rng(lg), 0, lanes, lg, 64)
+    buf = d["init"][:lanes << lg]
+    tab = d["tab"]
+    if edge == "r-1":
+        top = torch.from_numpy(dred.mont_rows([FR_MODULUS - 1])).to(gpu)
+        buf = top.expand(lanes << lg, 4).contiguous()
+        tab = top.expand(tab.shape[0], 4).contiguous()
+    want = dred.q0_plain(buf, tab, d["lanep"], lanes, lg)
+    for _ in range(2):
+        assert _equal([dred.q0(buf, tab, d["lanep"], lanes, lg)], [want])
+
+
+@pytest.mark.parametrize("lanes,joined", [(8, 5), (256, 175), (2, 0),
+                                          (32, 32)])
+def test_reduction_tail_matches_plain(gpu, lanes, joined):
     """Kernel 6 against its plain version: unjoined and zero-padding
     lanes, l1 = 0 (1/l1 given as 0) and l0 = 0 in lanes 0 and 1."""
     d = dred.random_tail(gpu, np.random.default_rng(31 + lanes), lanes,
-                         joined, bpl)
+                         joined)
     k = {n: t.clone() for n, t in d.items()}
     c = torch.empty((1, 4), dtype=torch.int64, device=gpu)
     msg = torch.empty((2, 4), dtype=torch.int64, device=gpu)
-    dred.tail(k["partials"], bpl, joined, k["Q"], k["es"], k["qinit"],
-              k["coeff"], k["l0"], k["l1"], k["inv_l1"], k["const_b0"],
-              k["state"], c, msg)
-    want = dred.tail_plain(d["partials"], bpl, joined, d["Q"], d["es"],
-                           d["qinit"], d["coeff"], d["l0"], d["l1"],
-                           d["inv_l1"], d["const_b0"], d["state"])
+    names = ("q0s", "Q", "es", "qinit", "coeff", "l0", "l1", "inv_l1",
+             "const_b0", "state")
+    dred.tail(k["q0s"], joined, *(k[n] for n in names[1:]), c, msg)
+    want = dred.tail_plain(d["q0s"], joined, *(d[n] for n in names[1:]))
     assert _equal((k["Q"], k["es"], k["state"], c, msg), want)
+
+
+def test_serial_kernels_have_no_stack_frame(gpu):
+    """ptxas keeps kernel 6 and the BLAKE2b test kernel in registers: no
+    stack frame (the message words indexed by constants)."""
+    from jolt_atlas_tpu_torch.device import build, kernel_report
+    rep = kernel_report.parse_ptxas(build.ptxas_report())
+    for k in ("reduction_tail_kernel", "blake2b_transcript_kernel"):
+        assert rep[k]["stack"] == 0, rep[k]
 
 
 @pytest.mark.parametrize("np_words", [0, 4, 9, 16, 17])

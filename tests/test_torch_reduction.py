@@ -151,6 +151,88 @@ def test_cuda_signatures_match_sources():
     assert found == build.SIGNATURES
 
 
+def _redc_sum(T: int, n: int) -> int:
+    """csrc/fq.cuh's mont_redc_sum on a sum T of n products, step by step:
+    8 word steps of m = t N0 mod 2^32 on the low half, the high half added,
+    then the conditional subtractions (4r only for n > 15, then 2r, r)."""
+    R32, p = 1 << 32, FR_MODULUS
+    n0 = (-pow(p, -1, R32)) % R32
+    t = T % (1 << 256)
+    for _ in range(8):
+        t = (t + (t % R32) * n0 % R32 * p) >> 32
+    assert t <= p
+    x = t + (T >> 256)
+    assert x < 1 << 256, "u + H must fit the 8 limbs"
+    for k in ((4, 2, 1) if n > 15 else (2, 1)):
+        if x >= k * p:
+            x -= k * p
+    return x
+
+
+@pytest.mark.parametrize("n", [8, 15, 16, 22])
+def test_lazy_sum_bounds_hold(n):
+    """The lazy sum of kernel 5 (wide products, one reduction) gives the
+    canonical Montgomery sum for n products at the worst case (every factor
+    r - 1) and on random factors; the limits its source states (at most 22
+    products, a third subtraction from 16) are the tight ones; kernel 5's
+    terms a thread fit them."""
+    p, big = FR_MODULUS, 1 << 256
+    rng = np.random.default_rng(n)
+    for pairs in ([(p - 1, p - 1)] * n,
+                  [tuple(_ints(rng, 2)[4:]) for _ in range(n)]):
+        T = sum(a * b for a, b in pairs)
+        assert T < 1 << 512
+        got = _redc_sum(T, n)
+        assert got < p and got == T * pow(big, -1, p) % p
+    worst = lambda k: (k * (p - 1) ** 2 >> 256) + p  # u + H at its largest
+    assert worst(22) < big <= worst(23)
+    assert worst(15) < 4 * p <= worst(16)
+    fq = open(os.path.join(CSRC, "fq.cuh")).read()
+    assert "N <= 22, \"" in fq and "if (N > 15)" in fq
+    log = int(re.search(r"define JOLT_LOG_Q0_PER_THREAD (\d+)", open(
+        os.path.join(CSRC, "reduction.cu")).read()).group(1))
+    assert R.Q0_PER_THREAD == 1 << log <= 22
+
+
+def test_kernel_report_reads_stack_frames_and_chains():
+    """device/kernel_report.py reads a kernel's stack frame from ptxas -v
+    (the card tests require none for kernel 6) and counts the longest
+    chain of dependent SASS instructions (kernel 6's latency bound):
+    registers, register pairs (.64, .WIDE), 128-bit loads and carry
+    predicates carry the dependences."""
+    from jolt_atlas_tpu_torch.device import kernel_report as kr
+    log = textwrap.dedent("""
+        ptxas info    : Compiling entry function '_ZN4jolt4tailEv' for 'sm_90a'
+        ptxas info    : Function properties for _ZN4jolt4tailEv
+            112 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 128 registers, 1056 bytes smem, 472 bytes cmem[0]
+        ptxas info    : Compiling entry function '_ZN4jolt2q0Ev' for 'sm_90a'
+        ptxas info    : Function properties for _ZN4jolt2q0Ev
+            0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+        ptxas info    : Used 56 registers, 1025 bytes smem
+    """)
+    assert kr.parse_ptxas(log) == {
+        "tail": {"registers": 128, "stack": 112, "spill_stores": 0,
+                 "spill_loads": 0, "smem": 1056},
+        "q0": {"registers": 56, "stack": 0, "spill_stores": 8,
+               "spill_loads": 4, "smem": 1025}}
+    insns = ["MOV R2, 0x1", "MOV R3, 0x2",
+             "IADD3 R4, P0, R2, R3, RZ",          # 2
+             "IADD3.X R5, R3, R3, RZ, P0, !PT",   # 3: the carry
+             "LOP3.LUT R9, R3, R3, R3, 0x96, !PT",  # 2: independent
+             "IMAD.WIDE.U32 R6, R5, R4, R2",      # 4: writes R6, R7
+             "LDG.E.128 R12, desc[UR4][R6.64]",   # 5: R12..R15
+             "@P0 IADD3 R20, R15, R9, RZ",        # 6
+             "STG.E desc[UR4][R2.64], R20",       # 7: a store, no dest
+             "STS.64 [R3+0x8], R20",              # 7
+             "LDS R30, [R9]",                     # 8: after the store
+             "SHFL.IDX PT, R31, R30, 0x1, 0x1c03"]  # 9: writes R31
+    assert kr.chain_length(insns) == 9
+    assert kr.chain_length(insns[:5]) == 3
+    assert kr.chain_length(insns[:7] + ["SHFL.IDX PT, R31, R9, 0x1, 0x1c03",
+                                        "IADD3 R32, R31, R31, RZ"]) == 5
+
+
 # ---------------------------------------------------------------------------
 # kernels 4 and 5 against the reference's XLA programs
 # ---------------------------------------------------------------------------
@@ -179,17 +261,18 @@ def test_plain_bind_matches_reference(j_prev, lanes, lg):
                           _u64(got))
 
 
-@pytest.mark.parametrize("lanes,lg", [(3, 4), (2, 13)])
+@pytest.mark.parametrize("lanes,lg", [(3, 4), (2, 13), (1, 15), (12, 13)])
 def test_plain_q0_matches_reference(lanes, lg):
-    """The lanes' partials summed mod r equal the reference's lazy limb
-    sums reduced mod r (one lane of 2^13 spans two partials)."""
-    d = R.random_round("cpu", np.random.default_rng(60 + lg), 0, lanes, lg)
+    """Each lane's q(0) equals the reference's lazy limb sums reduced mod
+    r: lanes of one kernel block and of several (2^15: four blocks of
+    4,096 terms), and 12 lanes over a table of 1024 rows, every weight
+    layout of random_round (s % 6)."""
+    d = R.random_round("cpu", np.random.default_rng(60 + lg), 0, lanes, lg,
+                       1024 if lanes >= 12 else 64)
     buf = R.bind(d["buf"], d["init"], d["c"], d["init_off"], 0, lanes, lg)
-    part = R.q0(buf, d["tab"], d["lanep"], lanes, lg)
-    bpl = R.q0_blocks(lg)
-    assert part.shape == (lanes * bpl, 4)
-    got = [sum(v[s * bpl:(s + 1) * bpl]) % FR_MODULUS
-           for v in [_mont_ints(part)] for s in range(lanes)]
+    got = R.q0(buf, d["tab"], d["lanep"], lanes, lg)
+    assert got.shape == (lanes, 4)
+    got = [v % FR_MODULUS for v in _mont_ints(got)]
     half = 1 << (lg - 1)
     tab = _u64(d["tab"])
     K = len(tab)                          # an all-zero column for padding
@@ -226,18 +309,23 @@ def test_plain_q0_matches_reference(lanes, lg):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("lanes,joined,bpl", [(8, 5, 3), (4, 0, 1),
-                                              (4, 4, 2)])
+                                              (4, 4, 2), (32, 32, 1)])
 def test_plain_tail_matches_host_oracle(lanes, joined, bpl):
     """Unjoined and zero-padding lanes; l1 = 0 with 1/l1 given as 0 (lane
-    0) and l0 = 0 (lane 1)."""
-    d = R.random_tail("cpu", np.random.default_rng(70 + lanes), lanes,
-                      joined, bpl)
+    0) and l0 = 0 (lane 1). Each joined lane's q(0) is the sum of bpl
+    random partials, as kernel 5's blocks hand it over."""
+    rng = np.random.default_rng(70 + lanes)
+    d = R.random_tail("cpu", rng, lanes, joined)
+    parts = [R.fr_of_row(r) for r in R.random_rows(
+        max(joined * bpl, 1), rng, "cpu").numpy()]
+    d["q0s"] = torch.from_numpy(R.mont_rows(
+        [sum(parts[s * bpl:(s + 1) * bpl], Fr.zero())
+         for s in range(max(joined, 1))]))
     k = {n: t.clone() for n, t in d.items()}
     c = torch.empty((1, 4), dtype=torch.int64)
     msg = torch.empty((2, 4), dtype=torch.int64)
-    R.tail(k["partials"], bpl, joined, k["Q"], k["es"], k["qinit"],
-           k["coeff"], k["l0"], k["l1"], k["inv_l1"], k["const_b0"],
-           k["state"], c, msg)
+    R.tail(k["q0s"], joined, k["Q"], k["es"], k["qinit"], k["coeff"],
+           k["l0"], k["l1"], k["inv_l1"], k["const_b0"], k["state"], c, msg)
     fr = {n: [R.fr_of_row(row) for row in t.numpy()]
           for n, t in d.items() if n != "state"}
     b0, b2 = fr["const_b0"][0], Fr.zero()
@@ -245,8 +333,9 @@ def test_plain_tail_matches_host_oracle(lanes, joined, bpl):
     lines = []
     for s in range(joined):
         q0 = Fr.zero()
-        for x in fr["partials"][s * bpl:(s + 1) * bpl]:
+        for x in parts[s * bpl:(s + 1) * bpl]:
             q0 = q0 + x
+        assert fr["q0s"][s] == q0
         l0, l1 = fr["l0"][s], fr["l1"][s]
         q1 = (fr["Q"][s] - l0 * q0) * fr["inv_l1"][s]
         b0 = b0 + fr["coeff"][s] * fr["es"][s] * l0 * q0
@@ -348,7 +437,7 @@ def test_tampered_device_state_raises(case, monkeypatch):
     def bad_tail(*args):
         real(*args)
         calls.append(1)
-        args[11][0] ^= 1  # state word 0
+        args[10][0] ^= 1  # state word 0
     monkeypatch.setattr(R, "tail", bad_tail)
     with pytest.raises(RuntimeError, match="diverged from the host replay"):
         AtlasProver(pp, device="cpu", reduction_gate=R.forced(0)).prove(
