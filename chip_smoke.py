@@ -54,14 +54,16 @@ script exits non-zero when any phase fails:
               and the BLAKE2b test kernel against their plain versions at
               small shapes and the edges (late joiners, l1 = 0, padding
               lanes, every weight layout of kernel 5, kernel 5's lazy sum
-              at its worst case of every factor r - 1, a lane of 2^21
-              elements for its lane fold), bit-equal, and the test kernel
-              against hashlib; kernels 4 and 5 timed at the largest round
-              of the bench's reduction (kernel 5 on that round's own
-              weight tables, bound by Montgomery products and by the lazy
-              design's own count), kernel 6 at its lanes (bound by bytes
-              and by the latency of its serial path: its dependent chain
-              from SASS times the measured integer latency), kernels 5
+              at its worst case of every factor's limbs r - 1 and at every
+              factor r - 1, a lane of 2^21 elements for its lane fold),
+              bit-equal, and the test kernel against hashlib; kernels 4
+              and 5 timed at the largest round of the bench's reduction
+              (kernel 5 on that round's own weight tables, bound by its
+              bytes and its lazy sums' IMAD, a Montgomery product a term
+              beside it), kernel 6 at its lanes (bound by its bytes and
+              products, and beside it by the latency of its round: the
+              dependent chain of tail_round's SASS times the measured
+              integer latency), kernels 5
               and 6 as a pair at the bench's round 0; the engine against
               the host BatchedSumcheck on the bench's own instances, in
               turns: messages, challenges, transcript state and final
@@ -1123,6 +1125,20 @@ def kernels_ms(fn, names: tuple, reps: int = 10) -> float:
     return total / 1e3 / reps
 
 
+Q0_WORST = {"limbs": "every factor with limbs r - 1",
+            "mont": "every factor r - 1"}
+
+
+def q0_worst_rows() -> dict:
+    """Kernel 5's worst factors as one (1, 4) limb row each (Q0_WORST):
+    limbs r - 1 (the value (r - 1) R^-1) and the Montgomery form of
+    r - 1."""
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    top = dred.FR_MODULUS - 1
+    return {"limbs": dred.mont_rows([top * dred.FR_R_INV % dred.FR_MODULUS]),
+            "mont": dred.mont_rows([top])}
+
+
 def tail_latency_bound(results) -> dict:
     """Kernel 6's latency bound: the longest dependent chain of its serial
     work a round (kernel_report.tail_path_chain: one lane's message terms,
@@ -1171,15 +1187,18 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5), (2, 0),
             f"reduction_q0 ({lanes} lanes, 2^{lg})", [dred.q0(*qa)],
             [dred.q0_plain(*qa)]))
         checked(results, "reduction_q0", dred.q0_case(lg))
-    # kernel 5's lazy sum at its worst case (every lo and every table row
-    # r - 1; 6 lanes of 2^14: every weight layout) and lanes of 2^long_lg
-    # (2^(long_lg - 12) partials a lane for the fold), random and worst
-    top = torch.from_numpy(dred.mont_rows([dred.FR_MODULUS - 1])).to(dev)
-    for lanes, lg, worst in ((6, 14, True), (1, long_lg, False),
-                             (2, long_lg, True)):
+    # kernel 5's lazy sum at its worst case, every lo and every table row
+    # with limbs r - 1 (a thread's 16 wide products near 16 r^2), and at
+    # the Montgomery form of r - 1 (limbs ~0.71 r); 6 lanes of 2^14 (every
+    # weight layout, every thread 16 terms) and lanes of 2^long_lg
+    # (2^(long_lg - 13) partials a lane for the fold), random and worst
+    for lanes, lg, worst in ((6, 14, "limbs"), (6, 14, "mont"),
+                             (1, long_lg, None), (2, long_lg, "limbs"),
+                             (2, long_lg, "mont")):
         d = dred.random_round(dev, gen, 0, lanes, lg)
         buf, tab = d["init"][:lanes << lg], d["tab"]
         if worst:
+            top = torch.from_numpy(q0_worst_rows()[worst]).to(dev)
             buf = top.expand(lanes << lg, 4).contiguous()
             tab = top.expand(tab.shape[0], 4).contiguous()
         qa = (buf, tab, d["lanep"], lanes, lg)
@@ -1187,7 +1206,7 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5), (2, 0),
         for _ in range(2):  # the lane counters are back at 0
             err["reduction_q0"] = max(err["reduction_q0"], require_equal(
                 f"reduction_q0 ({lanes} lanes, 2^{lg}, "
-                f"{'every factor r - 1' if worst else 'random'})",
+                f"{Q0_WORST.get(worst, 'random')})",
                 [dred.q0(*qa)], [want]))
         checked(results, "reduction_q0", dred.q0_case(lg))
         del d, buf, tab, qa, want
@@ -1219,8 +1238,9 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5), (2, 0),
                                      f"hashlib ({npw} words, row {i})")
             hashed += 1
     lines = [f"bit-equal to the plain versions at 6 round shapes, kernel "
-             f"5 at every factor r - 1 (2^14, 2^{long_lg}) and at a random "
-             f"lane of 2^{long_lg}, twice each, {len(tail_shapes)} tail "
+             f"5 at every factor with limbs r - 1 and at every factor r - 1 "
+             f"(2^14, 2^{long_lg}) and at a random lane of 2^{long_lg}, "
+             f"twice each, {len(tail_shapes)} tail "
              f"shapes and 5 transcript lengths; "
              f"{hashed} digests equal hashlib's"]
 
@@ -1254,18 +1274,21 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5), (2, 0),
         "reduction_q0 (bench round)", [part], [want]))
     terms = lanes << (lg - 1)
     nbytes = (terms + tab.shape[0] + part.shape[0] + lanes) * FR_BYTES
+    lazy = q0_lazy_imads(lanep.cpu(), lg, dred.Q0_PER_THREAD)
     lines.append("q0 " + timed(
         results, "reduction_q0", f"round {r}: {lanes} lanes of 2^{lg}, its "
-        f"split-eq tables", ms, q0_products(lanep.cpu(), lg), nbytes,
-        IMADS_PER_MUL, call_ms) + f", plain {plain_ms:.1f} ms")
-    lazy = q0_lazy_imads(lanep.cpu(), lg, dred.Q0_PER_THREAD)
-    lb, lby = bound(lazy, nbytes, results["imad_peak"], 1)
-    lines.append(f"q0 against the lazy design's own count ({lazy} IMAD): "
-                 f"bound {lb:.4f} ms ({lby}), share {lb / ms:.3f}")
+        f"split-eq tables", ms, lazy, nbytes, 1, call_ms)
+        + f" ({lazy} IMAD as it sums lazily), plain {plain_ms:.1f} ms")
+    products = q0_products(lanep.cpu(), lg)
+    mb, mby = bound(products, nbytes, results["imad_peak"], IMADS_PER_MUL)
+    lines.append(f"q0 against a Montgomery product a term ({products} "
+                 f"products of {IMADS_PER_MUL} IMAD): bound {mb:.4f} ms "
+                 f"({mby}), share {mb / ms:.3f}")
     results["reduction_q0"] = {"ms": ms, "plain_ms": plain_ms,
                                **results["timed"]["reduction_q0"][-1],
-                               "bound_lazy_ms": lb, "bound_lazy_by": lby,
-                               "lazy_imads": lazy}
+                               "bound_montgomery_ms": mb,
+                               "bound_montgomery_by": mby,
+                               "share_montgomery": mb / ms}
     del d, out, part, want, args, qa, tab, lanep
     L = max(1 << (len(nrs) - 1).bit_length(), 2)
     J = len(nrs)
@@ -1284,12 +1307,10 @@ def phase_reduction(dev, results, cap, tail_shapes=((8, 5), (2, 0),
         + f", plain {plain_ms:.1f} ms")
     lat = tail_latency_bound(results)
     row = results["timed"]["reduction_tail"][-1]
-    row.update(bound_throughput_ms=row["bound_ms"],
-               bound_throughput_by=row["bound_by"], latency=lat)
-    if lat["ms"] > row["bound_ms"]:  # dependent operations at their latency
-        row.update(bound_ms=lat["ms"], bound_by="operations",
-                   share=lat["ms"] / ms)
-    lines.append(f"tail latency bound: {lat['chain']} dependent "
+    row.update(bound_latency_ms=lat["ms"], share_latency=lat["ms"] / ms,
+               latency=lat)
+    lines.append(f"tail latency bound (beside the throughput bound above): "
+                 f"{lat['chain']} dependent "
                  f"instructions of {lat['instructions']} ({lat['branches']} "
                  f"branches) x {lat['latency_cycles']['per_instruction']:.2f}"
                  f" cycles at {lat['sm_mhz']:.0f} MHz = {lat['ms']:.5f} ms, "
@@ -1894,7 +1915,8 @@ def main() -> int:
             row["also_replaces"] = \
                 "jolt_atlas_tpu/parallel/shardedrows.py:130"
             row["rows_layout"] = results["rows_bind"]
-        for extra in ("bound_lazy_ms", "bound_throughput_ms", "latency"):
+        for extra in ("bound_montgomery_ms", "share_montgomery",
+                      "bound_latency_ms", "share_latency", "latency"):
             if extra in r:  # kernels 5 and 6: their second bounds
                 row[extra] = r[extra]
         if name in ("reduction_q0", "reduction_tail"):

@@ -53,10 +53,7 @@ namespace jolt {
 constexpr int BIND_THREADS = 256;
 constexpr int LOG_Q0_THREADS = 8;
 constexpr int Q0_THREADS = 1 << LOG_Q0_THREADS;
-#ifndef JOLT_LOG_Q0_PER_THREAD
-#define JOLT_LOG_Q0_PER_THREAD 4
-#endif
-constexpr int LOG_Q0_PER_THREAD = JOLT_LOG_Q0_PER_THREAD;  // 16 terms
+constexpr int LOG_Q0_PER_THREAD = 4;  // 16 terms
 
 constexpr int Q0_PER_THREAD = 1 << LOG_Q0_PER_THREAD;
 constexpr int TAIL_MAX_LANES = 1024;
@@ -199,8 +196,123 @@ __device__ __forceinline__ void block_sum2(Fr& x, Fr& y, Fr* sums) {
 #define TAIL_STAMP(k)
 #endif
 
-// q0s: one q(0) a lane; state: 4 u64 transcript state words, then n_rounds;
-// msg: b0, b2
+// Kernel 6's arrays (as jolt_reduction_tail's): q0s, one q(0) a lane;
+// state, 4 u64 transcript state words, then n_rounds; msg, b0 and b2.
+struct TailIo {
+  const u64* q0s;
+  u64* Q;
+  u64* es;
+  const u64* coeff;
+  const u64* l0;
+  const u64* l1;
+  const u64* inv_l1;
+  const u64* const_b0;
+  u64* state;
+  u64* c_out;
+  u64* msg;
+};
+
+// Sums a pair over the block into threads 0 and 1: kernel 6's b0 and b2
+struct BlockSum2 {
+  Fr* sums;  // 64 elements of shared memory
+  __device__ __forceinline__ void operator()(Fr& x, Fr& y) const {
+    block_sum2(x, y, sums);
+  }
+};
+
+// One round of kernel 6 on thread t of a block of at least 4 threads
+// (lane t joined if `in`): the lane's message terms, sum2 of them (thread
+// 0 then holds b0 less the unjoined lanes' constant, thread 1 b2), the
+// payload's canonical words, the long absorb and the squeeze, the
+// challenge and the lane's update. Threads 0-3 run the serial part as one
+// straight line (thread 0 converts b0, the others b2; each forms a
+// challenge from its state word; thread 1 stores b2's words, thread 0 the
+// rest). Kernel 6 runs it with BlockSum2; device/kernel_report.py compiles
+// it with no sum (tail_path_chain): the chain of one lane's round, counted
+// from this code.
+template <class Sum2>
+__device__ __forceinline__ void tail_round(const TailIo& io, int t, bool in,
+                                           Sum2 sum2) {
+  __shared__ u64 words[9 + 16];  // the round message's payload, a block
+  __shared__ Fr c_shared;
+  TAIL_STAMP(0)
+  Fr q0 = fr_zero(), dq = fr_zero(), dl = fr_zero(), l0 = fr_zero();
+  Fr esv = fr_zero(), s0 = fr_zero(), s2 = fr_zero();
+  if (in) {
+    q0 = load_fr(io.q0s, t);
+    l0 = load_fr(io.l0, t);
+    esv = load_fr(io.es, t);
+    const Fr l0q0 = fr_mul(l0, q0);
+    const Fr q1 =
+        fr_mul(fr_sub(load_fr(io.Q, t), l0q0), load_fr(io.inv_l1, t));
+    dq = fr_sub(q1, q0);
+    dl = fr_sub(load_fr(io.l1, t), l0);
+    const Fr cf = load_fr(io.coeff, t);
+    s0 = fr_mul(cf, fr_mul(esv, l0q0));
+    s2 = fr_mul(cf, fr_mul(esv, fr_mul(dl, dq)));
+  }
+  TAIL_STAMP(1)
+  sum2(s0, s2);
+  if (t < 4) {  // the transcript on four lanes: lane t holds state word t
+    const Fr b = t == 0 ? fr_add(s0, load_fr(io.const_b0, 0)) : s2;
+    TAIL_STAMP(2)
+    Fr raw_one = fr_zero();
+    raw_one.v[0] = 1;
+    const Fr cb = fr_mul(b, raw_one);  // canonical
+    // payload: "UniPoly\x01", then b0 and b2, 32 bytes big-endian each
+    // (limb 3 first)
+    if (t < 2) {
+      store_fr(io.msg, t, b);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 3 - j;
+        words[1 + 4 * t + j] =
+            bswap64((u64)cb.v[2 * k] | ((u64)cb.v[2 * k + 1] << 32));
+      }
+    }
+    if (t == 0) words[0] = 0x01796c6f50696e55ull;
+    __syncwarp(0xfu);
+    TAIL_STAMP(3)
+    u64 st = io.state[t];
+    const u32 n = (u32)io.state[4];
+    transcript_step_x4(st, n, words, 9, words + 9);  // the long absorb
+    transcript_step_x4(st, n + 1, words, 0, words + 9);  // the squeeze
+    TAIL_STAMP(4)
+    io.state[t] = st;
+    const u64 st1 = __shfl_sync(0xfu, st, 1);
+    // digest bytes 0..15 little-endian (lane 0's word, then lane 1's),
+    // masked to 125 bits, times 2^-128: in Montgomery form, the masked
+    // value times 2^384 mod r (thread 0's c is the challenge)
+    Fr ch = fr_zero();
+    ch.v[0] = (u32)st;
+    ch.v[1] = (u32)(st >> 32);
+    ch.v[2] = (u32)st1;
+    ch.v[3] = (u32)(st1 >> 32) & 0x1fffffffu;
+    Fr two384;  // 2^384 mod r
+    constexpr u32 T384[8] = {0xef8cfeb9u, 0xb075da81u, 0xa5b6cd8cu,
+                             0xa7f12accu, 0x7957bf7bu, 0x32c47504u,
+                             0x48ffa25eu, 0x03d581d7u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) two384.v[j] = T384[j];
+    const Fr c = fr_mul(ch, two384);
+    if (t == 0) {
+      io.state[4] = n + 2;
+      c_shared = c;
+      store_fr(io.c_out, 0, c);
+    }
+    TAIL_STAMP(5)
+  }
+  __syncthreads();
+  if (in) {
+    const Fr c = c_shared;
+    store_fr(io.Q, t, fr_add(q0, fr_mul(dq, c)));
+    store_fr(io.es, t, fr_mul(esv, fr_add(l0, fr_mul(dl, c))));
+  }
+  TAIL_STAMP(6)
+}
+
+// One block, a thread a lane (at least 32 threads); lanes t >= joined
+// take Q from qinit
 __global__ void reduction_tail_kernel(
     const u64* __restrict__ q0s, int64_t joined, int64_t lanes,
     u64* __restrict__ Q, u64* __restrict__ es, const u64* __restrict__ qinit,
@@ -209,85 +321,11 @@ __global__ void reduction_tail_kernel(
     const u64* __restrict__ const_b0, u64* __restrict__ state,
     u64* __restrict__ c_out, u64* __restrict__ msg) {
   __shared__ Fr sums[64];
-  __shared__ u64 words[9 + 16];  // the round message's payload, a block
-  __shared__ Fr c_shared;
-  TAIL_STAMP(0)
   const int t = threadIdx.x;
-  const bool in = t < joined;
-  Fr q0 = fr_zero(), dq = fr_zero(), dl = fr_zero(), l0 = fr_zero();
-  Fr esv = fr_zero(), s0 = fr_zero(), s2 = fr_zero();
-  if (in) {
-    q0 = load_fr(q0s, t);
-    l0 = load_fr(l0p, t);
-    esv = load_fr(es, t);
-    const Fr l0q0 = fr_mul(l0, q0);
-    const Fr q1 = fr_mul(fr_sub(load_fr(Q, t), l0q0), load_fr(inv_l1p, t));
-    dq = fr_sub(q1, q0);
-    dl = fr_sub(load_fr(l1p, t), l0);
-    const Fr cf = load_fr(coeff, t);
-    s0 = fr_mul(cf, fr_mul(esv, l0q0));
-    s2 = fr_mul(cf, fr_mul(esv, fr_mul(dl, dq)));
-  }
-  TAIL_STAMP(1)
-  block_sum2(s0, s2, sums);
-  if (t < 2) {  // b0 on thread 0, b2 on thread 1, in one instruction stream
-    const Fr b = t == 0 ? fr_add(s0, load_fr(const_b0, 0)) : s2;
-    TAIL_STAMP(2)
-    store_fr(msg, t, b);
-    Fr raw_one = fr_zero();
-    raw_one.v[0] = 1;
-    const Fr cb = fr_mul(b, raw_one);  // canonical
-    // payload: "UniPoly\x01", then b0 and b2, 32 bytes big-endian each
-    // (limb 3 first)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = 3 - j;
-      words[1 + 4 * t + j] =
-          bswap64((u64)cb.v[2 * k] | ((u64)cb.v[2 * k + 1] << 32));
-    }
-    if (t == 0) words[0] = 0x01796c6f50696e55ull;
-  }
-  __syncthreads();
-  TAIL_STAMP(3)
-  if (t < 4) {  // the transcript on four lanes: lane t holds state word t
-    u64 st = state[t];
-    const u32 n = (u32)state[4];
-    transcript_step_x4(st, n, words, 9, words + 9);  // the long absorb
-    transcript_step_x4(st, n + 1, words, 0, words + 9);  // the squeeze
-    TAIL_STAMP(4)
-    state[t] = st;
-    const u64 st1 = __shfl_sync(0xfu, st, 1);
-    if (t == 0) {
-      state[4] = n + 2;
-      // digest bytes 0..15 little-endian, masked to 125 bits, times
-      // 2^-128: in Montgomery form, the masked value times 2^384 mod r
-      Fr ch = fr_zero();
-      ch.v[0] = (u32)st;
-      ch.v[1] = (u32)(st >> 32);
-      ch.v[2] = (u32)st1;
-      ch.v[3] = (u32)(st1 >> 32) & 0x1fffffffu;
-      Fr two384;  // 2^384 mod r
-      constexpr u32 T384[8] = {0xef8cfeb9u, 0xb075da81u, 0xa5b6cd8cu,
-                               0xa7f12accu, 0x7957bf7bu, 0x32c47504u,
-                               0x48ffa25eu, 0x03d581d7u};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) two384.v[j] = T384[j];
-      c_shared = fr_mul(ch, two384);
-      store_fr(c_out, 0, c_shared);
-      TAIL_STAMP(5)
-    }
-  }
-  __syncthreads();
-  if (t < lanes) {
-    if (in) {
-      const Fr c = c_shared;
-      store_fr(Q, t, fr_add(q0, fr_mul(dq, c)));
-      store_fr(es, t, fr_mul(esv, fr_add(l0, fr_mul(dl, c))));
-    } else {
-      store_fr(Q, t, load_fr(qinit, t));
-    }
-  }
-  TAIL_STAMP(6)
+  if (t >= joined && t < lanes) store_fr(Q, t, load_fr(qinit, t));
+  tail_round(TailIo{q0s, Q, es, coeff, l0p, l1p, inv_l1p, const_b0, state,
+                    c_out, msg},
+             t, t < joined, BlockSum2{sums});
 }
 
 constexpr int TRANSCRIPT_THREADS = 128;  // four a transcript

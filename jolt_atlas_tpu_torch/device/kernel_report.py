@@ -233,59 +233,31 @@ def fq_mul_sass(csrc: str) -> dict:
             "top": dict(ops.most_common(8))}
 
 
-# The serial work of one round of kernel 6 that no lane can share, as
-# straight-line code of the same device functions on the same four lanes:
-# one lane's message terms (l0 q0, q1, (l1 - l0)(q1 - q0) weighted by coeff
-# and es), one canonical conversion and its payload words, the round
-# message's long absorb (two compressions) and the squeeze, the challenge
-# product and one lane's update of Q and es. Its block sums and the latency
-# of its loads are left out, so its chain is a part of the kernel's
-# critical path.
+# Kernel 6's round (csrc/reduction.cu tail_round, the code the kernel
+# runs) on four lanes with no block sum: one lane's message terms, the
+# canonical conversion and payload words, the long absorb and the squeeze,
+# the challenge and one lane's update. Its block sums and the latency of
+# its loads are left out, so its chain is a part of the kernel's critical
+# path.
 _TAIL_PATH_PROBE = r"""
-#include "fq.cuh"
-#include "blake2b.cuh"
+#include "reduction.cu"
 using namespace jolt;
-extern "C" __global__ void tail_path_probe(const u64* in, u64* out) {
-  __shared__ u64 words[9 + 16];
-  const int t = threadIdx.x & 3;
-  const Fr q0 = load_fr(in, 0), l0 = load_fr(in, 1), es = load_fr(in, 2);
-  const Fr l0q0 = fr_mul(l0, q0);
-  const Fr q1 = fr_mul(fr_sub(load_fr(in, 3), l0q0), load_fr(in, 4));
-  const Fr dq = fr_sub(q1, q0), dl = fr_sub(load_fr(in, 5), l0);
-  const Fr b = fr_mul(load_fr(in, 6), fr_mul(es, fr_mul(dl, dq)));
-  Fr one = fr_zero();
-  one.v[0] = 1;
-  const Fr cb = fr_mul(b, one);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int k = 3 - j;
-    words[1 + 4 * (t & 1) + j] =
-        bswap64((u64)cb.v[2 * k] | ((u64)cb.v[2 * k + 1] << 32));
-  }
-  words[0] = 0x01796c6f50696e55ull;
-  __syncwarp(0xfu);
-  u64 st = in[32 + t];
-  const u32 n = (u32)in[36];
-  transcript_step_x4(st, n, words, 9, words + 9);
-  transcript_step_x4(st, n + 1, words, 0, words + 9);
-  const u64 st1 = __shfl_sync(0xfu, st, 1);
-  Fr ch = fr_zero();
-  ch.v[0] = (u32)st;
-  ch.v[1] = (u32)(st >> 32);
-  ch.v[2] = (u32)st1;
-  ch.v[3] = (u32)(st1 >> 32) & 0x1fffffffu;
-  const Fr c = fr_mul(ch, load_fr(in, 7));
-  store_fr(out, 2 * t, fr_add(q0, fr_mul(dq, c)));
-  store_fr(out, 2 * t + 1, fr_mul(es, fr_add(l0, fr_mul(dl, c))));
+struct NoSum {
+  __device__ void operator()(Fr&, Fr&) const {}
+};
+extern "C" __global__ void tail_path_probe(u64* a) {
+  tail_round(TailIo{a, a + 32, a + 64, a + 96, a + 128, a + 160, a + 192,
+                    a + 224, a + 256, a + 264, a + 268},
+             threadIdx.x & 3, true, NoSum{});
 }
 """
 
 
 def tail_path_chain(csrc: str) -> dict:
     """The serial work of one kernel 6 round (``_TAIL_PATH_PROBE``,
-    compiled against csrc's headers): its SASS instructions up to EXIT, its
-    longest dependent chain (``chain_length``) and its branches (0 for the
-    chain to be exact)."""
+    compiled against csrc's reduction.cu): its SASS instructions up to
+    EXIT, its longest dependent chain (``chain_length``, which reads
+    branches as straight-line code) and its branches."""
     nvcc = build.nvcc_path()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     with tempfile.TemporaryDirectory() as tmp:
@@ -337,7 +309,7 @@ extern "C" int jolt_chain_probe(void* out, unsigned x, unsigned y, int n,
 """
 
 
-def probe_library(source: str, csrc: str, tmp: str, defines: tuple = ()):
+def probe_library(source: str, csrc: str, tmp: str):
     """``source`` built with nvcc (sm_90a, csrc on the include path) into a
     shared library under ``tmp``, loaded with ctypes."""
     import ctypes
@@ -345,7 +317,7 @@ def probe_library(source: str, csrc: str, tmp: str, defines: tuple = ()):
     with open(src, "w") as f:
         f.write(source)
     lib = os.path.join(tmp, "libprobe.so")
-    _run([build.nvcc_path(), *ARCH, *defines, "-shared", "-Xcompiler",
+    _run([build.nvcc_path(), *ARCH, "-shared", "-Xcompiler",
           "-fPIC", "-I", csrc, src, "-o", lib])
     return ctypes.CDLL(lib)
 

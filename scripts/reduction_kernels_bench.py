@@ -2,7 +2,7 @@
 alone on one GPU.
 
     python3 scripts/reduction_kernels_bench.py [--root DIR] [--inputs FILE]
-                                               [--stages] [--per-thread]
+                                               [--stages]
 
 Inputs: the opening reduction of the bench nanoGPT (chip_smoke.py's prove
 phase: 4 blocks, 4 heads, d64, seq 64, vocab 65, seed 1234), captured from
@@ -20,10 +20,8 @@ with ``git archive``); a package whose tail still takes per-block
 partials (kernel 5 before its lane fold) gets those of its own q0.
 ``--stages`` builds kernel 6 with a clock64 stamp at each of its stages
 (thread 0; csrc/reduction.cu TAIL_STAMP) and prints the cycles of each,
-medians of 20 launches. ``--per-thread`` times kernel 5 at 8 and at 16
-terms a thread (-DJOLT_LOG_Q0_PER_THREAD) on the round-2 inputs, both
-builds called alike. Prints the card's name and power limit, then one JSON
-line. Exits non-zero without a CUDA device.
+medians of 20 launches. Prints the card's name and power limit, then one
+JSON line. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -110,7 +108,6 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--inputs", default=None)
     ap.add_argument("--stages", action="store_true")
-    ap.add_argument("--per-thread", action="store_true")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("reduction_kernels_bench: no CUDA device", file=sys.stderr)
@@ -184,41 +181,6 @@ def main(argv: list[str]) -> int:
         "call_ms": cs.cuda_ms(pair, 20)[0],
         "launches": {k: v - before.get(k, 0)
                      for k, v in telemetry.launches().items()}}
-
-    if a.per_thread:  # kernel 5 at 8 and 16 terms a thread, called alike
-        from jolt_atlas_tpu_torch.device import kernel_report
-        want = dred.q0_plain(*qa)
-        buf, tab, lanep, lanes, lg = qa
-        res = {}
-        with tempfile.TemporaryDirectory() as tmp:
-            for log in (3, 4):
-                sub = os.path.join(tmp, str(log))
-                os.makedirs(sub)
-                lib = kernel_report.probe_library(
-                    '#include "reduction.cu"\n', build.CUDA_SRC, sub,
-                    (f"-DJOLT_LOG_Q0_PER_THREAD={log}",))
-                f = lib.jolt_reduction_q0
-                f.argtypes = build.SIGNATURES["jolt_reduction_q0"]
-                bpl = -(-(1 << (lg - 1)) // (dred.Q0_THREADS << log))
-                part = torch.empty((lanes * bpl, 4), dtype=torch.int64,
-                                   device=dev)
-                cnt = torch.zeros(lanes, dtype=torch.int32, device=dev)
-                q = torch.empty((lanes, 4), dtype=torch.int64, device=dev)
-
-                def run():
-                    rc = f(buf.data_ptr(), tab.data_ptr(), lanep.data_ptr(),
-                           part.data_ptr(), cnt.data_ptr(), q.data_ptr(),
-                           lanes, lg, bpl,
-                           torch.cuda.current_stream().cuda_stream)
-                    if rc:
-                        raise RuntimeError(f"q0 launch failed: {rc}")
-                    return q
-                dms = cs.kernels_ms(run, ("reduction_q0",), 20)
-                if not torch.equal(run(), want):
-                    raise AssertionError(f"kernel 5 at {1 << log} terms a "
-                                         "thread differs from plain")
-                res[1 << log] = {"ms": dms, "call_ms": cs.cuda_ms(run, 20)[0]}
-        out["per_thread"] = res
 
     if a.stages:  # kernel 6 with a clock64 stamp at each stage
         from jolt_atlas_tpu_torch.device import kernel_report

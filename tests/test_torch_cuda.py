@@ -21,7 +21,7 @@ from jolt_atlas_tpu_torch.curve.native import pack_scalars
 from jolt_atlas_tpu_torch.device import curve, gate, split
 from jolt_atlas_tpu_torch.device import blake2b as db, msm as dmsm
 from jolt_atlas_tpu_torch.device import reduction as dred, telemetry
-from jolt_atlas_tpu_torch.field.constants import FR_MODULUS
+from jolt_atlas_tpu_torch.field.constants import FR_MODULUS, FR_R_INV
 
 pytestmark = pytest.mark.cuda
 
@@ -187,17 +187,22 @@ def test_reduction_bind_and_q0_match_plain(gpu, j_prev, lanes, lg, table):
         "reduction_q0", 0) == 2
 
 
-@pytest.mark.parametrize("lanes,lg,edge", [(6, 14, "r-1"), (1, 21, "random"),
-                                           (3, 21, "r-1")])
+@pytest.mark.parametrize("lanes,lg,edge", [
+    (6, 14, "limbs"), (6, 14, "mont"), (1, 21, "random"), (3, 21, "limbs"),
+    (3, 21, "mont")])
 def test_reduction_q0_worst_case_and_long_lane(gpu, lanes, lg, edge):
     """Kernel 5's lazy sum at its worst case, every lo and every table
-    entry r - 1 (the largest wide sums), and lanes of 2^21 elements (512
-    partials a lane for the fold), twice each."""
+    entry with limbs r - 1 (a thread's 16 wide products near 16 r^2: the
+    largest wide sums), and at the Montgomery form of r - 1; lanes of 2^21
+    elements (256 partials a lane for the fold); twice each."""
     d = dred.random_round(gpu, np.random.default_rng(lg), 0, lanes, lg, 64)
     buf = d["init"][:lanes << lg]
     tab = d["tab"]
-    if edge == "r-1":
-        top = torch.from_numpy(dred.mont_rows([FR_MODULUS - 1])).to(gpu)
+    if edge != "random":
+        top = FR_MODULUS - 1
+        if edge == "limbs":  # the element whose Montgomery limbs are r - 1
+            top = top * FR_R_INV % FR_MODULUS
+        top = torch.from_numpy(dred.mont_rows([top])).to(gpu)
         buf = top.expand(lanes << lg, 4).contiguous()
         tab = top.expand(tab.shape[0], 4).contiguous()
     want = dred.q0_plain(buf, tab, d["lanep"], lanes, lg)

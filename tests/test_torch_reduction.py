@@ -189,7 +189,7 @@ def test_lazy_sum_bounds_hold(n):
     assert worst(15) < 4 * p <= worst(16)
     fq = open(os.path.join(CSRC, "fq.cuh")).read()
     assert "N <= 22, \"" in fq and "if (N > 15)" in fq
-    log = int(re.search(r"define JOLT_LOG_Q0_PER_THREAD (\d+)", open(
+    log = int(re.search(r"constexpr int LOG_Q0_PER_THREAD = (\d+);", open(
         os.path.join(CSRC, "reduction.cu")).read()).group(1))
     assert R.Q0_PER_THREAD == 1 << log <= 22
 
