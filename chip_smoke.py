@@ -10,10 +10,11 @@ script exits non-zero when any phase fails:
               and the host C++ engines, from source; ptxas's registers,
               spills and shared memory per kernel, the SASS of one fq_mul
               (device/kernel_report.py), kernel 7's registers and shared
-              memory by launch plan, kernels 1-4, 7 and 8 held to their
-              recorded SASS digests (KEPT_SASS) under the nvcc that
-              recorded them, and no stack frame for kernel 6 and the
-              BLAKE2b test kernel
+              memory by launch plan, kernels 4-7 and the BLAKE2b test
+              kernel held to their recorded SASS digests (KEPT_SASS)
+              under the nvcc that recorded them, no spill in kernels 1-3
+              and 8, and no stack frame for kernel 6 and the BLAKE2b test
+              kernel
   3. pp_add   kernel 1 against its plain PyTorch version on the card: 2^16
               random pairs plus doubling, P + (-P), the identity on either
               side and coordinates near p; bit-equal, timed at the gate's
@@ -153,7 +154,20 @@ def _profiler_pad() -> None:
     time.sleep(0.005)
 
 
-def device_ms(fn, reps: int, kernel: str, counted: str | None = None):
+L2_BYTES = 50 * 2 ** 20  # H100's L2 cache
+
+
+def l2_flush(dev) -> None:
+    """Write twice the L2's bytes, so that the next kernel finds neither
+    its inputs nor its output's lines in the cache."""
+    if getattr(l2_flush, "buf", None) is None:
+        l2_flush.buf = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32,
+                                   device=dev)
+    l2_flush.buf.fill_(1)
+
+
+def device_ms(fn, reps: int, kernel: str, counted: str | None = None,
+              cold: bool = False):
     """(mean device milliseconds a call of fn() spends in the CUDA kernels
     whose name holds ``kernel``, from torch.profiler's kernel durations;
     mean milliseconds a call on CUDA events around the loop, the wrapper's
@@ -162,7 +176,11 @@ def device_ms(fn, reps: int, kernel: str, counted: str | None = None):
     launches are the wrappers' own count (telemetry name ``counted``,
     ``kernel`` by default). A trace that missed some is taken again, twice
     at most; if the last still misses some, a call's device time is the
-    mean duration of the launches it holds times the launches a call."""
+    mean duration of the launches it holds times the launches a call.
+    ``cold``: the traced calls each follow an L2 flush (``l2_flush``), so
+    a kernel bound by its bytes reads and writes device memory and not
+    lines a previous call left in the cache (the call time stays back to
+    back)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -174,6 +192,8 @@ def device_ms(fn, reps: int, kernel: str, counted: str | None = None):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _profiler_pad()
             for _ in range(reps):
+                if cold:
+                    l2_flush(torch.device("cuda"))
                 out = fn()
             _profiler_pad()
         launched = telemetry.launches().get(name, 0) - before
@@ -210,8 +230,12 @@ def checked(results, kernel: str, lanes) -> None:
 # The least time the card could take (bound_ms): the larger of the bytes the
 # function must move (each input read once, each output written once) over
 # the HBM rate and its 32-bit integer multiplies over the IMAD peak. Kernels
-# 1-3 are complete projective adds, 12 Montgomery products of 264 32-bit
-# multiplies each (csrc/fq.cuh); kernels 4-6 count Fr Montgomery products,
+# 1-3 are complete projective adds: six Montgomery products of 264 32-bit
+# multiplies and three sums of two products reduced once (8 steps of two
+# product rows, m and a reduction row: 392), as csrc/fq.cuh pp_add_dev
+# forms them; 12 Montgomery products an add stand beside it
+# (bound_montgomery_ms).
+# Kernels 4-6 count Fr Montgomery products,
 # 264 multiplies each; the BLAKE2b step counts its 32-bit integer
 # operations (3-input adds, xors, funnel shifts) at the same rate. Hopper issues 64
 # IMADs per clock per SM (CUDA C Programming Guide, arithmetic instruction
@@ -219,11 +243,13 @@ def checked(results, kernel: str, lanes) -> None:
 # (nvidia-smi).
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak (NVIDIA datasheet)
 IMADS_PER_MUL = 264
-IMADS_PER_ADD = 12 * IMADS_PER_MUL
-# kernel 8's product of |v| (two nonzero 32-bit limbs) by R^2: each of the 8
-# steps of the Montgomery product needs 2 x 2 IMADs (low and high halves)
-# for |v|'s limbs and 1 + 16 for the reduction
-IMADS_PER_I64 = 8 * (2 * 2 + 1 + 16)
+IMADS_PER_SUM2 = 8 * (16 + 16 + 1 + 16)
+IMADS_PER_ADD = 6 * IMADS_PER_MUL + 3 * IMADS_PER_SUM2
+IMADS_PER_ADD_MONTGOMERY = 12 * IMADS_PER_MUL
+# kernel 8's two CIOS steps over |v|'s 32-bit words (csrc/rows.cu
+# fr_from_u64): a row of |v|_i C (16 IMAD), m = t0 N0 (1) and a row of m r
+# (16) each
+IMADS_PER_I64 = 2 * (16 + 1 + 16)
 POINT_BYTES = 3 * 32
 FR_BYTES = 32
 # one BLAKE2b compression: 12 rounds x 8 mixes x (4 u64 adds, two of them
@@ -257,29 +283,36 @@ def timed(results, kernel: str, shape: str, ms: float, adds: int,
     """Record one timed shape of a kernel (device ms, and the wrapper's
     call ms: device_ms) beside its bound; its line."""
     b, by = bound(adds, nbytes, results["imad_peak"], imads_per)
-    results.setdefault("timed", {}).setdefault(kernel, []).append({
-        "shape": shape, "ms": ms, "call_ms": call_ms, "bound_ms": b,
-        "bound_by": by, "share": b / ms, "adds": adds})
-    return (f"{shape}: kernel {ms:.4f} ms on the device (a call "
+    rec = {"shape": shape, "ms": ms, "call_ms": call_ms, "bound_ms": b,
+           "bound_by": by, "share": b / ms, "adds": adds}
+    line = (f"{shape}: kernel {ms:.4f} ms on the device (a call "
             f"{call_ms:.4f} ms), bound {b:.4f} ms ({by}), share "
             f"{b / ms:.3f}")
+    if imads_per == IMADS_PER_ADD:  # complete adds: 12 products beside it
+        mb = bound(adds, nbytes, results["imad_peak"],
+                   IMADS_PER_ADD_MONTGOMERY)[0]
+        rec.update(bound_montgomery_ms=mb, share_montgomery=mb / ms)
+        line += f" (12 products an add: bound {mb:.4f} ms, {mb / ms:.3f})"
+    results.setdefault("timed", {}).setdefault(kernel, []).append(rec)
+    return line
 
 
-# The SASS digests (kernel_report.sass) of kernels 1-4, 7 and 8, which the
-# redesign of kernels 5 and 6 left as they were: equal for the parent's
-# sources and this tree's, built with this nvcc (the chip machine's CUDA
-# 12.9)
+# The SASS digests (kernel_report.sass) of kernels 4-7 and the BLAKE2b test
+# kernel, which the redesign of kernels 8 and 1 left as they were: equal for
+# the parent's sources and this tree's, built with this nvcc (the chip
+# machine's CUDA 12.9)
 KEPT_SASS = ("cuda_12.9.r12.9/compiler.36037853_0", {
-    "pp_add_kernel": "364ac1555b4b3cdb",
-    "bucket_accumulate_runs": "83e9666cacfd371c",
-    "bucket_accumulate_join": "d79a9ca3924cb2b6",
-    "bucket_combine_kernel": "7ae9ac1c24963eb6",
-    "bucket_combine_groups": "14ac1cf5de74f90b",
     "reduction_bind_kernel": "be07dc0fe3190249",
-    "rows_points_kernel": "e031ea250e180281",
-    "rows_from_i64_kernel": "67c51e4747e834c4"})
+    "reduction_q0_kernel": "59f78d9c794c347c",
+    "reduction_tail_kernel": "97fffe30758e5bfa",
+    "blake2b_transcript_kernel": "2d8d11720d9f7a88",
+    "rows_points_kernel": "e031ea250e180281"})
 # kernels that must keep their message words and state in registers
 NO_STACK = ("reduction_tail_kernel", "blake2b_transcript_kernel")
+# kernels 1-3 (the complete add and its users) and 8: no spill
+NO_SPILL = ("pp_add_kernel", "bucket_accumulate_runs",
+            "bucket_accumulate_join", "bucket_combine_kernel",
+            "bucket_combine_groups", "rows_from_i64_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +354,11 @@ def phase_build() -> None:
     framed = {k: ptx[k]["stack"] for k in NO_STACK if ptx[k]["stack"]}
     if framed:
         raise AssertionError(f"stack frames (bytes) in {framed}")
+    spilled = {k: (ptx[k]["spill_stores"], ptx[k]["spill_loads"])
+               for k in NO_SPILL
+               if ptx[k]["spill_stores"] or ptx[k]["spill_loads"]}
+    if spilled:
+        raise AssertionError(f"spills (store, load bytes) in {spilled}")
     toolkit = subprocess.run([build.nvcc_path(), "--version"], check=True,
                              capture_output=True,
                              text=True).stdout.split()[-1]
@@ -334,9 +372,10 @@ def phase_build() -> None:
     if moved:
         raise AssertionError(f"SASS of {moved} differs from the recorded "
                              f"digests: {sass}")
-    say("build", f"SASS of the {len(KEPT_SASS[1])} kernels of kernels 1-4, "
-        f"7 and 8 equal to the recorded digests (nvcc {toolkit}); no stack "
-        f"frame in {', '.join(NO_STACK)}")
+    say("build", f"SASS of the {len(KEPT_SASS[1])} kernels of kernels 4-7 "
+        f"and the BLAKE2b test kernel equal to the recorded digests (nvcc "
+        f"{toolkit}); no stack frame in {', '.join(NO_STACK)}; no spill in "
+        f"{', '.join(NO_SPILL)}")
 
 
 def phase_pp_add(dev, bases, results) -> None:
@@ -523,11 +562,14 @@ def phase_combine(dev, bases, results, sums: dict,
             fold_bytes += nbytes
         del acc
     b, by = bound(fold_adds, fold_bytes, results["imad_peak"])
+    mb = bound(fold_adds, fold_bytes, results["imad_peak"],
+               IMADS_PER_ADD_MONTGOMERY)[0]
     results["bucket_combine"] = {
         "max_abs_err": err, "ms": fold_ms, "call_ms": fold_call,
         "plain_ms": fold_plain,
         "shape": "fold batch: k=1 c=14 + k=16 c=12", "bound_ms": b,
-        "bound_by": by, "share": b / fold_ms}
+        "bound_by": by, "share": b / fold_ms, "bound_montgomery_ms": mb,
+        "share_montgomery": mb / fold_ms}
     say("combine", f"bit-equal to the plain version at every shape "
         f"({dmsm.COMBINE_MAX_THREADS} threads a block); " + "; ".join(lines)
         + f"; fold batch in all: kernel {fold_ms:.4f} ms, bound {b:.4f} ms "
@@ -1707,9 +1749,11 @@ def phase_rows(dev, results, rows_cap,
                             gen.integers(-(1 << 16), 1 << 16, size=m)])
         v[:min(len(edge), 2 * m)] = edge[:2 * m]
         src = torch.from_numpy(v.astype(np.int64)).to(dev)
-        err["rows_from_i64"] = max(err["rows_from_i64"], require_equal(
-            f"rows_from_i64 ({2 * m} values)", [drows.from_i64(src)],
-            [drows.from_i64_plain(src)]))
+        # and a ragged view at an 8-byte offset
+        for part in (src, src[1:]):
+            err["rows_from_i64"] = max(err["rows_from_i64"], require_equal(
+                f"rows_from_i64 ({part.shape[0]} values)",
+                [drows.from_i64(part)], [drows.from_i64_plain(part)]))
     checked(results, "rows_from_i64", 0)
     lines = [f"kernel 7 bit-equal to its plain version at {ncmp} shapes "
              f"(P, n) in {[s[:2] for s in shapes]} and (27, 256) with the "
@@ -1717,7 +1761,7 @@ def phase_rows(dev, results, rows_cap,
              f"{len(drows.WEIGHT_KINDS)} weight layouts; kernel 4 in the "
              f"rows layout at (P, n) in {list(bind_shapes)}; kernel 8 at "
              f"{[2 * m for m in i64_sizes]} values (the int64 edges, full "
-             "range and small)"]
+             "range and small) and at one fewer from an 8-byte offset"]
 
     # -- kernel 7 against its plain version at every class the bench's own
     # instances launch it at (the first engine pass, not timed)
@@ -1807,7 +1851,8 @@ def phase_rows(dev, results, rows_cap,
         gen.integers(-(1 << 16), 1 << 16, size=n)]
     src = torch.from_numpy(np.concatenate(ints).astype(np.int64)).to(dev)
     ms8, call8, got = device_ms(lambda: drows.from_i64(src), 10,
-                                "rows_from_i64")
+                                "rows_from_i64", cold=True)
+    warm8 = device_ms(lambda: drows.from_i64(src), 10, "rows_from_i64")[0]
     plain8, want = cuda_ms(lambda: drows.from_i64_plain(src), 1,
                            warmup=False)
     err["rows_from_i64"] = max(err["rows_from_i64"], require_equal(
@@ -1815,9 +1860,11 @@ def phase_rows(dev, results, rows_cap,
     m8 = src.shape[0]
     lines.append("from_i64 " + timed(
         results, "rows_from_i64", f"that instance's {len(ints)} integer "
-        f"rows, {m8} values", ms8, m8, m8 * (8 + FR_BYTES), IMADS_PER_I64,
-        call8) + f", plain {plain8:.1f} ms")
+        f"rows, {m8} values, after an L2 flush", ms8, m8, m8 * (8 + FR_BYTES),
+        IMADS_PER_I64, call8) + f"; back to back (its {m8 * 40} bytes "
+        f"held in the L2) {warm8:.4f} ms; plain {plain8:.1f} ms")
     results["rows_from_i64"] = {"ms": ms8, "plain_ms": plain8,
+                                "ms_l2_warm": warm8,
                                 **results["timed"]["rows_from_i64"][-1]}
     for k, v in err.items():
         results[k]["max_abs_err"] = max(results[k].get("max_abs_err", 0.0),
@@ -1911,13 +1958,16 @@ def main() -> int:
                "shape": r["shape"]}
         if name == "blake2b_transcript":
             row["runs_in"] = "reduction_tail (device functions)"
+        if name == "pp_add":  # no launch in a prove
+            row["runs_in"] = "the MSM gate's calibration (device/gate.py)"
         if name == "reduction_bind":  # also the rows engine's bind
             row["also_replaces"] = \
                 "jolt_atlas_tpu/parallel/shardedrows.py:130"
             row["rows_layout"] = results["rows_bind"]
         for extra in ("bound_montgomery_ms", "share_montgomery",
-                      "bound_latency_ms", "share_latency", "latency"):
-            if extra in r:  # kernels 5 and 6: their second bounds
+                      "bound_latency_ms", "share_latency", "latency",
+                      "ms_l2_warm"):
+            if extra in r:  # kernels 1-3, 5 and 6: their second bounds
                 row[extra] = r[extra]
         if name in ("reduction_q0", "reduction_tail"):
             row["pair_round0"] = results["reduction_pair"]

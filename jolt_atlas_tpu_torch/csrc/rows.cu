@@ -53,16 +53,26 @@
 // (witness values, chunks, indicators). The reference converts every row
 // to Montgomery form on the host and sends 32 bytes an element
 // (shardedrows.py:303, p.to_field()); here such a row goes up as int64, 8
-// bytes an element, and a thread an element forms v R mod r as the
-// Montgomery product of |v| by R^2 mod r, negated when v < 0. Bound by
-// IMAD throughput (one product an element) next to 40 bytes moved.
+// bytes an element, and the card forms v R mod r. The function needs far
+// less than a Montgomery product by R^2 (608 SASS instructions for a value
+// of two nonzero words): with C = 2^320 mod r, two CIOS steps over the two
+// 32-bit words of |v| (a row of |v|_i C and one of m r each, 66 IMAD)
+// leave |v| C / 2^64 = |v| R mod r below 2r, so one conditional
+// subtraction makes it canonical, and r - x negates it where v < 0
+// (fr_from_u64, kept here: only this kernel converts integers). That
+// leaves the kernel bound by its 40 bytes an element. A thread takes one
+// element (an 8-byte load, two 16-byte stores) and a grid sized from the
+// card's SMs strides over them: on an H100 and the bench's 442,368 values
+// (scripts/rows_points_bench.py --i64-variants), two elements a thread
+// (one 16-byte load, a warp's stores spread over twice the lines) took
+// 1.8x as long, four 2.8x.
 #include <cuda_runtime.h>
 
 #include "fq.cuh"
 
 namespace jolt {
 
-constexpr int ROWS_THREADS = 128;  // kernel 8
+constexpr int ROWS_I64_THREADS = 256;  // kernel 8
 constexpr int ROWS_MAX_EVALS = 20;  // frvec GruenInstance.MAXE
 constexpr int ROWS_MAX_P = 96;      // frvec GruenInstance.MAXP
 constexpr int ROWS_MAX_SLICES = 16;
@@ -292,25 +302,50 @@ __global__ void __launch_bounds__(ROWS_MAX_BLOCK)
   if (tid == 0) *counter = 0;
 }
 
-// out[i] = src[i] (int64) as a canonical Montgomery Fr element
-__global__ void __launch_bounds__(ROWS_THREADS)
+// |v| R mod r, canonical, for |v| = u < 2^64: two CIOS steps over u's
+// words by C = 2^320 mod r. After each step t < 2r (u_i C + m r < 2^33
+// r), so t[8] = 0; after the second t = u C / 2^64 = u R (mod r).
+__device__ __forceinline__ Fr fr_from_u64(u64 u) {
+  constexpr u32 C[8] = {0x7c5fb586u, 0xb4c6edf9u, 0xbfeb93beu, 0x708c8d50u,
+                        0x04f7e0efu, 0x9ffd1de4u, 0x9a392866u, 0x215b02acu};
+  u32 c[8], p[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    c[j] = C[j];
+    p[j] = FrField::p(j);
+  }
+  u32 t[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mad_row(t, c, (u32)(u >> (32 * i)));
+    const u32 m = t[0] * FrField::N0;
+    mad_row(t, p, m);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) t[j] = t[j + 1];
+    t[9] = 0;
+  }
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = t[j];
+  mont_cond_sub<FrField>(r, 0);
+  return r;
+}
+
+// v as a canonical Montgomery Fr element: |v| R mod r, then r - x where
+// v < 0 (x != 0 there; -2^63's two's complement bits are |v|)
+__device__ __forceinline__ Fr fr_from_i64(int64_t v) {
+  const Fr x = fr_from_u64(v < 0 ? (u64)0 - (u64)v : (u64)v);
+  return v < 0 ? mont_neg_raw<FrField>(x) : x;
+}
+
+// out[i] = src[i] (int64) as a canonical Montgomery Fr element, a thread
+// an element, striding over the grid
+__global__ void __launch_bounds__(ROWS_I64_THREADS)
     rows_from_i64_kernel(const int64_t* __restrict__ src, int64_t n,
                          u64* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * ROWS_THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int64_t v = src[i];
-  const u64 u = v < 0 ? (u64)0 - (u64)v : (u64)v;  // |v|, also for -2^63
-  Fr a = fr_zero();
-  a.v[0] = (u32)u;
-  a.v[1] = (u32)(u >> 32);
-  Fr r2;  // R^2 mod r
-  constexpr u32 R2[8] = {0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u,
-                         0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u};
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r2.v[j] = R2[j];
-  Fr m = fr_mul(a, r2);
-  if (v < 0) m = fr_sub(fr_zero(), m);
-  store_fr(out, i, m);
+  for (int64_t i = (int64_t)blockIdx.x * ROWS_I64_THREADS + threadIdx.x;
+       i < n; i += (int64_t)gridDim.x * ROWS_I64_THREADS)
+    store_fr(out, i, fr_from_i64(src[i]));
 }
 
 }  // namespace jolt
@@ -364,14 +399,23 @@ extern "C" int jolt_rows_points(const void* x, int64_t n, int P, int nevals,
 }
 
 // out (n, 4 u64): src (n int64) as canonical Montgomery Fr elements. One
-// launch on `stream`, no allocation, returns cudaGetLastError().
+// launch on `stream` of enough blocks for n threads, at most as many as
+// the card's SMs hold at once (2048 threads an SM); no allocation,
+// returns cudaGetLastError().
 extern "C" int jolt_rows_from_i64(const void* src, int64_t n, void* out,
                                   void* stream) {
-  using jolt::u64;
+  using jolt::ROWS_I64_THREADS;
   if (n <= 0) return 0;
-  const int64_t blocks = (n + jolt::ROWS_THREADS - 1) / jolt::ROWS_THREADS;
-  jolt::rows_from_i64_kernel<<<(unsigned)blocks, jolt::ROWS_THREADS, 0,
-                               (cudaStream_t)stream>>>(
-      (const int64_t*)src, n, (u64*)out);
+  int dev = 0, sms = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc == 0)
+    rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+  if (rc != 0) return rc;
+  const int64_t need = (n + ROWS_I64_THREADS - 1) / ROWS_I64_THREADS;
+  const int64_t most = (int64_t)sms * (2048 / ROWS_I64_THREADS);
+  jolt::rows_from_i64_kernel<<<(unsigned)(need < most ? need : most),
+                               ROWS_I64_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)src, n, (jolt::u64*)out);
   return (int)cudaGetLastError();
 }

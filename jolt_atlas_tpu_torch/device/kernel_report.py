@@ -122,11 +122,20 @@ def sass_functions(text: str) -> dict:
     return out
 
 
+def _opcode(insn: str) -> str:
+    """An instruction's opcode, its guard predicate (@P0, @!P1) aside."""
+    words = insn.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
 def parse_sass(text: str) -> dict:
-    """{kernel: {"instructions", "digest"}} from cuobjdump -sass output:
-    the digest hashes each instruction's text (addresses and encodings
-    left out)."""
+    """{kernel: {"instructions", "imad", "digest"}} from cuobjdump -sass
+    output: the digest hashes each instruction's text (addresses and
+    encodings left out); imad counts the IMAD instructions (a guard
+    predicate aside)."""
     return {name: {"instructions": len(insns),
+                   "imad": sum(_opcode(i).startswith("IMAD")
+                               for i in insns),
                    "digest": hashlib.sha256(
                        "\n".join(insns).encode()).hexdigest()[:16]}
             for name, insns in sass_functions(text).items()}
@@ -311,15 +320,18 @@ extern "C" int jolt_chain_probe(void* out, unsigned x, unsigned y, int n,
 
 def probe_library(source: str, csrc: str, tmp: str):
     """``source`` built with nvcc (sm_90a, csrc on the include path) into a
-    shared library under ``tmp``, loaded with ctypes."""
+    shared library under ``tmp``, loaded with ctypes; ptxas's figures for
+    its kernels (``parse_ptxas``) as its ``ptxas`` attribute."""
     import ctypes
     src = os.path.join(tmp, "probe.cu")
     with open(src, "w") as f:
         f.write(source)
     lib = os.path.join(tmp, "libprobe.so")
-    _run([build.nvcc_path(), *ARCH, "-shared", "-Xcompiler",
-          "-fPIC", "-I", csrc, src, "-o", lib])
-    return ctypes.CDLL(lib)
+    log = _run([build.nvcc_path(), *ARCH, "-Xptxas", "-v", "-shared",
+                "-Xcompiler", "-fPIC", "-I", csrc, src, "-o", lib])
+    loaded = ctypes.CDLL(lib)
+    loaded.ptxas = parse_ptxas(log)
+    return loaded
 
 
 def int_latency(steps: int = 4096) -> dict:

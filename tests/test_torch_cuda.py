@@ -394,3 +394,44 @@ def test_rows_from_i64_kernel_matches_plain(gpu, n):
     got = drows.from_i64(src)
     assert _equal([got.cpu()], [drows.from_i64_plain(src.cpu())])
     assert telemetry.launches()["rows_from_i64"] - before == 1
+
+
+@pytest.mark.parametrize("n", [33, 4097, 442_369])
+def test_rows_from_i64_two_word_kernel(gpu, n):
+    """Kernel 8's two-word conversion (a grid sized from the SMs strided
+    over the values): warps that mix small values with full 64-bit ones of
+    either sign, -2^63 and 2^63 - 1 in every warp, ragged lengths (442,369
+    takes a second pass of the grid) and a view at an 8-byte offset."""
+    from jolt_atlas_tpu_torch.device import rows as drows
+    gen = np.random.default_rng(n)
+    v = gen.integers(-(1 << 63), (1 << 63) - 1, size=n + 1, dtype=np.int64,
+                     endpoint=True)
+    small = gen.random(n + 1) < 0.5
+    v[small] = gen.integers(-(1 << 16), 1 << 16, size=int(small.sum()))
+    v[::32] = -(1 << 63)
+    v[5::32] = (1 << 63) - 1
+    v[7::32] = 0
+    whole = torch.from_numpy(v).to(gpu)
+    for src in (whole[:n], whole[1:]):
+        got = drows.from_i64(src)
+        assert _equal([got.cpu()], [drows.from_i64_plain(src.cpu())])
+
+
+def test_pp_add_kernel_lazy_sums_edges_and_full_width(gpu, srs):
+    """Kernel 1's lazy sums where t4 = 0 (identity + identity: p itself
+    as a factor), with an affine point and its inverse beside it, and at
+    the gate's 2^17 lanes of projective inputs."""
+    bases = srs.device_bases(gpu, gate.forced("device")).bases
+    ident = curve.pp_identity(64, gpu)
+    P = tuple(torch.cat([a, b[:64]]) for a, b in zip(ident, bases))
+    Q = tuple(torch.cat([a, b[:64]]) for a, b in zip(ident, bases))
+    from jolt_atlas_tpu_torch.device import field as dfield
+    neg = dfield.sub4(torch.zeros_like(Q[1][64:]), Q[1][64:])
+    Q = (Q[0], torch.cat([Q[1][:64], neg]), Q[2])  # then P + (-P)
+    assert _equal(curve.pp_add(P, Q), curve.pp_add_plain(P, Q))
+    rng = np.random.default_rng(17)
+    i1, i2 = (torch.from_numpy(rng.integers(0, N, size=1 << 17)).to(gpu)
+              for _ in range(2))
+    R = curve.pp_add(tuple(b[i1] for b in bases), tuple(b[i2] for b in bases))
+    S = tuple(t.roll(3, 0) for t in R)
+    assert _equal(curve.pp_add(R, S), curve.pp_add_plain(R, S))

@@ -144,3 +144,86 @@ class TestPointAdd:
             curve.pp_add(tuple(t.to(torch.int32) for t in
                                curve.pp_identity(2, "cpu")),
                          curve.pp_identity(2, "cpu"))
+
+
+def _mul_sum2_model(a: int, b: int, c: int, d: int) -> tuple:
+    """csrc/fq.cuh mont_mul_sum2 over 32-bit words: 8 CIOS steps, each
+    adding a b_i, c d_i and m p (m = t N0 mod 2^32) and shifting one word,
+    then one conditional subtraction of p. (the largest running sum after
+    a step, the value before the subtraction, the result)."""
+    W = 1 << 32
+    n0 = (-pow(P, -1, W)) % W
+    t = top = 0
+    for i in range(8):
+        t += a * (b >> (32 * i) & (W - 1)) + c * (d >> (32 * i) & (W - 1))
+        t += (t % W) * n0 % W * P
+        assert t % W == 0 and t < 1 << 288  # 9 limbs: t[9] stays 0
+        t >>= 32
+        top = max(top, t)
+    return top, t, t - P if t >= P else t
+
+
+def _lazy_add_model(p1, p2, seen: dict) -> tuple:
+    """csrc/fq.cuh pp_add_dev in big-int arithmetic: six Montgomery
+    products, then X3, Y3 and Z3 each a sum of two products reduced once
+    (the difference as t3 t1 + (p - t4) Y3). Montgomery ints in and out;
+    ``seen`` notes a negated zero factor and the bounds reached."""
+    rinv = pow(1 << 256, -1, P)
+    mul = lambda a, b: a * b * rinv % P
+    add = lambda a, b: (a + b) % P
+    sub = lambda a, b: (a - b) % P
+    (X1, Y1, Z1), (X2, Y2, Z2) = p1, p2
+    t0, t1, t2 = mul(X1, X2), mul(Y1, Y2), mul(Z1, Z2)
+    t3 = sub(mul(add(X1, Y1), add(X2, Y2)), add(t0, t1))
+    t4 = sub(mul(add(Y1, Z1), add(Y2, Z2)), add(t1, t2))
+    Y3 = sub(mul(add(X1, Z1), add(X2, Z2)), add(t0, t2))
+    t0 = 3 * t0 % P
+    t2 = 9 * t2 % P
+    Z3, t1 = add(t1, t2), sub(t1, t2)
+    Y3 = 9 * Y3 % P
+    out = []
+    for a, b, c, d in ((t3, t1, P - t4, Y3), (Y3, t0, t1, Z3),
+                       (Z3, t4, t0, t3)):
+        seen["p_factor"] = seen.get("p_factor", False) or c == P
+        top, before, got = _mul_sum2_model(a, b, c, d)
+        seen["top"] = max(seen.get("top", 0), top)
+        seen["before"] = max(seen.get("before", 0), before)
+        assert got == (a * b + c * d) * rinv % P
+        out.append(got)
+    return tuple(out)
+
+
+def test_lazy_complete_add_model(pairs):
+    """Kernel 1's add with three sums of two products each reduced once,
+    modelled in big-int arithmetic over 32-bit words: limb for limb equal
+    to pp_add_plain on 1,024 random pairs of SRS points, their projective
+    sums, the identity, doubling and inverse cases (identity + identity
+    gives t4 = 0, so p itself as a factor) and raw coordinates near p, and
+    point for point equal to big-int addition. The sums' bounds, with a
+    factor p and every other word at its largest: the running sum below
+    4p after each step, the result below 2p (one subtraction)."""
+    Pt, Qt = _to_tensors(pairs[0]), _to_tensors(pairs[1])
+    S = curve.pp_add_plain(Pt, Qt)
+    Pe, Qe = curve.edge_case_pairs("cpu")
+    seen: dict = {}
+    for A, B in ((Pt, Qt), (S, tuple(t.roll(1, 0) for t in S)), (Pe, Qe)):
+        lanes = [list(zip(*(F.tensor_to_ints(t) for t in X))) for X in (A, B)]
+        got = [_lazy_add_model(a, b, seen) for a, b in zip(*lanes)]
+        want = curve.pp_add_plain(A, B)
+        assert got == list(zip(*(F.tensor_to_ints(t) for t in want)))
+        if A is Pt:
+            model = tuple(F.ints_to_tensor(c) for c in zip(*got))
+            assert _to_ref(model) == [a + b for a, b in zip(*pairs)]
+    assert seen["p_factor"]
+    assert seen["top"] < 4 * P and seen["before"] < 2 * P
+    ones = (1 << 256) - 1  # every word 2^32 - 1: the steps at their largest
+    top, before, _ = _mul_sum2_model(P, ones, P, ones)
+    assert top < 4 * P
+    _, before, got = _mul_sum2_model(P - 1, P - 1, P, P - 1)
+    assert before < 2 * P and got == ((P - 1) ** 2 + P * (P - 1)) * pow(
+        1 << 256, -1, P) % P
+    import os
+    fq = open(os.path.join(os.path.dirname(curve.__file__), "..", "csrc",
+                           "fq.cuh")).read()
+    assert "mont_mul_sum2<FqField>(t3, t1, mont_neg_raw<FqField>(t4), Y3)" \
+        in fq

@@ -49,6 +49,7 @@ from jolt_atlas_tpu_torch import convert, serde
 from jolt_atlas_tpu_torch.curve.points import g1_generator
 from jolt_atlas_tpu_torch.device import rows as R
 from jolt_atlas_tpu_torch.device import split, telemetry
+from jolt_atlas_tpu_torch.device.field import tensor_to_ints
 from jolt_atlas_tpu_torch.device.reduction import fr_of_row, mont_rows
 from jolt_atlas_tpu_torch.field.frvec import FrArray, GruenInstance
 from jolt_atlas_tpu_torch.field.scalar import Fr
@@ -369,16 +370,79 @@ def test_upload_mixes_integer_and_field_rows():
                           FrArray.from_i64(ints).d)
 
 
-def test_cuda_r2_constant():
-    """csrc/rows.cu's R^2 mod r, kernel 8's multiplier."""
+def _rows_cu_constant() -> int:
+    """csrc/rows.cu's C, kernel 8's multiplier, as an integer."""
     import os
     import re
     src = open(os.path.join(os.path.dirname(R.__file__), "..", "csrc",
                             "rows.cu")).read()
-    m = re.search(r"R2\[8\] = \{([^}]*)\}", src)
+    m = re.search(r"C\[8\] = \{([^}]*)\}", src)
     limbs = [int(x.strip().rstrip("u"), 16) for x in m.group(1).split(",")]
-    assert sum(v << (32 * i) for i, v in enumerate(limbs)) == pow(
-        2, 512, FR_MODULUS)
+    return sum(v << (32 * i) for i, v in enumerate(limbs))
+
+
+def test_cuda_r2_constant():
+    """csrc/rows.cu's constant C = 2^320 mod r, kernel 8's multiplier:
+    two CIOS steps by C over |v|'s two words divide by 2^64 and leave
+    |v| 2^256 = |v| R mod r."""
+    assert _rows_cu_constant() == pow(2, 320, FR_MODULUS)
+
+
+def _from_u64_model(u: int) -> tuple:
+    """csrc/rows.cu fr_from_u64 over 32-bit words: two CIOS steps, each a
+    row of u_i C and one of m r, then one conditional subtraction. (the
+    value before the subtraction, the result)."""
+    r, W = FR_MODULUS, 1 << 32
+    n0 = (-pow(r, -1, W)) % W
+    C = _rows_cu_constant()
+    t = 0
+    for i in range(2):
+        t += ((u >> (32 * i)) & (W - 1)) * C
+        m = (t % W) * n0 % W
+        t += m * r
+        assert t % W == 0 and t < 1 << 320  # mad_row's 10 words
+        t >>= 32
+    assert t < 1 << 256  # t[8] = 0
+    return t, t - r if t >= r else t
+
+
+def _from_i64_model(v: int) -> tuple:
+    """fr_from_i64: |v| (-2^63 included), then r - x where v < 0."""
+    before, x = _from_u64_model(-v if v < 0 else v)
+    return before, FR_MODULUS - x if v < 0 else x
+
+
+@pytest.mark.parametrize("v", [0, 1, -1, (1 << 32) - 1, 1 << 32,
+                               -((1 << 32) - 1), (1 << 63) - 1, -(1 << 63),
+                               (1 << 64) - 1, "random"])
+def test_two_word_conversion_model(v):
+    """Kernel 8's two-word conversion, modelled in big-int arithmetic over
+    32-bit words: below 2r before its one subtraction, and v R mod r after
+    it, at the edges (2^64 - 1 as |v| through fr_from_u64) and at 2,000
+    seeded random values of either sign; the int64 ones equal the plain
+    version's limbs too."""
+    r, Rm = FR_MODULUS, 1 << 256
+    if v == "random":
+        gen = np.random.default_rng(8)
+        vals = [int(x) for x in gen.integers(-(1 << 63), (1 << 63) - 1,
+                                             size=1000, dtype=np.int64,
+                                             endpoint=True)]
+        vals += [int(x) for x in gen.integers(-(1 << 16), 1 << 16,
+                                              size=1000)]
+    else:
+        vals = [v]
+    worst = 0
+    for x in vals:
+        before, got = (_from_u64_model(x) if x >= 1 << 63
+                       else _from_i64_model(x))
+        worst = max(worst, before)
+        assert before < 2 * r
+        assert 0 <= got < r and got == x * Rm % r
+    assert worst < 2 * r
+    ints = [x for x in vals if x < 1 << 63]
+    if ints:
+        plain = R.from_i64_plain(torch.tensor(ints, dtype=torch.int64))
+        assert tensor_to_ints(plain) == [_from_i64_model(x)[1] for x in ints]
 
 
 # ---------------------------------------------------------------------------
