@@ -82,6 +82,25 @@ script exits non-zero when any phase fails:
               conversion, upload, device rounds, handoff fetch and host
               rounds; kernel 7 held against its plain version at every
               shape class those instances launch it at.
+ 13. mesh     the bench prove under mesh_scope over 8 shards of the card
+              (parallel/), in one process and over a 1-rank NCCL group:
+              bytes equal the gate path's, the verifier accepts, the mesh
+              reduction and the mesh rows engine engage (their instances,
+              rounds and kernel 4, 5, 7 and 8 launches printed, the phase
+              seconds beside the gate path's); kernels 4, 5 and 7 held
+              against their plain versions at the first launch of every
+              shape class the mesh path makes; the sharded product round at
+              2^20 elements over 8 shards against the CPU plain path and
+              Python integers; dryrun_multichip(8).
+ 14. exact    kernel 9 (csrc/exact.cu) bit-equal to its plain version at
+              the example MLP's products, the one-block transformer's and
+              the bench's attention products (batched), K = 4096 with every
+              operand at 2^31 - 1, at -2^31, mixed and random, in both
+              modes at shifts 0, 1, 7, 8, 12, 16 and 24, and through the
+              einsum lowering; timed at 1024 x 768 x 3072 after an L2
+              flush beside its bound (2 IMAD a product) and beside 16
+              torch._int_mm limb products; entry() on the card against the
+              CPU forward.
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
@@ -89,13 +108,15 @@ card's IMAD peak (``bound``). Kernel times are the profiler's device
 durations (``device_ms``); the wrapper's call time, host work included,
 is printed beside them.
 
-Each path (gate calibration, split, the two device proves) runs with the
-launch counts set to 0 just before it and read just after; the kernels
-JSON sums them, and gives the traced prove's own launches. Every shape a
+Each path (gate calibration, split, the two device proves, the two mesh
+proves, the forward) runs with the launch counts set to 0 just before it
+and read just after; the kernels JSON sums them, and gives the traced
+prove's own launches and a mesh prove's. Every shape a
 path launched a kernel at (its lane count; for kernel 3 also its blocks
 per window; for kernels 4 and 5 their branch class; for kernel 7 its rows,
-points, terms, weight layout and launch plan) must be one that phases
-3-5, 11 and 12 held against the plain version, or the run fails. The
+points, terms, weight layout and launch plan; for kernel 9 its mode and
+whether it is batched) must be one that phases 3-5 and 11-14 held against
+the plain version, or the run fails. The
 second line from the end is that JSON, the last line {"ok": true,
 "device": {...}}. Imports nothing of JAX or jolt_atlas_tpu.
 """
@@ -205,6 +226,30 @@ def device_ms(fn, reps: int, kernel: str, counted: str | None = None,
         raise AssertionError(f"the profiler saw {len(hits)} of {launched} "
                              f"launches of {kernel} in {reps} calls")
     return sum(hits) / len(hits) * launched / 1e3 / reps, call, out
+
+
+def all_device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds a call of fn() spends in all the CUDA
+    kernels and copies it launches (torch ops included), from
+    torch.profiler's durations. The trace is padded by spin kernels
+    (``torch.cuda._sleep``), which are left out by their name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.005)
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad()
+        for _ in range(reps):
+            fn()
+        pad()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "spin" not in e.name)
+    return us / 1e3 / reps
 
 
 def max_abs_err(got, want) -> float:
@@ -968,6 +1013,10 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
         results, ("bucket_accumulate", "bucket_combine") + ROWS + REDUCTION,
         lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
     results["launches_per_prove"] = tele["launches"]
+    # what phase 13 proves again on the mesh, and the gate path beside it
+    results["bench"] = {"pp": pp, "toks": toks, "blob": blob,
+                        "gate": {k: out["gate"][k] for k in ("prove_s",
+                                                             "phases")}}
     # kernel 7: one launch a device round, in telemetry and in the trace
     rounds = re.search(r"(\d+) device rounds", tele["decisions"]["iop"])
     k7 = (tele["launches"].get("rows_points", 0),
@@ -1889,6 +1938,411 @@ def phase_rows(dev, results, rows_cap,
             "per_class": per}))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-device proving step on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def check_mesh_kernels(results, err: dict, largest: dict):
+    """While entered, kernels 4, 5 and 7 are each held bit-equal to their
+    plain versions (on the card) at the first launch of every shape class
+    the path makes, which is then checked; ``largest`` keeps each kernel's
+    largest launch (its size, its arguments, and for kernels 5 and 7 the
+    rows of the split-eq tables its gathered weights were made from and
+    the gather itself, as a call)."""
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    from jolt_atlas_tpu_torch.device import rows as drows
+    from jolt_atlas_tpu_torch.parallel import shardedreduction as SR
+    from jolt_atlas_tpu_torch.parallel import shardedrows as SW
+    real = (dred.q0, dred.bind, drows.points, SR._ShardedRows.weights,
+            SW.shard_weights)
+    seen: set = set()
+    gather: dict = {}  # the weights' source rows and gather, the last made
+
+    def table_rows(tables) -> int:
+        return sum(len(t) for whi, _, wlo, _ in tables for t in (whi, wlo)
+                   if t is not None)
+
+    def q0_weights(self, tables, lg):
+        # each instance as one single-card lane of its global length
+        lanep = torch.tensor([
+            [0, dred.ABSENT_SHIFT if whi is None else shift, 0,
+             0 if wlo is None else (1 << log_wlo) - 1]
+            for whi, shift, wlo, log_wlo in tables], dtype=torch.int64)
+        gather.update(rows=table_rows(tables) + 1, lanep=lanep,
+                      lg=lg + self.D.bit_length() - 1,
+                      call=lambda: real[3](self, tables, lg))
+        return real[3](self, tables, lg)
+
+    def points_weights(mesh, whi, whi_shift, wlo, log_wlo, m):
+        gather.update(rows=table_rows([(whi, 0, wlo, 0)]), call=lambda:
+                      real[4](mesh, whi, whi_shift, wlo, log_wlo, m))
+        return real[4](mesh, whi, whi_shift, wlo, log_wlo, m)
+
+    def first(kernel, case, got, plain, size, args):
+        if size > largest.get(kernel, (0,))[0]:
+            largest[kernel] = (size, args, dict(gather))
+        if (kernel, case) in seen:
+            return
+        seen.add((kernel, case))
+        err[kernel] = max(err.get(kernel, 0.0), require_equal(
+            f"{kernel} (mesh path, class {case})", [got], [plain()]))
+        checked(results, kernel, case)
+
+    def q0(*a):
+        got = real[0](*a)
+        first("reduction_q0", dred.q0_case(a[4]), got,
+              lambda: dred.q0_plain(*a), a[3] << a[4], a)
+        return got
+
+    def bind(*a):
+        got = real[1](*a)
+        first("reduction_bind", dred.bind_case(a[4], a[5]), got,
+              lambda: dred.bind_plain(*a), a[5] << a[6], a)
+        return got
+
+    def points(x, n, nevals, terms, w, tile=None, group=None):
+        got = real[2](x, n, nevals, terms, w, tile, group)
+        a = (x, n, nevals, terms, w)
+        first("rows_points", drows.kernel_case(*a), got,
+              lambda: drows.points_plain(*a), x.shape[0] * nevals, a)
+        return got
+
+    dred.q0, dred.bind, drows.points = q0, bind, points
+    SR._ShardedRows.weights, SW.shard_weights = q0_weights, points_weights
+    try:
+        yield seen
+    finally:
+        (dred.q0, dred.bind, drows.points, SR._ShardedRows.weights,
+         SW.shard_weights) = real
+
+
+def time_mesh_kernels(dev, results, largest: dict) -> dict:
+    """Kernels 4, 5 and 7 timed at the mesh path's largest launch of each
+    (device ms after an L2 flush, the call's ms, the bound of what this
+    data needs, the plain version's ms on the card). The bound of kernels
+    5 and 7 counts the split-eq tables the function needs, not the dense
+    tables gathered from them for each shard; those are reported beside
+    it (their bytes, the gather's device ms)."""
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    from jolt_atlas_tpu_torch.device import rows as drows
+    peak, out = results["imad_peak"], {}
+    plains = {"reduction_q0": dred.q0_plain, "reduction_bind":
+              dred.bind_plain, "rows_points": drows.points_plain}
+    calls = {"reduction_q0": dred.q0, "reduction_bind": dred.bind,
+             "rows_points": drows.points}
+    for kernel, (_, a, gather) in sorted(largest.items()):
+        ms, call, got = device_ms(lambda: calls[kernel](*a), 5, kernel,
+                                  cold=True)
+        plain_ms, want = cuda_ms(lambda: plains[kernel](*a), 1, warmup=False)
+        require_equal(f"{kernel} (mesh path, timed)", [got], [want])
+        if kernel == "reduction_q0":
+            _, tab, lanep, lanes, lg = a
+            shape = f"{lanes} lanes of 2^{lg}, gathered weights"
+            # the function's least: its terms, the split-eq tables and a
+            # value a lane, and the IMADs kernel 5's lazy sums need on the
+            # split-eq tables, each instance as one single-card lane of its
+            # global length (a process holds every shard). The gathered
+            # layout makes both weights vary a term: its count stands
+            # beside it
+            terms = lanes << (lg - 1)
+            nbytes = (terms + gather["rows"] + lanes) * FR_BYTES
+            b, by = bound(q0_lazy_imads(gather["lanep"], gather["lg"],
+                                        dred.Q0_PER_THREAD),
+                          nbytes, peak, 1)
+            gathered = tab.shape[0]
+            layout_ops = q0_lazy_imads(lanep.cpu(), lg, dred.Q0_PER_THREAD)
+        elif kernel == "reduction_bind":
+            jp, lanes, lg = a[4:]
+            shape = f"{jp} of {lanes} lanes continue, 2^{lg} each"
+            nc, nn = jp << lg, (lanes - jp) << lg
+            b, by = bound(nc, (3 * nc + 2 * nn) * FR_BYTES, peak,
+                          IMADS_PER_MUL)
+        else:
+            x, n, nevals, terms, w = a
+            P = x.shape[0] // n
+            shape = (f"{P} rows of {n} (a shard), {terms.T} terms, "
+                     f"{nevals} points, gathered weights")
+            need = rows_products(*a)[0]
+            b, by = bound(need, (P * n + nevals + gather["rows"])
+                          * FR_BYTES, peak, IMADS_PER_MUL)
+            gathered = n  # this shard's m whi and m wlo rows
+        out[kernel] = {"shape": shape, "ms": ms, "call_ms": call,
+                       "bound_ms": b, "bound_by": by, "share": b / ms,
+                       "plain_ms": plain_ms}
+        if kernel == "reduction_q0":
+            out[kernel]["bound_gathered_layout_ms"] = bound(
+                layout_ops, nbytes, peak, 1)[0]
+        if kernel != "reduction_bind":
+            out[kernel].update(
+                split_eq_table_bytes=gather["rows"] * FR_BYTES,
+                gathered_table_bytes=gathered * FR_BYTES,
+                gather_ms=all_device_ms(gather["call"], 5))
+    return out
+
+
+MESH = ("reduction_bind", "reduction_q0", "rows_points", "rows_from_i64")
+
+
+def phase_mesh(dev, results, shards: int = 8, log_t: int = 20) -> None:
+    """The bench prove under mesh_scope over ``shards`` shards of the card,
+    in one process and over a 1-rank NCCL group: bytes equal the gate
+    path's, the verifier accepts, both mesh engines engage; kernels 4, 5
+    and 7 held at every shape class the mesh path launches them at; the
+    sharded product round at 2^log_t elements against the CPU plain
+    version and Python integers; dryrun_multichip."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.device import telemetry
+    from jolt_atlas_tpu_torch.entry import dryrun_multichip
+    from jolt_atlas_tpu_torch.parallel import make_mesh, mesh_scope
+    from jolt_atlas_tpu_torch.parallel import mesh as M
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    from jolt_atlas_tpu_torch.utils import profiling
+    from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+    bench = results["bench"]
+    pp, toks, blob = bench["pp"], bench["toks"], bench["blob"]
+    err: dict = {}
+
+    def prove(group=None):
+        profiling.enable()
+        profiling.reset()
+        t0 = time.time()
+        with mesh_scope(make_mesh(shards, device=dev, group=group)):
+            proof, io = AtlasProver(pp, device=dev).prove([toks])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        phases = {name: round(w, 6) for name, w, _ in profiling._EVENTS
+                  if not name.startswith(" ")}
+        phases.update(span_sums("mesh_"))
+        return proof, io, wall, phases
+
+    largest: dict = {}
+    with check_mesh_kernels(results, err, largest) as seen:
+        prove()  # warm-up, each shape class held against its plain version
+    timed_mesh = time_mesh_kernels(dev, results, largest)
+    del largest
+    out = {}
+    verifier = AtlasVerifier(pp)
+    # a CPU rehearsal launches no kernel and has no NCCL
+    need = MESH if dev.type == "cuda" else ()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("virtual", backend):
+            group = None
+            if name == backend:
+                dist.init_process_group(
+                    backend, store=dist.FileStore(os.path.join(tmp, "store"),
+                                                  1), rank=0, world_size=1)
+                group = dist.group.WORLD
+            try:
+                (proof, io, wall, phases), tele = counted(
+                    results, need, lambda: prove(group))
+            finally:
+                if group is not None:
+                    dist.destroy_process_group()
+            d = tele["decisions"]
+            if serde.serialize_proof(proof) != blob:
+                raise AssertionError(f"{name} mesh proof bytes differ from "
+                                     f"the gate path's")
+            if not verifier.verify(proof, io):
+                raise AssertionError(f"verifier rejected the {name} mesh "
+                                     f"proof")
+            for k in ("mesh_reduction", "mesh_iop"):
+                if not d.get(k, "").startswith("ENGAGED"):
+                    raise AssertionError(f"{name}: {k} did not engage: {d}")
+            out[name] = {"prove_s": wall, "phases": phases,
+                         "mesh_iop": d["mesh_iop"],
+                         "mesh_iop_declined": d.get("mesh_iop:declined"),
+                         "mesh_reduction": d["mesh_reduction"],
+                         "launches": tele["launches"]}
+    results["launches_mesh_prove"] = out["virtual"]["launches"]
+    results["mesh_timed"] = timed_mesh
+    results["mesh_err"] = err
+
+    # the sharded product round: the card's kernels against its plain
+    # version on the card (FR planes, the reference's round op by op) and
+    # Python integers, timed beside its bound
+    import random
+    rng = random.Random(log_t)
+    T = 1 << log_t
+    eq = [rng.randrange(M.FR.P) for _ in range(T)]
+    p = [rng.randrange(M.FR.P) for _ in range(T)]
+    r = rng.randrange(M.FR.P)
+    eqt, pt, rt = (M.mont_tensor(v).to(dev) for v in (eq, p, [r]))
+    m = make_mesh(shards, device=dev)
+    blocks = (M.shard_blocks(m, eqt), M.shard_blocks(m, pt), rt)
+    round_fn = M.sharded_product_round(m)
+    telemetry.reset()
+    res = [x.cpu() for x in round_fn(*blocks)]
+    launches = telemetry.snapshot()["launches"]
+    if dev.type == "cuda" and not all(launches.get(k) for k in (
+            "rows_points", "reduction_bind")):
+        raise AssertionError(f"the product round did not launch kernels 7 "
+                             f"and 4: {launches}")
+    plain = [x.cpu() for x in M.product_round_planes(eqt, pt, rt)]
+    got = res[:2] + [x.reshape(-1, 4) for x in res[2:]]
+    if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+        raise AssertionError("sharded product round: the card differs from "
+                             "the plain version")
+    want = M.product_round_plain(eq, p, r)
+    if (M.ints_of(res[0])[0], M.ints_of(res[1])[0], M.ints_of(res[2]),
+            M.ints_of(res[3])) != want:
+        raise AssertionError("sharded product round differs from Python "
+                             "integers")
+    product_round = {"elements": T, "equal_plain_and_python_ints": True,
+                     "launches": launches}
+    if dev.type == "cuda":
+        # bytes: eq and p read, eq' and p' written; products: m0's and
+        # m2's T/2 each and the two binds' T/2 each
+        b, by = bound(2 * T, 3 * T * FR_BYTES, results["imad_peak"],
+                      IMADS_PER_MUL)
+        call = cuda_ms(lambda: round_fn(*blocks), 3)[0]
+        kms = kernels_ms(lambda: round_fn(*blocks), ("rows_points",
+                                                     "reduction_bind"), 3)
+        ms = all_device_ms(lambda: round_fn(*blocks), 3)
+        plain_ms = cuda_ms(lambda: M.product_round_planes(eqt, pt, rt),
+                           1)[0]
+        product_round.update(ms=ms, kernels_ms=kms, call_ms=call,
+                             bound_ms=b, bound_by=by, share=b / ms,
+                             plain_ms=plain_ms)
+    del blocks, eqt, pt, round_fn
+    t0 = time.time()
+    dryrun_multichip(shards, device=dev)
+    dry_s = time.time() - t0
+    say("mesh", json.dumps({
+        "shards": shards, "proof_bytes": len(blob),
+        "bytes_equal_gate_path": True, "verified": True,
+        "gate_path": bench["gate"], "mesh": out,
+        "classes_held": sorted(f"{k} {c}" for k, c in seen),
+        "kernels_at_largest_launch": timed_mesh,
+        "max_abs_err": err,
+        "product_round": product_round,
+        "dryrun_multichip_s": dry_s}))
+
+
+# ---------------------------------------------------------------------------
+# phase 14: kernel 9, the exact matrix product, and the quantized forward
+# ---------------------------------------------------------------------------
+
+EXACT_SHIFTS = (0, 1, 7, 8, 12, 16, 24)
+
+
+def exact_cases(gen: np.random.Generator) -> list:
+    """(name, a (B, M, K), b (B, K, N)) int32: the example MLP's products,
+    the one-block transformer's (16 x 16 x 16) and the bench's attention
+    products batched (4 heads, seq 64, d16), K = 4096 at the extremes."""
+    lo, hi = -(2**31), 2**31 - 1
+    rnd = lambda shape, lim: gen.integers(-lim, lim, size=shape,
+                                          dtype=np.int32)
+    mixed = np.full((1, 8, 4096), lo, np.int32)
+    mixed[..., ::3] = hi
+    return [("mlp 8x64x128", rnd((1, 8, 64), 2**10), rnd((1, 64, 128), 2**8)),
+            ("mlp 8x128x32", rnd((1, 8, 128), 2**10), rnd((1, 128, 32), 2**8)),
+            ("block 16x16x16", rnd((1, 16, 16), 2**12), rnd((1, 16, 16), 2**12)),
+            ("heads 4x64x16x64", rnd((4, 64, 16), 2**14),
+             rnd((4, 16, 64), 2**14)),
+            ("heads 4x64x64x16", rnd((4, 64, 64), 2**14),
+             rnd((4, 64, 16), 2**14)),
+            ("K4096 max", np.full((1, 8, 4096), hi, np.int32),
+             np.full((1, 4096, 8), hi, np.int32)),
+            ("K4096 min", np.full((1, 8, 4096), lo, np.int32),
+             np.full((1, 4096, 8), lo, np.int32)),
+            ("K4096 mixed", mixed, np.full((1, 4096, 8), hi, np.int32)),
+            ("K4096 random", rnd((1, 65, 4096), 2**31),
+             rnd((1, 4096, 70), 2**31))]
+
+
+def phase_exact(dev, results, timed_shape=(1024, 768, 3072)) -> None:
+    """Kernel 9 bit-equal to its plain version (run on the card) at
+    ``exact_cases`` in both modes and every shift of EXACT_SHIFTS, through
+    the einsum lowering of the transformer's equations, and timed at a
+    GPT-2 sized product beside its bound; entry() on the card against the
+    CPU forward."""
+    from jolt_atlas_tpu_torch import torchexec
+    from jolt_atlas_tpu_torch.entry import entry
+    gen = np.random.default_rng(1414)
+    err, n = 0.0, 0
+    for name, a, b in exact_cases(gen):
+        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        for wrap in (False, True):
+            for shift in EXACT_SHIFTS:
+                err = max(err, require_equal(
+                    f"exact_matmul ({name}, wrap {wrap}, shift {shift})",
+                    [torchexec.exact_matmul(ta, tb, shift, wrap)],
+                    [torchexec.exact_matmul_plain(ta, tb, shift, wrap)]))
+                n += 1
+            checked(results, "exact_matmul",
+                    torchexec.exact_case(a.shape[0], wrap))
+    # the transformer's equations through the lowering (strided operands)
+    for eq, sa, sb in [("mk,kn->mn", (16, 16), (16, 16)),
+                       ("mk,nk->mn", (16, 16), (16, 16)),
+                       ("bi,ij->bj", (1, 32), (32, 16)),
+                       ("hmk,hnk->hmn", (4, 64, 16), (4, 64, 16)),
+                       ("hmn,hnk->hmk", (4, 64, 64), (4, 64, 16))]:
+        x = torch.from_numpy(gen.integers(-2**14, 2**14, size=sa,
+                                          dtype=np.int32))
+        y = torch.from_numpy(gen.integers(-2**14, 2**14, size=sb,
+                                          dtype=np.int32))
+        err = max(err, require_equal(
+            f"einsum {eq} on the card", [torchexec.einsum_rescale(
+                eq, x.to(dev), y.to(dev), 8).cpu()],
+            [torchexec.einsum_rescale(eq, x, y, 8)]))
+        n += 1
+    # the forward, the path that launches kernel 9
+    def forward():
+        fn, args = entry(dev)
+        t0 = time.time()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        return got, time.time() - t0
+
+    (out, fwd_s), tele = counted(
+        results, ("exact_matmul",) if dev.type == "cuda" else (), forward)
+    cfn, cargs = entry(device="cpu")
+    if not all(torch.equal(o.cpu(), w) for o, w in zip(out, cfn(*cargs))):
+        raise AssertionError("entry() on the card differs from the CPU "
+                             "forward")
+    # timed at a GPT-2 sized product, i32 in a scale-2^12 range
+    M, K, N = timed_shape
+    a = torch.from_numpy(gen.integers(-2**14, 2**14, size=(1, M, K),
+                                      dtype=np.int32)).to(dev)
+    b = torch.from_numpy(gen.integers(-2**14, 2**14, size=(1, K, N),
+                                      dtype=np.int32)).to(dev)
+    ms, call, got = device_ms(lambda: torchexec.exact_matmul(a, b, 12), 10,
+                              "exact_matmul", cold=True)
+    plain_ms, want = cuda_ms(lambda: torchexec.exact_matmul_plain(a, b, 12),
+                             3)
+    err = max(err, require_equal("exact_matmul (timed shape)", [got],
+                                 [want]))
+    checked(results, "exact_matmul", torchexec.exact_case(1, False))
+    nbytes = 4 * (M * K + K * N + M * N)
+    bnd, by = bound(M * K * N, nbytes, results["imad_peak"], 2)
+    a8 = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev)
+    b8 = torch.randint(-128, 128, (K, N), dtype=torch.int8, device=dev)
+    try:
+        int_mm_ms = cuda_ms(lambda: [torch._int_mm(a8, b8)
+                                     for _ in range(16)], 5)[0]
+        int_mm = None
+    except RuntimeError as e:  # the yardstick only, not the port's path
+        int_mm_ms, int_mm = None, str(e).splitlines()[0]
+    results["exact_matmul"] = {
+        "max_abs_err": err, "ms": ms, "call_ms": call, "plain_ms": plain_ms,
+        "bound_ms": bnd, "bound_by": by, "share": bnd / ms,
+        "shape": f"{M}x{K}x{N}, shift 12, after an L2 flush",
+        "int_mm_16_ms": int_mm_ms}
+    say("exact", json.dumps({
+        "compared": n, "max_abs_err": err,
+        "entry": {"outputs": [list(o.shape) for o in out],
+                  "forward_s": fwd_s, "launches": tele["launches"],
+                  "equal_cpu_forward": True},
+        "timed": results["exact_matmul"],
+        "int_mm_16_error": int_mm}))
+
+
 KERNELS = (
     ("pp_add", "jolt_atlas_tpu_torch/csrc/curve.cu",
      "jolt_atlas_tpu/tpu/pallas_curve.py:174"),
@@ -1912,6 +2366,9 @@ KERNELS = (
     # the reference converts the rows on the host (p.to_field())
     ("rows_from_i64", "jolt_atlas_tpu_torch/csrc/rows.cu",
      "jolt_atlas_tpu/parallel/shardedrows.py:303"),
+    # the exact forward's products (torchexec.py; no prove launches it)
+    ("exact_matmul", "jolt_atlas_tpu_torch/csrc/exact.cu",
+     "jolt_atlas_tpu/jaxexec.py:34"),
 )
 
 
@@ -1942,6 +2399,8 @@ def main() -> int:
     phase_reduction(dev, results, cap)
     del cap
     phase_rows(dev, results, rows_cap)
+    phase_mesh(dev, results)
+    phase_exact(dev, results)
     require_checked(results)
     launches = results["launches"]
     kernels = []
@@ -1974,6 +2433,15 @@ def main() -> int:
         if name == "rows_points":
             row["plan"] = r["plan"]
             row["bound_term_by_term_ms"] = r["bound_term_by_term_ms"]
+        if name in MESH:  # also the mesh path's (phase 13)
+            row["launches_mesh_prove"] = results[
+                "launches_mesh_prove"].get(name, 0)
+            if name in results["mesh_timed"]:
+                row["mesh_largest_launch"] = results["mesh_timed"][name]
+        if name == "exact_matmul":
+            row["runs_in"] = "the quantized forward (entry(), torchexec.py)"
+            row["int_mm_16_ms"] = r["int_mm_16_ms"]
+            row["also_replaces"] = "jolt_atlas_tpu/jaxexec.py:71, :163"
         kernels.append(row)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

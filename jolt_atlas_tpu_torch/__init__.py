@@ -25,7 +25,12 @@ Layer map (mirrors reference layers L0-L4, see SURVEY.md):
                   (reference: atlas-onnx-tracer)
   - zkops/        per-operator proof layer (reference: jolt-atlas-core ops)
   - device/       PyTorch tensors + hand-written CUDA kernels: the device
-                  MSM engine that carries commit and hyperkzg_open
+                  MSM engine that carries commit and hyperkzg_open, the
+                  opening reduction and the IOP rows engine
+  - parallel/     the ("dp", "sp") mesh: the opening reduction and the IOP
+                  rows sharded over it (torch.distributed collectives)
+  - torchexec     the exact quantized forward (an exact-product kernel)
+  - entry         the package's entry points: entry(), dryrun_multichip()
 """
 
 __version__ = "0.1.0"

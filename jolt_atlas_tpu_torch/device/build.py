@@ -193,6 +193,7 @@ SIGNATURES = {
                                                               _CI, _CI, _CI]
     + [_VP] * 4,
     "jolt_rows_from_i64": [_VP, _I64, _VP, _VP],
+    "jolt_exact_matmul": [_VP] * 3 + [_I64] * 10 + [_CI, _CI, _VP],
 }
 
 _CUDA = None

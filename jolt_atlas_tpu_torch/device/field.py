@@ -169,6 +169,20 @@ class PrimeField:
             x = s.reshape(NLIMBS, m, h)
         return x[:, :, 0]
 
+    # -- the reference's (n, 16) Fr engine's reductions (field/jaxfr.py:
+    # sum_reduce :251, dot :266), for parallel/mesh.py's plain product
+    # round. jaxfr keeps values below 2r and needs to_canonical (:240) to
+    # compare them; every output here is already canonical, so
+    # to_canonical has no counterpart, and mont_mul_scalar (:174) is
+    # ``mul`` with a (16, 1) column.
+    def sum_reduce(self, a: torch.Tensor) -> torch.Tensor:
+        """(16, n) planes -> (16, 1): the sum of the n values."""
+        return self.sum(a[:, None, :])
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """(16, 1): sum_i a_i b_i of two (16, n) planes."""
+        return self.sum_reduce(self.mul(a, b))
+
     # -- the same on the (n, 4) host layout
     def mul4(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return from_planes(self.mul(to_planes(a), to_planes(b)))

@@ -27,8 +27,8 @@ first ``head_rounds`` rounds on the card, where the rows are largest:
 
 The round messages, and so the proof bytes, equal the host engine's.
 
-The reference's mesh ('sp' axis, cyclic layout, psum of limb planes) has no
-counterpart: on one device its psum is the identity. Its switches
+The reference's mesh ('sp' axis, cyclic layout, psum of limb planes) is
+parallel/shardedrows.py's, which builds on this engine. Its switches
 (JOLT_ATLAS_TPU_IOP, the relay link model, JOLT_ATLAS_MESH_MIN_N,
 JOLT_ATLAS_MESH_HEAD_ROUNDS, JOLT_ATLAS_MESH_MAX_P) are one argument, the
 gate (``RowsGate``, ``forced``), given to ``AtlasProver(iop_gate=)``; the
@@ -99,24 +99,27 @@ def work(n: int, factors: int, degree: int) -> int:
 class RowsGate:
     """Which instances the engine takes: on a CUDA device, those of at
     least ``min_n`` elements a row and ``min_work`` (``work``), at most
-    MAX_P rows and MAX_EVALS points, for ``head_rounds`` rounds;
+    ``max_p`` rows and MAX_EVALS points, for ``head_rounds`` rounds;
     ``forced``, the same on any device (the plain versions on a CPU
-    one)."""
+    one). The mesh rows engine (parallel/shardedrows.py) takes its
+    instances through one too (``shardedrows.mesh_gate``)."""
 
     def __init__(self, head_rounds: int = HEAD_ROUNDS, min_n: int = MIN_N,
-                 forced: bool = False, min_work: int = MIN_WORK):
+                 forced: bool = False, min_work: int = MIN_WORK,
+                 max_p: int = MAX_P):
         self.head_rounds = head_rounds
         self.min_n = min_n
         self.forced = forced
         self.min_work = min_work
+        self.max_p = max_p
 
     def decline(self, P: int, n: int, degree: int,
                 factors: int) -> str | None:
         """Why the engine does not take an instance of P rows of n
         elements, this degree and ``factors`` factors over its terms, or
         None."""
-        if P > MAX_P:
-            return f"P > {MAX_P}"
+        if P > self.max_p:
+            return f"P > {self.max_p}"
         if max(1, degree) > MAX_EVALS:
             return f"degree > {MAX_EVALS}"
         if n < max(self.min_n, 2):
@@ -647,33 +650,37 @@ class DeviceGruen:
         return self._host.row_value(i)
 
 
-_SCOPE = None
+_SCOPES: dict = {}  # the entered scope of each label
 
 
 class IopScope:
-    """While entered (the prover's IOP loop), RowsInstance.setup_rows
-    offers its eq-weighted instances to ``try_setup``. Counts what was
-    offered, engaged and declined; on exit records the decision in
-    telemetry: decisions["iop"] and, for the declines, "iop:declined"."""
+    """While entered, RowsInstance.setup_rows offers its eq-weighted
+    instances to the engine of ``label``: "iop", this module's
+    ``try_setup`` (the prover's IOP loop), or "mesh_iop", the mesh rows
+    engine (parallel/shardedrows.py, under its mesh_scope). Counts what
+    was offered (``offer``), engaged and declined and the engine's
+    rounds; on exit records the decision in telemetry: decisions[label]
+    and, for the declines, label + ":declined"."""
 
-    def __init__(self, device, gate: RowsGate):
+    def __init__(self, device, gate: RowsGate, label: str = "iop",
+                 where: str = "device"):
         self.device = torch.device(device)
         self.gate = gate
+        self.label = label
+        self.where = where
         self.offered = self.engaged = self.elements = self.rounds = 0
         self.declined: dict[str, int] = {}
 
     def __enter__(self):
-        global _SCOPE
-        self._prev = _SCOPE
-        _SCOPE = self
+        self._prev = _SCOPES.get(self.label)
+        _SCOPES[self.label] = self
         return self
 
     def __exit__(self, *exc):
-        global _SCOPE
-        _SCOPE = self._prev
-        telemetry.decide("iop", self.summary())
+        _SCOPES[self.label] = self._prev
+        telemetry.decide(self.label, self.summary())
         if self.declined:
-            telemetry.decide("iop:declined", ", ".join(
+            telemetry.decide(f"{self.label}:declined", ", ".join(
                 f"{why}: {k}" for why, k in sorted(self.declined.items())))
         return False
 
@@ -683,7 +690,7 @@ class IopScope:
     def summary(self) -> str:
         if self.engaged:
             return (f"ENGAGED ({self.engaged} of {self.offered} instances, "
-                    f"{self.elements} elements, {self.rounds} device "
+                    f"{self.elements} elements, {self.rounds} {self.where} "
                     f"rounds)")
         return f"none engaged ({self.offered} instances offered)"
 
@@ -700,21 +707,20 @@ def iop_scope(device, gate: RowsGate | None = None) -> IopScope | None:
     return IopScope(device, gate)
 
 
-def active() -> IopScope | None:
-    return _SCOPE
+def active(label: str = "iop") -> IopScope | None:
+    return _SCOPES.get(label)
 
 
-def try_setup(rows, terms, degree: int) -> DeviceGruen | None:
-    """A DeviceGruen for this instance under the active scope, or None (no
-    scope, or the gate declined: the caller uses the host engine; the
-    reason is counted in the scope). ``rows``: as the host GruenInstance
-    takes them, each an FrArray or a vector of small integers."""
-    sc = _SCOPE
-    if sc is None or not rows:
-        return None
+def offer(sc: IopScope, rows, terms, degree: int,
+          why: str | None = None) -> bool:
+    """Offer an instance to the scope's engine: True if it takes it
+    (counted as engaged), False if ``why`` (the engine's own reason), the
+    gate, unequal rows or rows that are not field vectors decline it (the
+    reason counted in the scope)."""
     sc.offered += 1
     P, n = len(rows), len(rows[0])
-    why = sc.gate.decline(P, n, degree, sum(len(f) for _, f in terms))
+    if why is None:
+        why = sc.gate.decline(P, n, degree, sum(len(f) for _, f in terms))
     if why is None and any(len(rw) != n for rw in rows):
         why = "rows of unequal length"
     if why is None and not all(isinstance(rw, (FrArray, np.ndarray))
@@ -722,11 +728,21 @@ def try_setup(rows, terms, degree: int) -> DeviceGruen | None:
         why = "rows not field vectors"
     if why is not None:
         sc.decline(why)
-        return None
-    g = DeviceGruen(rows, terms, degree, sc.device, sc.gate.head_rounds, sc)
+        return False
     sc.engaged += 1
     sc.elements += P * n
-    return g
+    return True
+
+
+def try_setup(rows, terms, degree: int) -> DeviceGruen | None:
+    """A DeviceGruen for this instance under the active scope, or None (no
+    scope, or the gate declined: the caller uses the host engine; the
+    reason is counted in the scope). ``rows``: as the host GruenInstance
+    takes them, each an FrArray or a vector of small integers."""
+    sc = active()
+    if sc is None or not rows or not offer(sc, rows, terms, degree):
+        return None
+    return DeviceGruen(rows, terms, degree, sc.device, sc.gate.head_rounds, sc)
 
 
 # ---------------------------------------------------------------------------

@@ -253,16 +253,21 @@ class ProverOpeningAccumulator:
                      for m in _group_by_point(pending)]
         for inst in instances:
             inst.prepare(poly_map)
-        # zk mode keeps the host path: the device engine produces cleartext
+        # zk mode keeps the host path: the device engines produce cleartext
         # round messages; BatchedSumcheck.prove dispatches to the
-        # Pedersen-committed zk variant itself. The mesh-sharded form
-        # (jolt_atlas_tpu/parallel/shardedreduction.py) is not ported.
+        # Pedersen-committed zk variant itself. Otherwise the mesh-sharded
+        # engine when a mesh scope is active (parallel/shardedreduction.py),
+        # then the single-device one (device/reduction.py), then the host.
         from ..device import reduction, telemetry
+        from ..parallel import shardedreduction
         from ..subprotocols.sumcheck import zk_mode
         res = None
         if zk_mode.gens() is None:
-            res = reduction.try_prove(instances, self, transcript, device,
-                                      gate)
+            if shardedreduction.active_mesh() is not None:
+                res = shardedreduction.try_prove(instances, self, transcript)
+            if res is None:
+                res = reduction.try_prove(instances, self, transcript, device,
+                                          gate)
         else:
             telemetry.decide("reduction", "zk")
         if res is None:

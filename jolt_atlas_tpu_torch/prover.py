@@ -261,8 +261,16 @@ class AtlasProver:
         # --- reverse-topological IOP ---
         # the rows engine's scope (device/rows.py; the reference's
         # single-chip mesh scope), or None for the host path: the IOP's
-        # dense Gruen instances run their head rounds on the device
-        scope = drows.iop_scope(self.device, self.iop_gate)
+        # dense Gruen instances run their head rounds on the device. It
+        # steps aside while a mesh scope is active: the mesh engine
+        # (parallel/shardedrows.py) takes them.
+        from .parallel import shardedreduction
+        if shardedreduction.active_mesh() is not None:
+            from .device import telemetry
+            telemetry.decide("iop", "mesh scope active")
+            scope = None
+        else:
+            scope = drows.iop_scope(self.device, self.iop_gate)
         with span("iop"), scope or contextlib.nullcontext():
             for node in reversed(model.graph.sorted_nodes()):
                 claims = collect_node_claims(accumulator, node.idx)

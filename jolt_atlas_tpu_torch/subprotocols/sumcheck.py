@@ -92,12 +92,16 @@ class RowsInstance:
             if (len(mlpolys) <= frvec.GruenInstance.MAXP
                     and max(1, degree) <= frvec.GruenInstance.MAXE):
                 from ..device import rows as drows
+                from ..parallel import shardedrows
                 from ..poly.spliteq import SplitEq
                 rows = [p.ints if p.is_small() else p.to_field()
                         for p in mlpolys]
-                # the head rounds on the card (device/rows.py) while the
-                # prover's IOP scope is active; byte-identical messages
-                self._gruen = (drows.try_setup(rows, terms, degree)
+                # the head rounds on the mesh's shards while a mesh scope is
+                # active (parallel/shardedrows.py), else on the card while
+                # the prover's IOP scope is (device/rows.py), else on the
+                # host; byte-identical messages
+                self._gruen = (shardedrows.try_setup(rows, terms, degree)
+                               or drows.try_setup(rows, terms, degree)
                                or frvec.GruenInstance(rows, terms, degree))
                 self._se = SplitEq(eq_r, pre_vars=eq_pre, post_vars=eq_post)
                 self._rows_terms = terms

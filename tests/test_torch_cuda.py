@@ -435,3 +435,137 @@ def test_pp_add_kernel_lazy_sums_edges_and_full_width(gpu, srs):
     R = curve.pp_add(tuple(b[i1] for b in bases), tuple(b[i2] for b in bases))
     S = tuple(t.roll(3, 0) for t in R)
     assert _equal(curve.pp_add(R, S), curve.pp_add_plain(R, S))
+
+
+# ---------------------------------------------------------------------------
+# kernel 9 (the exact matrix product) and the mesh path
+# ---------------------------------------------------------------------------
+
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+def _exact_cases():
+    """(name, a (B, M, K), b (B, K, N), shifts): the saturation edges at K =
+    4096, the example MLP's products, ragged tiles, a batch."""
+    gen = np.random.default_rng(90)
+    full = lambda s, v: np.full(s, v, np.int32)
+    rnd = lambda s, lim: gen.integers(-lim, lim, size=s, dtype=np.int32)
+    mixed = full((1, 3, 4096), I32_MIN)
+    mixed[..., ::3] = I32_MAX
+    return [("max", full((1, 3, 4096), I32_MAX), full((1, 4096, 5), I32_MAX)),
+            ("min", full((1, 3, 4096), I32_MIN), full((1, 4096, 5), I32_MIN)),
+            ("mixed", mixed, full((1, 4096, 5), I32_MAX)),
+            ("random32", rnd((1, 65, 4096), 2**31), rnd((1, 4096, 70), 2**31)),
+            ("mlp1", rnd((1, 8, 64), 2**10), rnd((1, 64, 128), 2**8)),
+            ("mlp2", rnd((1, 8, 128), 2**10), rnd((1, 128, 32), 2**8)),
+            ("batched", rnd((4, 33, 16), 2**20), rnd((4, 16, 65), 2**20))]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_exact_matmul_kernel_matches_plain(gpu, case):
+    from jolt_atlas_tpu_torch import torchexec
+    name, a, b = _exact_cases()[case]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for wrap in (False, True):
+        for shift in (0, 1, 7, 8, 12, 16, 24):
+            got = torchexec.exact_matmul(ta.to(gpu), tb.to(gpu), shift, wrap)
+            want = torchexec.exact_matmul_plain(ta, tb, shift, wrap)
+            assert torch.equal(got.cpu(), want), (name, wrap, shift)
+            # the plain version runs on the card too (float64 limb sums)
+            on_card = torchexec.exact_matmul_plain(ta.to(gpu), tb.to(gpu),
+                                                   shift, wrap)
+            assert torch.equal(on_card.cpu(), want), (name, wrap, shift)
+
+
+def test_exact_matmul_kernel_strided_einsums(gpu):
+    """Every lowered einsum reads its operands through strides (a
+    transposed operand, a broadcast batch): equal to the CPU path."""
+    from jolt_atlas_tpu_torch import torchexec
+    gen = np.random.default_rng(91)
+    for eq, sa, sb in [("mk,nk->mn", (40, 24), (72, 24)),
+                       ("hmk,hnk->hmn", (4, 64, 16), (4, 64, 16)),
+                       ("hmn,hnk->hmk", (4, 64, 64), (4, 64, 16)),
+                       ("bmk,kn->bmn", (2, 24, 16), (16, 40)),
+                       ("kn,k->n", (16, 72), (16,))]:
+        x = torch.from_numpy(gen.integers(-2**30, 2**30, size=sa,
+                                          dtype=np.int32))
+        y = torch.from_numpy(gen.integers(-2**30, 2**30, size=sb,
+                                          dtype=np.int32))
+        for shift in (0, 12):
+            got = torchexec.einsum_rescale(eq, x.to(gpu), y.to(gpu), shift)
+            want = torchexec.einsum_rescale(eq, x, y, shift)
+            assert torch.equal(got.cpu(), want), eq
+
+
+def test_entry_on_gpu_matches_cpu(gpu):
+    from jolt_atlas_tpu_torch.entry import entry
+    before = telemetry.launches().get("exact_matmul", 0)
+    fn, args = entry()
+    got = fn(*args)
+    assert telemetry.launches()["exact_matmul"] - before == 2
+    cfn, cargs = entry(device="cpu")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, cfn(*cargs)))
+
+
+@pytest.mark.parametrize("nccl", [False, True])
+def test_mesh_prove_on_gpu_matches_host(gpu, nccl, tmp_path):
+    """The one-block transformer under an 8-shard mesh on the card (in one
+    process, or a 1-rank NCCL group): bytes equal the host prove, both
+    mesh engines engage through kernels 4, 5, 7 and 8."""
+    import torch.distributed as dist
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.parallel import make_mesh, mesh, mesh_scope
+    from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    model, toks = mesh.one_block_transformer()
+    pp = AtlasPreprocessing.preprocess(model)
+    want = serde.serialize_proof(AtlasProver(pp, device="cpu").prove(
+        [toks])[0])
+    group = None
+    if nccl:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(tmp_path / "store"), 1), rank=0, world_size=1)
+        group = dist.group.WORLD
+    try:
+        telemetry.reset()
+        with mesh_scope(make_mesh(8, device=gpu, group=group)):
+            proof, _ = AtlasProver(pp, msm_gate=gate.forced("host")).prove(
+                [toks])
+        tele = telemetry.snapshot()
+    finally:
+        if nccl:
+            dist.destroy_process_group()
+    assert serde.serialize_proof(proof) == want
+    assert tele["decisions"]["mesh_reduction"].startswith("ENGAGED (8 ")
+    assert tele["decisions"]["mesh_iop"].startswith("ENGAGED")
+    for k in ("reduction_bind", "reduction_q0", "rows_points",
+              "rows_from_i64"):
+        assert tele["launches"].get(k), (k, tele["launches"])
+
+
+def test_sharded_product_round_on_gpu(gpu):
+    import random
+    from jolt_atlas_tpu_torch.parallel import make_mesh, mesh as M
+    rng = random.Random(12)
+    T = 1 << 12
+    eq = [rng.randrange(FR_MODULUS) for _ in range(T)]
+    p = [rng.randrange(FR_MODULUS) for _ in range(T)]
+    r = rng.randrange(FR_MODULUS)
+    m = make_mesh(8, device=gpu)
+    out = M.sharded_product_round(m)(M.shard_blocks(m, M.mont_tensor(eq)),
+                                     M.shard_blocks(m, M.mont_tensor(p)),
+                                     M.mont_tensor([r]).to(gpu))
+    got = (M.ints_of(out[0])[0], M.ints_of(out[1])[0],
+           M.ints_of(out[2].cpu()), M.ints_of(out[3].cpu()))
+    assert got == M.product_round_plain(eq, p, r)
+    planes = [M.ints_of(x.cpu()) for x in M.product_round_planes(
+        *(M.mont_tensor(v).to(gpu) for v in (eq, p, [r])))]
+    assert got == (planes[0][0], planes[1][0], planes[2], planes[3])
+
+
+def test_compile_forward_defaults_to_the_card(gpu):
+    from jolt_atlas_tpu_torch import torchexec
+    model, xq = torchexec.example_mlp()
+    out = torchexec.compile_forward(model)(torch.as_tensor(xq, device=gpu))
+    assert out[0].device.type == "cuda"
+    assert np.array_equal(out[0].cpu().numpy(), model.forward([xq])[0])
