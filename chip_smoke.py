@@ -10,11 +10,11 @@ script exits non-zero when any phase fails:
               and the host C++ engines, from source; ptxas's registers,
               spills and shared memory per kernel, the SASS of one fq_mul
               (device/kernel_report.py), kernel 7's registers and shared
-              memory by launch plan, kernels 4-7 and the BLAKE2b test
+              memory by launch plan, kernels 1-8 and the BLAKE2b test
               kernel held to their recorded SASS digests (KEPT_SASS)
-              under the nvcc that recorded them, no spill in kernels 1-3
-              and 8, and no stack frame for kernel 6 and the BLAKE2b test
-              kernel
+              under the nvcc that recorded them, no spill in kernels 1-3,
+              8 and 9, and no stack frame for kernel 6 and the BLAKE2b
+              test kernel
   3. pp_add   kernel 1 against its plain PyTorch version on the card: 2^16
               random pairs plus doubling, P + (-P), the identity on either
               side and coordinates near p; bit-equal, timed at the gate's
@@ -95,16 +95,22 @@ script exits non-zero when any phase fails:
  14. exact    kernel 9 (csrc/exact.cu) bit-equal to its plain version at
               the example MLP's products, the one-block transformer's and
               the bench's attention products (batched), K = 4096 with every
-              operand at 2^31 - 1, at -2^31, mixed and random, in both
-              modes at shifts 0, 1, 7, 8, 12, 16 and 24, and through the
-              einsum lowering; timed at 1024 x 768 x 3072 after an L2
-              flush beside its bound (2 IMAD a product) and beside 16
-              torch._int_mm limb products; entry() on the card against the
-              CPU forward.
+              operand at 2^31 - 1, at -2^31, mixed and random, its tile
+              edges (M, N in 1, 15, 16, 17, 63, 64, 65, 129 at K = 1, 31,
+              32, 33, 4096), a batch at a split depth, in both modes at
+              shifts 0, 1, 7, 8, 12, 16 and 24, the wrapping mode at K =
+              16,384 at the extremes, and through the einsum lowering
+              (strided operands); its SASS holds tensor-core instructions;
+              timed at 1024 x 768 x 3072 and 16 x 1024 x 4096 after an L2
+              flush beside its bound (16 int8 limb products at the
+              tensor-core rate, or its bytes) and the 2-IMAD bound, and
+              beside 16 torch._int_mm limb products with b row-major and
+              column-major; entry() on the card against the CPU forward.
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
-card's IMAD peak (``bound``). Kernel times are the profiler's device
+card's IMAD peak (``bound``); kernel 9's, its int8 limb products over the
+tensor cores' int8 rate (``exact_bounds``). Kernel times are the profiler's device
 durations (``device_ms``); the wrapper's call time, host work included,
 is printed beside them.
 
@@ -342,22 +348,32 @@ def timed(results, kernel: str, shape: str, ms: float, adds: int,
     return line
 
 
-# The SASS digests (kernel_report.sass) of kernels 4-7 and the BLAKE2b test
-# kernel, which the redesign of kernels 8 and 1 left as they were: equal for
-# the parent's sources and this tree's, built with this nvcc (the chip
-# machine's CUDA 12.9)
+# The SASS digests (kernel_report.sass) of kernels 1-8 and the BLAKE2b test
+# kernel, which the redesign of kernel 9 left as they were: equal for the
+# parent's sources and this tree's, built with this nvcc (the chip
+# machine's CUDA 12.9); kernels 4-7 and the test kernel recorded before
+# the redesign of kernels 8 and 1, kernels 1-3 and 8 after it
 KEPT_SASS = ("cuda_12.9.r12.9/compiler.36037853_0", {
+    "pp_add_kernel": "6a280bd3dc5ad72a",
+    "bucket_accumulate_runs": "2709131d31bdd729",
+    "bucket_accumulate_join": "ef8c9f7e69f4151d",
+    "bucket_combine_kernel": "e0dbf2927a6f71fa",
+    "bucket_combine_groups": "4bea8a975503be53",
     "reduction_bind_kernel": "be07dc0fe3190249",
     "reduction_q0_kernel": "59f78d9c794c347c",
     "reduction_tail_kernel": "97fffe30758e5bfa",
     "blake2b_transcript_kernel": "2d8d11720d9f7a88",
-    "rows_points_kernel": "e031ea250e180281"})
+    "rows_points_kernel": "e031ea250e180281",
+    "rows_from_i64_kernel": "dcfca6686674e244"})
 # kernels that must keep their message words and state in registers
 NO_STACK = ("reduction_tail_kernel", "blake2b_transcript_kernel")
-# kernels 1-3 (the complete add and its users) and 8: no spill
+# kernel 9's kernels: its two tiles and the split depth's finish
+EXACT_KERNELS = ("exact_matmul_wide", "exact_matmul_narrow",
+                 "exact_matmul_finish")
+# kernels 1-3 (the complete add and its users), 8 and 9: no spill
 NO_SPILL = ("pp_add_kernel", "bucket_accumulate_runs",
             "bucket_accumulate_join", "bucket_combine_kernel",
-            "bucket_combine_groups", "rows_from_i64_kernel")
+            "bucket_combine_groups", "rows_from_i64_kernel") + EXACT_KERNELS
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +433,7 @@ def phase_build() -> None:
     if moved:
         raise AssertionError(f"SASS of {moved} differs from the recorded "
                              f"digests: {sass}")
-    say("build", f"SASS of the {len(KEPT_SASS[1])} kernels of kernels 4-7 "
+    say("build", f"SASS of the {len(KEPT_SASS[1])} kernels of kernels 1-8 "
         f"and the BLAKE2b test kernel equal to the recorded digests (nvcc "
         f"{toolkit}); no stack frame in {', '.join(NO_STACK)}; no spill in "
         f"{', '.join(NO_SPILL)}")
@@ -2229,60 +2245,151 @@ def phase_mesh(dev, results, shards: int = 8, log_t: int = 20) -> None:
 # ---------------------------------------------------------------------------
 
 EXACT_SHIFTS = (0, 1, 7, 8, 12, 16, 24)
+# kernel 9's tile edges: 16 x 128 tiles for M <= 16, 64 x 64 above, k32
+# slices; each M beside an N of the same list
+EXACT_EDGES = (1, 15, 16, 17, 63, 64, 65, 129)
+EXACT_EDGE_K = (1, 31, 32, 33, 4096)
+# the H100 SXM's dense int8 tensor-core rate (NVIDIA datasheet)
+INT8_OPS_PER_S = 1.979e15
+# the timed shapes: a GPT-2 sized product, and a GPT-2 MLP product at seq
+# 16 (examples/gpt2_style.py's dims padded to 1024)
+EXACT_TIMED = ((1024, 768, 3072), (16, 1024, 4096))
 
 
 def exact_cases(gen: np.random.Generator) -> list:
-    """(name, a (B, M, K), b (B, K, N)) int32: the example MLP's products,
-    the one-block transformer's (16 x 16 x 16) and the bench's attention
-    products batched (4 heads, seq 64, d16), K = 4096 at the extremes."""
+    """(name, a (B, M, K), b (B, K, N), modes) int32: the example MLP's
+    products, the one-block transformer's (16 x 16 x 16) and the bench's
+    attention products batched (4 heads, seq 64, d16), K = 4096 at the
+    extremes, kernel 9's tile edges (EXACT_EDGES x EXACT_EDGE_K, random
+    i32), a batch with a split depth, and the wrapping mode alone at K =
+    16,384 (two 8,192-deep chunks) at the extremes."""
     lo, hi = -(2**31), 2**31 - 1
+    both, wrap = (False, True), (True,)
     rnd = lambda shape, lim: gen.integers(-lim, lim, size=shape,
                                           dtype=np.int32)
     mixed = np.full((1, 8, 4096), lo, np.int32)
     mixed[..., ::3] = hi
-    return [("mlp 8x64x128", rnd((1, 8, 64), 2**10), rnd((1, 64, 128), 2**8)),
-            ("mlp 8x128x32", rnd((1, 8, 128), 2**10), rnd((1, 128, 32), 2**8)),
-            ("block 16x16x16", rnd((1, 16, 16), 2**12), rnd((1, 16, 16), 2**12)),
-            ("heads 4x64x16x64", rnd((4, 64, 16), 2**14),
-             rnd((4, 16, 64), 2**14)),
-            ("heads 4x64x64x16", rnd((4, 64, 64), 2**14),
-             rnd((4, 64, 16), 2**14)),
-            ("K4096 max", np.full((1, 8, 4096), hi, np.int32),
-             np.full((1, 4096, 8), hi, np.int32)),
-            ("K4096 min", np.full((1, 8, 4096), lo, np.int32),
-             np.full((1, 4096, 8), lo, np.int32)),
-            ("K4096 mixed", mixed, np.full((1, 4096, 8), hi, np.int32)),
-            ("K4096 random", rnd((1, 65, 4096), 2**31),
-             rnd((1, 4096, 70), 2**31))]
+    deep = np.full((1, 3, 16384), lo, np.int32)
+    deep[..., ::3] = hi
+    cases = [
+        ("mlp 8x64x128", rnd((1, 8, 64), 2**10), rnd((1, 64, 128), 2**8),
+         both),
+        ("mlp 8x128x32", rnd((1, 8, 128), 2**10), rnd((1, 128, 32), 2**8),
+         both),
+        ("block 16x16x16", rnd((1, 16, 16), 2**12), rnd((1, 16, 16), 2**12),
+         both),
+        ("heads 4x64x16x64", rnd((4, 64, 16), 2**14),
+         rnd((4, 16, 64), 2**14), both),
+        ("heads 4x64x64x16", rnd((4, 64, 64), 2**14),
+         rnd((4, 64, 16), 2**14), both),
+        ("K4096 max", np.full((1, 8, 4096), hi, np.int32),
+         np.full((1, 4096, 8), hi, np.int32), both),
+        ("K4096 min", np.full((1, 8, 4096), lo, np.int32),
+         np.full((1, 4096, 8), lo, np.int32), both),
+        ("K4096 mixed", mixed, np.full((1, 4096, 8), hi, np.int32), both),
+        ("K4096 random", rnd((1, 65, 4096), 2**31),
+         rnd((1, 4096, 70), 2**31), both),
+        ("batched split 4x33x1000x65", rnd((4, 33, 1000), 2**31),
+         rnd((4, 1000, 65), 2**31), both),
+        ("K16384 max", np.full((1, 3, 16384), hi, np.int32),
+         np.full((1, 16384, 5), hi, np.int32), wrap),
+        ("K16384 min", np.full((1, 3, 16384), lo, np.int32),
+         np.full((1, 16384, 5), lo, np.int32), wrap),
+        ("K16384 mixed", deep, np.full((1, 16384, 5), hi, np.int32), wrap)]
+    for K in EXACT_EDGE_K:
+        for i, M in enumerate(EXACT_EDGES):
+            N = EXACT_EDGES[(i + EXACT_EDGE_K.index(K)) % len(EXACT_EDGES)]
+            cases.append((f"edge {M}x{K}x{N}", rnd((1, M, K), 2**31),
+                          rnd((1, K, N), 2**31), both))
+    return cases
 
 
-def phase_exact(dev, results, timed_shape=(1024, 768, 3072)) -> None:
+def exact_class(a, b, wrap: bool) -> tuple:
+    """The shape class kernel 9's wrapper records for these operands."""
+    from jolt_atlas_tpu_torch import torchexec
+    B, M, K = a.shape
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    return torchexec.exact_case(B, wrap, torchexec.exact_plan(
+        B, M, K, b.shape[2], sms)[1])
+
+
+def exact_bounds(B: int, M: int, K: int, N: int, imad: float) -> dict:
+    """Kernel 9's least time: the larger of its 16 int8 limb products on
+    the tensor cores (2 operations a multiply-add) and its bytes; beside
+    it the 2-IMAD-a-product bound of a scalar design."""
+    nbytes = 4 * B * (M * K + K * N + M * N)
+    ops_ms = 16 * 2 * B * M * K * N / INT8_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    imad_ms = bound(B * M * K * N, nbytes, imad, 2)[0]
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_imad_ms": imad_ms}
+
+
+def time_exact(dev, gen, M: int, K: int, N: int, imad: float) -> dict:
+    """Kernel 9 at (1, M, K) x (1, K, N), i32 in a scale-2^12 range, shift
+    12: device ms after an L2 flush (10 calls), bit-equal to its plain
+    version, beside both bounds and 16 torch._int_mm limb products with b
+    row-major and column-major."""
+    from jolt_atlas_tpu_torch import torchexec
+    a = torch.from_numpy(gen.integers(-2**14, 2**14, size=(1, M, K),
+                                      dtype=np.int32)).to(dev)
+    b = torch.from_numpy(gen.integers(-2**14, 2**14, size=(1, K, N),
+                                      dtype=np.int32)).to(dev)
+    ms, call, got = device_ms(lambda: torchexec.exact_matmul(a, b, 12), 10,
+                              "exact_matmul", cold=True)
+    plain_ms, want = cuda_ms(lambda: torchexec.exact_matmul_plain(a, b, 12),
+                             3)
+    err = require_equal(f"exact_matmul ({M}x{K}x{N})", [got], [want])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec = {"shape": f"{M}x{K}x{N}, shift 12, after an L2 flush", "ms": ms,
+           "call_ms": call, "plain_ms": plain_ms, "max_abs_err": err,
+           "plan": dict(zip(("tile", "splits", "kchunk"),
+                            torchexec.exact_plan(1, M, K, N, sms))),
+           **exact_bounds(1, M, K, N, imad)}
+    rec.update(share=rec["bound_ms"] / ms,
+               share_imad=rec["bound_imad_ms"] / ms)
+    a8 = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev)
+    b8 = torch.randint(-128, 128, (K, N), dtype=torch.int8, device=dev)
+    b8c = b8.t().contiguous().t()  # column-major: cuBLASLt's IMMA layout
+    for key, bb in (("int_mm_16_ms", b8), ("int_mm_16_colmajor_ms", b8c)):
+        try:  # the yardstick only, not the port's path
+            rec[key] = cuda_ms(lambda: [torch._int_mm(a8, bb)
+                                        for _ in range(16)], 5)[0]
+        except RuntimeError as e:
+            rec[key], rec[key + "_error"] = None, str(e).splitlines()[0]
+    return rec
+
+
+def phase_exact(dev, results, timed=EXACT_TIMED) -> None:
     """Kernel 9 bit-equal to its plain version (run on the card) at
-    ``exact_cases`` in both modes and every shift of EXACT_SHIFTS, through
-    the einsum lowering of the transformer's equations, and timed at a
-    GPT-2 sized product beside its bound; entry() on the card against the
-    CPU forward."""
+    ``exact_cases`` in their modes and every shift of EXACT_SHIFTS,
+    through the einsum lowering of the transformer's equations (strided
+    operands), and timed at ``timed`` beside its bounds; its SASS holds
+    tensor-core instructions and no spill; entry() on the card against
+    the CPU forward."""
     from jolt_atlas_tpu_torch import torchexec
     from jolt_atlas_tpu_torch.entry import entry
     gen = np.random.default_rng(1414)
     err, n = 0.0, 0
-    for name, a, b in exact_cases(gen):
+    for name, a, b, modes in exact_cases(gen):
         ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-        for wrap in (False, True):
+        for wrap in modes:
             for shift in EXACT_SHIFTS:
                 err = max(err, require_equal(
                     f"exact_matmul ({name}, wrap {wrap}, shift {shift})",
                     [torchexec.exact_matmul(ta, tb, shift, wrap)],
                     [torchexec.exact_matmul_plain(ta, tb, shift, wrap)]))
                 n += 1
-            checked(results, "exact_matmul",
-                    torchexec.exact_case(a.shape[0], wrap))
+            checked(results, "exact_matmul", exact_class(ta, tb, wrap))
     # the transformer's equations through the lowering (strided operands)
     for eq, sa, sb in [("mk,kn->mn", (16, 16), (16, 16)),
                        ("mk,nk->mn", (16, 16), (16, 16)),
+                       ("mk,nk->mn", (40, 300), (72, 300)),
                        ("bi,ij->bj", (1, 32), (32, 16)),
                        ("hmk,hnk->hmn", (4, 64, 16), (4, 64, 16)),
-                       ("hmn,hnk->hmk", (4, 64, 64), (4, 64, 16))]:
+                       ("hmn,hnk->hmk", (4, 64, 64), (4, 64, 16)),
+                       ("bmk,kn->bmn", (3, 24, 200), (200, 40))]:
         x = torch.from_numpy(gen.integers(-2**14, 2**14, size=sa,
                                           dtype=np.int32))
         y = torch.from_numpy(gen.integers(-2**14, 2**14, size=sb,
@@ -2292,6 +2399,19 @@ def phase_exact(dev, results, timed_shape=(1024, 768, 3072)) -> None:
                 eq, x.to(dev), y.to(dev), 8).cpu()],
             [torchexec.einsum_rescale(eq, x, y, 8)]))
         n += 1
+    if dev.type == "cuda":
+        from jolt_atlas_tpu_torch.device import build, kernel_report
+        ptx = kernel_report.parse_ptxas(build.ptxas_report())
+        sass = kernel_report.sass(build.CUDA_SRC)
+        for k in EXACT_KERNELS[:2]:
+            if not sass[k]["tensor"]:
+                raise AssertionError(f"{k}: no tensor-core instruction in "
+                                     f"its SASS: {sass[k]}")
+        compiled = {k: {**ptx[k], "sass_tensor": sass[k]["tensor"],
+                        "sass_instructions": sass[k]["instructions"]}
+                    for k in EXACT_KERNELS}
+    else:
+        compiled = None
     # the forward, the path that launches kernel 9
     def forward():
         fn, args = entry(dev)
@@ -2306,41 +2426,20 @@ def phase_exact(dev, results, timed_shape=(1024, 768, 3072)) -> None:
     if not all(torch.equal(o.cpu(), w) for o, w in zip(out, cfn(*cargs))):
         raise AssertionError("entry() on the card differs from the CPU "
                              "forward")
-    # timed at a GPT-2 sized product, i32 in a scale-2^12 range
-    M, K, N = timed_shape
-    a = torch.from_numpy(gen.integers(-2**14, 2**14, size=(1, M, K),
-                                      dtype=np.int32)).to(dev)
-    b = torch.from_numpy(gen.integers(-2**14, 2**14, size=(1, K, N),
-                                      dtype=np.int32)).to(dev)
-    ms, call, got = device_ms(lambda: torchexec.exact_matmul(a, b, 12), 10,
-                              "exact_matmul", cold=True)
-    plain_ms, want = cuda_ms(lambda: torchexec.exact_matmul_plain(a, b, 12),
-                             3)
-    err = max(err, require_equal("exact_matmul (timed shape)", [got],
-                                 [want]))
-    checked(results, "exact_matmul", torchexec.exact_case(1, False))
-    nbytes = 4 * (M * K + K * N + M * N)
-    bnd, by = bound(M * K * N, nbytes, results["imad_peak"], 2)
-    a8 = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev)
-    b8 = torch.randint(-128, 128, (K, N), dtype=torch.int8, device=dev)
-    try:
-        int_mm_ms = cuda_ms(lambda: [torch._int_mm(a8, b8)
-                                     for _ in range(16)], 5)[0]
-        int_mm = None
-    except RuntimeError as e:  # the yardstick only, not the port's path
-        int_mm_ms, int_mm = None, str(e).splitlines()[0]
-    results["exact_matmul"] = {
-        "max_abs_err": err, "ms": ms, "call_ms": call, "plain_ms": plain_ms,
-        "bound_ms": bnd, "bound_by": by, "share": bnd / ms,
-        "shape": f"{M}x{K}x{N}, shift 12, after an L2 flush",
-        "int_mm_16_ms": int_mm_ms}
+    recs = []
+    for M, K, N in timed:
+        recs.append(time_exact(dev, gen, M, K, N, results["imad_peak"]))
+        err = max(err, recs[-1]["max_abs_err"])
+        checked(results, "exact_matmul", torchexec.exact_case(
+            1, False, recs[-1]["plan"]["splits"]))
+    results["exact_matmul"] = {**recs[0], "max_abs_err": err,
+                               "timed": recs, "compiled": compiled}
     say("exact", json.dumps({
         "compared": n, "max_abs_err": err,
         "entry": {"outputs": [list(o.shape) for o in out],
                   "forward_s": fwd_s, "launches": tele["launches"],
                   "equal_cpu_forward": True},
-        "timed": results["exact_matmul"],
-        "int_mm_16_error": int_mm}))
+        "timed": recs, "compiled": compiled}))
 
 
 KERNELS = (
@@ -2440,7 +2539,10 @@ def main() -> int:
                 row["mesh_largest_launch"] = results["mesh_timed"][name]
         if name == "exact_matmul":
             row["runs_in"] = "the quantized forward (entry(), torchexec.py)"
-            row["int_mm_16_ms"] = r["int_mm_16_ms"]
+            for extra in ("bound_imad_ms", "share", "share_imad",
+                          "int_mm_16_ms", "int_mm_16_colmajor_ms", "plan",
+                          "timed", "compiled"):
+                row[extra] = r[extra]
             row["also_replaces"] = "jolt_atlas_tpu/jaxexec.py:71, :163"
         kernels.append(row)
     print(card_line())

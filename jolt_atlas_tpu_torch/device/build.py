@@ -5,7 +5,7 @@ Two kinds of shared library, both loaded with ctypes:
 - the host C++ engines from the repo's ``csrc/`` (``msm.cpp``,
   ``frvec.cpp``), compiled with g++ for the CPU this process runs on;
 - the port's CUDA kernels, ``jolt_atlas_tpu_torch/csrc/*.cu`` (curve,
-  msm, combine, reduction, rows), compiled
+  msm, combine, reduction, rows, exact), compiled
   with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
   started together, and linked into one library with a plain C interface.
   ptxas reports each kernel's registers, spills and shared memory
@@ -193,7 +193,7 @@ SIGNATURES = {
                                                               _CI, _CI, _CI]
     + [_VP] * 4,
     "jolt_rows_from_i64": [_VP, _I64, _VP, _VP],
-    "jolt_exact_matmul": [_VP] * 3 + [_I64] * 10 + [_CI, _CI, _VP],
+    "jolt_exact_matmul": [_VP] * 4 + [_I64] * 10 + [_CI] * 4 + [_I64, _VP],
 }
 
 _CUDA = None

@@ -128,14 +128,22 @@ def _opcode(insn: str) -> str:
     return words[1] if words[0].startswith("@") else words[0]
 
 
+# tensor-core opcodes: mma.sync's (IMMA for integers, HMMA) and wgmma's
+# (the GMMA family)
+TENSOR_OPCODES = ("IMMA", "HMMA", "IGMMA", "HGMMA", "QGMMA", "BGMMA")
+
+
 def parse_sass(text: str) -> dict:
-    """{kernel: {"instructions", "imad", "digest"}} from cuobjdump -sass
-    output: the digest hashes each instruction's text (addresses and
-    encodings left out); imad counts the IMAD instructions (a guard
-    predicate aside)."""
+    """{kernel: {"instructions", "imad", "tensor", "digest"}} from
+    cuobjdump -sass output: the digest hashes each instruction's text
+    (addresses and encodings left out); imad counts the IMAD instructions
+    and tensor the tensor-core ones (TENSOR_OPCODES), a guard predicate
+    aside."""
     return {name: {"instructions": len(insns),
                    "imad": sum(_opcode(i).startswith("IMAD")
                                for i in insns),
+                   "tensor": sum(_opcode(i).startswith(TENSOR_OPCODES)
+                                 for i in insns),
                    "digest": hashlib.sha256(
                        "\n".join(insns).encode()).hexdigest()[:16]}
             for name, insns in sass_functions(text).items()}

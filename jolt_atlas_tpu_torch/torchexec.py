@@ -140,11 +140,41 @@ def _check_operands(a, b, shift: int, wrap: bool) -> None:
                          f"{MAX_EXACT_K}")
 
 
+# Kernel 9's tiles (csrc/exact.cu ExactWide, ExactNarrow): (rows, columns,
+# depth of a slice, blocks an SM holds: one, its persistent grid's)
+EXACT_TILES = ((64, 64, 64, 1), (16, 64, 64, 1))
+EXACT_MAX_CHUNK = 1 << 13  # depth a block: its int32 digit sums stay exact
+EXACT_MIN_SLICES = 4       # slices a split at least, where K allows
+
+
+def _cdiv(x: int, y: int) -> int:
+    return -(-x // y)
+
+
+def exact_plan(B: int, M: int, K: int, N: int, sms: int) -> tuple:
+    """Kernel 9's launch plan: (tile, splits, kchunk). Tile 1 (16 x 64)
+    for M <= 16, else tile 0 (64 x 64). The depth goes to ``splits``
+    tiles of ``kchunk`` (a multiple of the slice depth, at most
+    EXACT_MAX_CHUNK): where the tiles leave SMs of the persistent grid
+    idle, as many as still fit in one wave, each at least
+    EXACT_MIN_SLICES slices deep where K allows."""
+    tile = 1 if M <= 16 else 0
+    bm, bn, bk, per_sm = EXACT_TILES[tile]
+    tiles = B * _cdiv(M, bm) * _cdiv(N, bn)
+    least = max(1, _cdiv(K, EXACT_MAX_CHUNK))
+    want = max(1, per_sm * sms // max(tiles, 1))
+    most = max(1, K // (EXACT_MIN_SLICES * bk))
+    splits = max(least, min(want, most))
+    kchunk = max(bk, _cdiv(_cdiv(K, splits), bk) * bk)
+    return tile, max(1, _cdiv(K, kchunk)), kchunk
+
+
 def exact_matmul(a: torch.Tensor, b: torch.Tensor, shift: int,
                  wrap: bool = False) -> torch.Tensor:
     """Kernel 9 on CUDA tensors, its plain version on CPU ones: (B, M, K)
     x (B, K, N) int32, any strides (a batch stride of 0 broadcasts) ->
-    contiguous (B, M, N) int32."""
+    contiguous (B, M, N) int32. A split depth (``exact_plan``) is two
+    launches, the tile kernel's and its finish, each counted."""
     _check_operands(a, b, shift, wrap)
     device = a.device
     if device.type == "cpu":
@@ -156,21 +186,31 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor, shift: int,
     N = b.shape[2]
     out = torch.empty((B, M, N), dtype=torch.int32, device=device)
     if out.numel():
+        tile, splits, kchunk = exact_plan(
+            B, M, K, N,
+            torch.cuda.get_device_properties(device).multi_processor_count)
+        ws = (torch.empty((B * splits * 7 * M * N,), dtype=torch.int32,
+                          device=device) if splits > 1 else None)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = build.cuda_library().jolt_exact_matmul(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), B, M, K, N,
-                *a.stride(), *b.stride(), shift, int(wrap), stream)
+                a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), B, M, K, N,
+                *a.stride(), *b.stride(), shift, int(wrap), tile, splits,
+                kchunk, stream)
         if rc != 0:
             raise RuntimeError(f"exact_matmul kernel launch failed: CUDA "
                                f"error {rc}")
-        telemetry.launch("exact_matmul", exact_case(B, wrap))
+        case = exact_case(B, wrap, splits)
+        for _ in range(1 + (splits > 1)):
+            telemetry.launch("exact_matmul", case)
     return out
 
 
-def exact_case(batch: int, wrap: bool) -> tuple:
-    """The shape class of a kernel 9 launch: (wrapping mode, batched)."""
-    return (int(wrap), int(batch > 1))
+def exact_case(batch: int, wrap: bool, splits: int = 1) -> tuple:
+    """The shape class of a kernel 9 launch: (wrapping mode, batched,
+    depth split)."""
+    return (int(wrap), int(batch > 1), int(splits > 1))
 
 
 def exact_matmul_rescale(a, b, shift: int) -> torch.Tensor:

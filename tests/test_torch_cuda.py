@@ -497,6 +497,100 @@ def test_exact_matmul_kernel_strided_einsums(gpu):
             assert torch.equal(got.cpu(), want), eq
 
 
+EDGES = (1, 15, 16, 17, 63, 64, 65, 129)
+
+
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 4096])
+def test_exact_matmul_kernel_tile_edges(gpu, K):
+    """Every M and N of EDGES (16 x 64 tiles for M <= 16, 64 x 64 above,
+    split depths at K = 4096) at depths around a 32-deep slice, random
+    i32 in both modes: equal to the plain version (which runs on the card,
+    held to the CPU by test_exact_matmul_kernel_matches_plain)."""
+    from jolt_atlas_tpu_torch import torchexec
+    gen = np.random.default_rng(K)
+    for M in EDGES:
+        for N in EDGES:
+            a = torch.from_numpy(gen.integers(I32_MIN, I32_MAX, size=(1, M, K),
+                                              dtype=np.int32)).to(gpu)
+            b = torch.from_numpy(gen.integers(I32_MIN, I32_MAX, size=(1, K, N),
+                                              dtype=np.int32)).to(gpu)
+            for wrap in (False, True):
+                for shift in (0, 12, 24):
+                    got = torchexec.exact_matmul(a, b, shift, wrap)
+                    want = torchexec.exact_matmul_plain(a, b, shift, wrap)
+                    assert torch.equal(got, want), (M, K, N, wrap, shift)
+
+
+def test_exact_matmul_kernel_strides(gpu):
+    """A batch stride of 0 (broadcast), transposed operands (b K-major, a
+    M-major) and rows that are not 16-byte aligned, at a split depth and
+    not: equal to the plain version."""
+    from jolt_atlas_tpu_torch import torchexec
+    gen = np.random.default_rng(92)
+    rnd = lambda s: torch.from_numpy(gen.integers(I32_MIN, I32_MAX, size=s,
+                                                  dtype=np.int32)).to(gpu)
+    for M, K, N in ((40, 300, 72), (12, 1000, 70)):
+        x, y = rnd((2, M, K)), rnd((2, N, K))
+        for a, b in [(x, y.transpose(1, 2)),
+                     (x.transpose(1, 2).contiguous().transpose(1, 2),
+                      y.transpose(1, 2)),
+                     (x[:1].expand(3, M, K), y[:1].transpose(1, 2).expand(
+                         3, K, N)),
+                     (x[:, :, 1:], y.transpose(1, 2)[:, 1:]),
+                     (x, y.transpose(1, 2).contiguous()[:1].expand(2, K, N))]:
+            for wrap in (False, True):
+                got = torchexec.exact_matmul(a, b, 7, wrap)
+                assert torch.equal(got, torchexec.exact_matmul_plain(
+                    a, b, 7, wrap)), (M, K, N, a.stride(), b.stride(), wrap)
+
+
+@pytest.mark.parametrize("kind", ["max", "min", "mixed"])
+def test_exact_matmul_kernel_wrap_deep(gpu, kind):
+    """The wrapping mode at K = 16,384 (two 8,192-deep chunks, summed by
+    the finish kernel) at the extremes: equal to the plain version on the
+    CPU."""
+    from jolt_atlas_tpu_torch import torchexec
+    a = np.full((1, 3, 16384), I32_MAX if kind == "max" else I32_MIN,
+                np.int32)
+    if kind == "mixed":
+        a[..., ::3] = I32_MAX
+    b = np.full((1, 16384, 5), I32_MIN if kind == "min" else I32_MAX,
+                np.int32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for shift in (0, 1, 12, 24, 63):
+        got = torchexec.exact_matmul(ta.to(gpu), tb.to(gpu), shift, True)
+        assert torch.equal(got.cpu(), torchexec.exact_matmul_plain(
+            ta, tb, shift, True)), shift
+
+
+@pytest.mark.parametrize("shape", [(1024, 768, 3072), (16, 1024, 4096)])
+def test_exact_matmul_kernel_timed_shapes(gpu, shape):
+    """chip_smoke's two timed shapes, i32 in a scale-2^12 range: equal to
+    the plain version on the card."""
+    from jolt_atlas_tpu_torch import torchexec
+    M, K, N = shape
+    gen = np.random.default_rng(M)
+    a = torch.from_numpy(gen.integers(-2**14, 2**14, size=(1, M, K),
+                                      dtype=np.int32)).to(gpu)
+    b = torch.from_numpy(gen.integers(-2**14, 2**14, size=(1, K, N),
+                                      dtype=np.int32)).to(gpu)
+    assert torch.equal(torchexec.exact_matmul(a, b, 12),
+                       torchexec.exact_matmul_plain(a, b, 12))
+
+
+def test_exact_kernels_use_tensor_cores(gpu):
+    """Kernel 9's tiles hold tensor-core instructions in their SASS, and
+    none of its kernels spills."""
+    from jolt_atlas_tpu_torch.device import build, kernel_report
+    sass = kernel_report.sass(build.CUDA_SRC)
+    ptx = kernel_report.parse_ptxas(build.ptxas_report())
+    for k in ("exact_matmul_wide", "exact_matmul_narrow"):
+        assert sass[k]["tensor"] > 0, sass[k]
+    for k in ("exact_matmul_wide", "exact_matmul_narrow",
+              "exact_matmul_finish"):
+        assert ptx[k]["spill_stores"] == ptx[k]["spill_loads"] == 0, ptx[k]
+
+
 def test_entry_on_gpu_matches_cpu(gpu):
     from jolt_atlas_tpu_torch.entry import entry
     before = telemetry.launches().get("exact_matmul", 0)

@@ -86,6 +86,63 @@ def test_exact_matmul_wrap_matches_int64_einsum(kind):
         assert np.array_equal(got, _big(a, b, shift, True)), shift
 
 
+@pytest.mark.parametrize("kind", ["max", "min", "mixed"])
+def test_exact_matmul_wrap_deep(kind):
+    """Wrapping mode at K = 16,384, past the depth whose int32 digit sums
+    kernel 9 folds (8,192): the plain version equals Python integers."""
+    a, b = _operands(kind, 2, 16384, 3, 9)
+    for shift in (0, 12, 63):
+        got = torchexec.exact_matmul_plain(torch.from_numpy(a)[None],
+                                           torch.from_numpy(b)[None], shift,
+                                           wrap=True)[0].numpy()
+        assert np.array_equal(got, _big(a, b, shift, True)), shift
+
+
+def _plan_holds(B, M, K, N, sms):
+    """exact_plan's definition: the tile by M, whole slices, every split
+    non-empty and at most EXACT_MAX_CHUNK deep."""
+    tile, splits, kchunk = torchexec.exact_plan(B, M, K, N, sms)
+    bm, bn, bk, per_sm = torchexec.EXACT_TILES[tile]
+    assert tile == (1 if M <= 16 else 0)
+    assert kchunk % bk == 0 and bk <= kchunk <= torchexec.EXACT_MAX_CHUNK
+    assert splits * kchunk >= K and (K == 0 or (splits - 1) * kchunk < K)
+    return tile, splits, kchunk
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 768, 3072), (1, 16, 1024, 4096),
+                                   (1, 8, 64, 128), (1, 8, 128, 32),
+                                   (4, 64, 16, 64), (1, 3, 16384, 5),
+                                   (1, 129, 4096, 129), (1, 1, 1, 1),
+                                   (2, 16, 0, 8), (1, 17, 100_000, 3),
+                                   (30000, 16, 4096, 8), (1, 1024, 8192, 1024),
+                                   (1, 1024, 8193, 1024),
+                                   (1, 1024, 16384, 1024),
+                                   (1, 1024, 100_000, 1024)])
+def test_exact_plan(shape):
+    B, M, K, N = shape
+    tile, splits, kchunk = _plan_holds(B, M, K, N, 132)
+    bm, bn, bk, per_sm = torchexec.EXACT_TILES[tile]
+    tiles = B * -(-M // bm) * -(-N // bn)
+    # the definition: as many splits as still fit in one wave of the
+    # persistent grid (per_sm blocks an SM), each at least 4 slices deep,
+    # at least one a 8,192 of depth
+    target = max(-(-K // 8192) if K else 1,
+                 min(max(1, per_sm * 132 // tiles), max(1, K // (4 * bk))))
+    assert kchunk == max(bk, -(-(-(-K // target)) // bk) * bk)
+    assert splits == max(1, -(-K // kchunk)) <= target
+
+
+def test_exact_plan_timed_shapes():
+    """The two timed shapes: a GPT-2 product at 64 x 64 tiles unsplit,
+    and its MLP product at seq 16 on 16 x 64 tiles split 2 ways (64
+    tiles, 132 SMs: 128 tiles in one wave)."""
+    assert torchexec.exact_plan(1, 1024, 768, 3072, 132) == (0, 1, 768)
+    assert torchexec.exact_plan(1, 16, 1024, 4096, 132) == (1, 2, 512)
+    # the entry's MLP products stay one launch each
+    assert torchexec.exact_plan(1, 8, 64, 128, 132)[1] == 1
+    assert torchexec.exact_plan(1, 8, 128, 32, 132)[1] == 1
+
+
 def test_exact_matmul_refuses():
     a = torch.zeros((1, 2, 4097), dtype=torch.int32)
     b = torch.zeros((1, 4097, 2), dtype=torch.int32)
