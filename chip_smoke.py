@@ -106,6 +106,26 @@ script exits non-zero when any phase fails:
               tensor-core rate, or its bytes) and the 2-IMAD bound, and
               beside 16 torch._int_mm limb products with b row-major and
               column-major; entry() on the card against the CPU forward.
+ 15. models   the model entry points on the card, each against the host
+              path (device="cpu"): the GPT-2-style slice at full width (2
+              blocks, 4 heads, d128, seq 16, vocab 8192, scale 2^12; its
+              SRS of 2^21 points is made before phase 3, and the bench's
+              2^18 is that file trimmed) through examples/nanogpt_style's
+              run: bytes equal, verified, a flipped commitment rejected,
+              each path's phase and setup seconds, every engine decision,
+              the gate's route for each MSM size of the prove and its
+              largest MSM on the device and the host in turns; qwen_slice
+              from the committed ONNX (examples/qwen_style); prove_zk on
+              BENCH_SMALL's shape and tests/test_zk_pipeline.py's relu MLP
+              under one seeded blinding stream, the MSM and rows engines
+              forced (the masked opening's MSMs dispatched to the card,
+              the reduction on the host: "zk"); tests/test_dory.py's e2e
+              model with pcs="dory", the reduction and rows engines forced;
+              the bench nanoGPT under KeccakTranscript with the default
+              gates (the reduction declines: "transcript not BLAKE2b").
+              Kernels 2-7 are held bit-equal to their plain versions at
+              the first launch of every shape class and MSM size these
+              paths make (hold_kernels).
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
@@ -115,13 +135,14 @@ durations (``device_ms``); the wrapper's call time, host work included,
 is printed beside them.
 
 Each path (gate calibration, split, the two device proves, the two mesh
-proves, the forward) runs with the launch counts set to 0 just before it
-and read just after; the kernels JSON sums them, and gives the traced
-prove's own launches and a mesh prove's. Every shape a
+proves, the forward, phase 15's proves) runs with the launch counts set
+to 0 just before it and read just after; the kernels JSON sums them, and
+gives the traced prove's own launches, a mesh prove's and phase 15's
+(``launches_models``). Each phase prints its seconds. Every shape a
 path launched a kernel at (its lane count; for kernel 3 also its blocks
 per window; for kernels 4 and 5 their branch class; for kernel 7 its rows,
 points, terms, weight layout and launch plan; for kernel 9 its mode and
-whether it is batched) must be one that phases 3-5 and 11-14 held against
+whether it is batched) must be one that phases 3-5 and 11-15 held against
 the plain version, or the run fails. The
 second line from the end is that JSON, the last line {"ok": true,
 "device": {...}}. Imports nothing of JAX or jolt_atlas_tpu.
@@ -961,10 +982,10 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
         proof, io = AtlasProver(pp, **how).prove([toks])
         torch.cuda.synchronize()
         wall = time.time() - t0
-        phases = {name: round(w, 6) for name, w, _ in profiling._EVENTS
+        phases = {name: round(w, 6) for name, w, _ in profiling.events()
                   if not name.startswith(" ")}
         phases.update({name.strip(): round(w, 6)
-                       for name, w, _ in profiling._EVENTS
+                       for name, w, _ in profiling.events()
                        if name.strip().startswith("reduction_")})
         # the rows engine's steps, summed over its instances
         phases.update({k: round(v, 6)
@@ -1116,7 +1137,7 @@ def _reduction_run(cap, dev, engine: bool, max_rounds=None):
     from jolt_atlas_tpu_torch.utils import profiling
     insts, tr = reduction_instances(cap, max_rounds)
     profiling.enable()
-    profiling._EVENTS.clear()
+    profiling.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if engine:
@@ -1127,7 +1148,7 @@ def _reduction_run(cap, dev, engine: bool, max_rounds=None):
         proof, r = BatchedSumcheck.prove(insts, cap["acc"], tr)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    steps = {n.strip(): w * 1e3 for n, w, _ in profiling._EVENTS}
+    steps = {n.strip(): w * 1e3 for n, w, _ in profiling.events()}
     polys = [[x.v for x in cp.coeffs_except_linear_term]
              for cp in proof.compressed_polys]
     return (ms, polys, [x.v for x in r], tr.state,
@@ -1550,7 +1571,7 @@ def span_sums(prefix: str) -> dict:
     summed by name."""
     from jolt_atlas_tpu_torch.utils import profiling
     out: dict = {}
-    for name, w, _ in profiling._EVENTS:
+    for name, w, _ in profiling.events():
         name = name.strip()
         if name.startswith(prefix):
             out[name] = out.get(name, 0.0) + w
@@ -1958,21 +1979,128 @@ def phase_rows(dev, results, rows_cap,
 # phase 13: the multi-device proving step on the card
 # ---------------------------------------------------------------------------
 
+# the kernels hold_kernels can hold at a path's launches
+HELD = ("bucket_accumulate", "bucket_combine", "reduction_bind",
+        "reduction_q0", "reduction_tail", "rows_points")
+
+
+@contextlib.contextmanager
+def hold_kernels(results, err: dict, label: str, kernels=HELD,
+                 largest: dict | None = None, note=dict, seen=None):
+    """While entered, each of ``kernels`` (kernels 2-7) is held bit-equal
+    to its plain version (on the card, on the launch's own inputs) at the
+    first launch of every shape class the path makes, which is then
+    checked: its launch shape as its wrapper records it in telemetry, and
+    for kernels 2 and 3 also the MSM's entries and the batch's MSMs, so
+    that each new MSM size is held once. Yields ``seen``, the set of
+    (kernel, class) held (a set given in is added to). ``largest`` keeps
+    each kernel's largest launch: its size, its arguments and ``note()``."""
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    from jolt_atlas_tpu_torch.device import rows as drows
+    real = {"bucket_accumulate": dmsm.bucket_accumulate,
+            "bucket_combine": dmsm.bucket_combine,
+            "reduction_bind": dred.bind, "reduction_q0": dred.q0,
+            "reduction_tail": dred.tail, "rows_points": drows.points}
+    seen = set() if seen is None else seen
+
+    def first(kernel, key, case, got, plain, size, args):
+        if largest is not None and (kernel not in largest
+                                    or size > largest[kernel][0]):
+            largest[kernel] = (size, args, note())
+        if (kernel, key) in seen:
+            return
+        seen.add((kernel, key))
+        err[kernel] = max(err.get(kernel, 0.0), require_equal(
+            f"{kernel} ({label}, class {key})", got, plain()))
+        checked(results, kernel, case)
+
+    def accumulate(bases, lanes, out=None, run=dmsm.ACCUM_RUN):
+        got = real["bucket_accumulate"](bases, lanes, out, run)
+        L, E = lanes[2].shape[0] - 1, lanes[0].shape[0]
+        first("bucket_accumulate", (L, E), L, got,
+              lambda: dmsm.bucket_accumulate_plain(bases, lanes, run), E,
+              (bases, lanes))
+        return got
+
+    def combine(acc, c, groups=0):
+        got = real["bucket_combine"](acc, c, groups)
+        k, dev = acc[0].shape[0], acc[0].device
+        G = groups or (dmsm.combine_groups(
+            k, c, torch.cuda.get_device_properties(dev).multi_processor_count)
+            if dev.type == "cuda" else 1)
+        L = acc[0].shape[1]
+        # the largest is the widest window's, then the largest batch
+        first("bucket_combine", (L, G, k), (L, G), got,
+              lambda: dmsm.bucket_combine_plain(acc, c, G), (L, k), (acc, c))
+        return got
+
+    def q0(*a):
+        got = real["reduction_q0"](*a)
+        case = dred.q0_case(a[4])
+        first("reduction_q0", case, case, [got], lambda: [dred.q0_plain(*a)],
+              a[3] << a[4], a)
+        return got
+
+    def bind(*a):
+        got = real["reduction_bind"](*a)
+        case = dred.bind_case(a[4], a[5])
+        first("reduction_bind", case, case, [got],
+              lambda: [dred.bind_plain(*a)], a[5] << a[6], a)
+        return got
+
+    def tail(*a):
+        # Q, es and the state advance in place: keep what they were
+        lanes = a[2].shape[0]
+        new = ("reduction_tail", lanes) not in seen
+        pre = [t.clone() for t in (a[2], a[3], a[10])] if new else None
+        real["reduction_tail"](*a)
+        if new:
+            first("reduction_tail", lanes, lanes, (a[2], a[3], a[10], a[11],
+                                                   a[12]),
+                  lambda: dred.tail_plain(*a[:2], pre[0], pre[1], *a[4:10],
+                                          pre[2]), lanes, a)
+        return None
+
+    def points(x, n, nevals, terms, w, tile=None, group=None):
+        got = real["rows_points"](x, n, nevals, terms, w, tile, group)
+        a = (x, n, nevals, terms, w)
+        case = drows.kernel_case(*a)
+        first("rows_points", case, case, [got],
+              lambda: [drows.points_plain(*a)], x.shape[0] * nevals, a)
+        return got
+
+    # (module, name) of each wrapper where its callers find it: the rows
+    # engine binds with kernel 4 through its own import
+    wrap = {"bucket_accumulate": ([(dmsm, "bucket_accumulate")], accumulate),
+            "bucket_combine": ([(dmsm, "bucket_combine")], combine),
+            "reduction_bind": ([(dred, "bind"), (drows, "bind")], bind),
+            "reduction_q0": ([(dred, "q0")], q0),
+            "reduction_tail": ([(dred, "tail")], tail),
+            "rows_points": ([(drows, "points")], points)}
+    for k in kernels:
+        for mod, attr in wrap[k][0]:
+            setattr(mod, attr, wrap[k][1])
+    try:
+        yield seen
+    finally:
+        for k in kernels:
+            for mod, attr in wrap[k][0]:
+                setattr(mod, attr, real[k])
+
+
 @contextlib.contextmanager
 def check_mesh_kernels(results, err: dict, largest: dict):
     """While entered, kernels 4, 5 and 7 are each held bit-equal to their
     plain versions (on the card) at the first launch of every shape class
-    the path makes, which is then checked; ``largest`` keeps each kernel's
-    largest launch (its size, its arguments, and for kernels 5 and 7 the
-    rows of the split-eq tables its gathered weights were made from and
-    the gather itself, as a call)."""
+    the path makes, which is then checked (hold_kernels); ``largest``
+    keeps each kernel's largest launch (its size, its arguments, and for
+    kernels 5 and 7 the rows of the split-eq tables its gathered weights
+    were made from and the gather itself, as a call)."""
     from jolt_atlas_tpu_torch.device import reduction as dred
-    from jolt_atlas_tpu_torch.device import rows as drows
     from jolt_atlas_tpu_torch.parallel import shardedreduction as SR
     from jolt_atlas_tpu_torch.parallel import shardedrows as SW
-    real = (dred.q0, dred.bind, drows.points, SR._ShardedRows.weights,
-            SW.shard_weights)
-    seen: set = set()
+    real = (SR._ShardedRows.weights, SW.shard_weights)
     gather: dict = {}  # the weights' source rows and gather, the last made
 
     def table_rows(tables) -> int:
@@ -1987,50 +2115,23 @@ def check_mesh_kernels(results, err: dict, largest: dict):
             for whi, shift, wlo, log_wlo in tables], dtype=torch.int64)
         gather.update(rows=table_rows(tables) + 1, lanep=lanep,
                       lg=lg + self.D.bit_length() - 1,
-                      call=lambda: real[3](self, tables, lg))
-        return real[3](self, tables, lg)
+                      call=lambda: real[0](self, tables, lg))
+        return real[0](self, tables, lg)
 
     def points_weights(mesh, whi, whi_shift, wlo, log_wlo, m):
         gather.update(rows=table_rows([(whi, 0, wlo, 0)]), call=lambda:
-                      real[4](mesh, whi, whi_shift, wlo, log_wlo, m))
-        return real[4](mesh, whi, whi_shift, wlo, log_wlo, m)
+                      real[1](mesh, whi, whi_shift, wlo, log_wlo, m))
+        return real[1](mesh, whi, whi_shift, wlo, log_wlo, m)
 
-    def first(kernel, case, got, plain, size, args):
-        if size > largest.get(kernel, (0,))[0]:
-            largest[kernel] = (size, args, dict(gather))
-        if (kernel, case) in seen:
-            return
-        seen.add((kernel, case))
-        err[kernel] = max(err.get(kernel, 0.0), require_equal(
-            f"{kernel} (mesh path, class {case})", [got], [plain()]))
-        checked(results, kernel, case)
-
-    def q0(*a):
-        got = real[0](*a)
-        first("reduction_q0", dred.q0_case(a[4]), got,
-              lambda: dred.q0_plain(*a), a[3] << a[4], a)
-        return got
-
-    def bind(*a):
-        got = real[1](*a)
-        first("reduction_bind", dred.bind_case(a[4], a[5]), got,
-              lambda: dred.bind_plain(*a), a[5] << a[6], a)
-        return got
-
-    def points(x, n, nevals, terms, w, tile=None, group=None):
-        got = real[2](x, n, nevals, terms, w, tile, group)
-        a = (x, n, nevals, terms, w)
-        first("rows_points", drows.kernel_case(*a), got,
-              lambda: drows.points_plain(*a), x.shape[0] * nevals, a)
-        return got
-
-    dred.q0, dred.bind, drows.points = q0, bind, points
     SR._ShardedRows.weights, SW.shard_weights = q0_weights, points_weights
     try:
-        yield seen
+        with hold_kernels(results, err, "mesh path", ("reduction_q0",
+                                                      "reduction_bind",
+                                                      "rows_points"),
+                          largest, lambda: dict(gather)) as seen:
+            yield seen
     finally:
-        (dred.q0, dred.bind, drows.points, SR._ShardedRows.weights,
-         SW.shard_weights) = real
+        SR._ShardedRows.weights, SW.shard_weights = real
 
 
 def time_mesh_kernels(dev, results, largest: dict) -> dict:
@@ -2131,7 +2232,7 @@ def phase_mesh(dev, results, shards: int = 8, log_t: int = 20) -> None:
             proof, io = AtlasProver(pp, device=dev).prove([toks])
         torch.cuda.synchronize()
         wall = time.time() - t0
-        phases = {name: round(w, 6) for name, w, _ in profiling._EVENTS
+        phases = {name: round(w, 6) for name, w, _ in profiling.events()
                   if not name.startswith(" ")}
         phases.update(span_sums("mesh_"))
         return proof, io, wall, phases
@@ -2442,6 +2543,405 @@ def phase_exact(dev, results, timed=EXACT_TIMED) -> None:
         "timed": recs, "compiled": compiled}))
 
 
+
+# ---------------------------------------------------------------------------
+# phase 15: the model entry points on the card
+# ---------------------------------------------------------------------------
+
+MSM = ("bucket_accumulate", "bucket_combine")
+# the GPT-2-style slice's flags beyond gpt2_style's own (its full width)
+GPT2_ARGV = ["--gen", "1"]
+
+
+@contextlib.contextmanager
+def capture_msms(store: list):
+    """Keep (site, counts, as one batch) of every routed MSM call of the
+    proves inside: the commits and the witness (msm_batch_routed, each MSM
+    by its own route) and the fold batch (msm_fold_batch)."""
+    from jolt_atlas_tpu_torch.device import split as dsplit
+    real = (dsplit.msm_batch_routed, dsplit.msm_fold_batch)
+
+    def routed(dev, gate, prep, packed, counts, site):
+        store.append((site, list(counts), False))
+        return real[0](dev, gate, prep, packed, counts, site)
+
+    def folds(dev, gate, prep, packed, counts, site):
+        store.append((site, list(counts), True))
+        return real[1](dev, gate, prep, packed, counts, site)
+
+    dsplit.msm_batch_routed, dsplit.msm_fold_batch = routed, folds
+    try:
+        yield store
+    finally:
+        dsplit.msm_batch_routed, dsplit.msm_fold_batch = real
+
+
+def msm_plan(gate, msms: list) -> dict:
+    """The gate's route for each MSM size of a prove (capture_msms): a
+    batch routed MSM by MSM, [route, device points, why] a size; the fold
+    batch whole on the device, or its first MSM's split."""
+    plan = {}
+    for site, counts, batch in msms:
+        if batch:
+            whole, why = gate.engage(sum(counts))
+            plan[f"{site} batch of {len(counts)}, {sum(counts)} points"] = {
+                "device_whole": whole, "why": why,
+                "first_split": list(gate.split_plan(counts[0]))}
+        else:
+            for n in sorted(set(counts)):
+                plan[f"{site} {n}"] = list(gate.choose(n))
+    return plan
+
+
+def relu_mlp():
+    """tests/test_zk_pipeline.py's _relu_mlp (16 -> relu(16) -> two
+    einsums added) on the port's builder, weights and input from seed
+    0x2B5: (model, inputs)."""
+    from jolt_atlas_tpu_torch.frontend import ModelBuilder
+    from jolt_atlas_tpu_torch.frontend.quantize import quantize_tensor
+    rng = np.random.default_rng(0x2B5)
+    b = ModelBuilder(scale=8)
+    x = b.input((1, 16))
+    w = [b.constant(quantize_tensor(rng.standard_normal((16, 16)), 8))
+         for _ in range(3)]
+    h = b.relu(b.einsum("bi,ij->bj", [x, w[0]]))
+    b.output(b.add(b.einsum("bi,ij->bj", [h, w[1]]),
+                   b.einsum("bi,ij->bj", [h, w[2]])))
+    return b.build(), [quantize_tensor(rng.standard_normal((1, 16)), 8)]
+
+
+def dory_e2e():
+    """tests/test_dory.py's e2e model (16 -> relu(16)) on the port's
+    builder, from seed 0xD0FF: (model, inputs)."""
+    from jolt_atlas_tpu_torch.frontend import ModelBuilder
+    from jolt_atlas_tpu_torch.frontend.quantize import quantize_tensor
+    rng = np.random.default_rng(0xD0FF)
+    b = ModelBuilder(scale=8)
+    x = b.input((1, 16))
+    w1 = b.constant(quantize_tensor(rng.standard_normal((16, 16)), 8))
+    b.output(b.relu(b.einsum("bi,ij->bj", [x, w1])))
+    return b.build(), [quantize_tensor(rng.standard_normal((1, 16)), 8)]
+
+
+def path_record(out: dict, tele: dict) -> dict:
+    """What one run of a phase-15 path and its counted telemetry report:
+    its seconds (and phase spans, for a driver run: prove_model's dict)
+    and proof size, its engines' decisions, launches and dispatches."""
+    return {**{k: out[k] for k in ("setup_s", "prove_s", "verify_s",
+                                   "phases") if k in out},
+            "proof_bytes": len(out["blob"]),
+            "decisions": tele["decisions"], "launches": tele["launches"],
+            "dispatches": tele["dispatches"]}
+
+
+def models_path(results, name: str, required, fn, err, seen,
+                largest: dict | None = None):
+    """One phase-15 path on the card, run twice: first with every kernel
+    shape it launches held against its plain version (hold_kernels, which
+    keeps ``largest``), then counted, where each kernel of ``required``
+    and of the first run's launches must launch; the counted launches are
+    added to results["launches_models"]. Returns the counted run's result
+    and telemetry."""
+    from jolt_atlas_tpu_torch.device import telemetry
+    telemetry.reset()
+    with hold_kernels(results, err, name, largest=largest, seen=seen):
+        fn()
+    need = tuple(sorted(set(required) | set(telemetry.launches())))
+    out, tele = counted(results, need, fn)
+    total = results.setdefault("launches_models", {})
+    for k, v in tele["launches"].items():
+        total[k] = total.get(k, 0) + v
+    return out, tele
+
+
+def card_vs_host(dev, results, name: str, required, card, host, err,
+                 seen, largest: dict | None = None):
+    """One phase-15 path: ``card()`` through models_path (its kernel
+    shapes held, then counted; ``required``, on a CUDA ``dev``, must
+    launch), ``host()`` counted. Each returns a dict with the proof's
+    bytes under "blob"; they must be equal. Returns the card run's result
+    and telemetry, and the report of both runs."""
+    out, tele = models_path(results, name, required if dev.type == "cuda"
+                            else (), card, err, seen, largest)
+    host_out, host_tele = counted(results, (), host)
+    if out["blob"] != host_out["blob"]:
+        raise AssertionError(f"{name}: the card's bytes differ from the "
+                             "host path's")
+    return out, tele, {"bytes_equal": True, "verified": True,
+                       "card": path_record(out, tele),
+                       "host": path_record(host_out, host_tele)}
+
+
+def time_largest(results, largest: dict) -> dict:
+    """Kernels 2-5 and 7 at the largest launch a path made of each
+    (hold_kernels' ``largest``): device ms after an L2 flush, the call's
+    ms and the plain version's ms on the card, beside the bound of what
+    this data needs (as phases 4, 5, 11 and 12 count it)."""
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    from jolt_atlas_tpu_torch.device import rows as drows
+    out = {}
+    for kernel, (_, a, _) in sorted(largest.items()):
+        if kernel == "bucket_accumulate":
+            bases, lanes = a
+            L, E = lanes[2].shape[0] - 1, lanes[0].shape[0]
+            c = next(c for c in range(1, 24)
+                     if dmsm.window_shape(c)[0] << c == L)
+            n = E // dmsm.window_shape(c)[0]
+            call = lambda: dmsm.bucket_accumulate(bases, lanes)
+            plain = lambda: dmsm.bucket_accumulate_plain(bases, lanes)
+            (adds, nbytes), imads = accumulate_work(lanes, n), IMADS_PER_ADD
+            shape = f"n={n} c={c}"
+        elif kernel == "bucket_combine":
+            acc, c = a
+            k = acc[0].shape[0]
+            G = dmsm.combine_groups(k, c, torch.cuda.get_device_properties(
+                acc[0].device).multi_processor_count)
+            call = lambda: dmsm.bucket_combine(acc, c)
+            plain = lambda: dmsm.bucket_combine_plain(acc, c, G)
+            (adds, nbytes), imads = combine_work(k, c), IMADS_PER_ADD
+            shape = f"k={k} c={c} G={G}"
+        elif kernel == "reduction_q0":
+            _, tab, lanep, lanes, lg = a
+            call, plain = lambda: dred.q0(*a), lambda: dred.q0_plain(*a)
+            adds, imads = q0_lazy_imads(lanep.cpu(), lg,
+                                        dred.Q0_PER_THREAD), 1
+            nbytes = ((lanes << (lg - 1)) + tab.shape[0] + 2 * lanes) \
+                * FR_BYTES
+            shape = f"{lanes} lanes of 2^{lg}"
+        elif kernel == "reduction_bind":
+            jp, lanes, lg = a[4:]
+            call, plain = lambda: dred.bind(*a), lambda: dred.bind_plain(*a)
+            nc, nn = jp << lg, (lanes - jp) << lg
+            adds, nbytes, imads = nc, (3 * nc + 2 * nn) * FR_BYTES, \
+                IMADS_PER_MUL
+            shape = f"{jp} of {lanes} lanes continue, 2^{lg} each"
+        elif kernel == "rows_points":
+            x, n, nevals, terms, w = a
+            call = lambda: drows.points(*a)
+            plain = lambda: drows.points_plain(*a)
+            P = x.shape[0] // n
+            adds, imads = rows_products(*a)[0], IMADS_PER_MUL
+            nbytes = (P * n + nevals + w[0].shape[0]) * FR_BYTES
+            shape = f"{P} rows of {n}, {terms.T} terms, {nevals} points"
+        else:
+            continue  # kernel 6: its lanes are phase 11's
+        ms, call_ms, got = device_ms(call, 3, kernel, cold=True)
+        plain_ms, want = cuda_ms(plain, 1, warmup=False)
+        pair = (got, want) if isinstance(got, tuple) else ([got], [want])
+        require_equal(f"{kernel} ({shape}, timed)", *pair)
+        b, by = bound(adds, nbytes, results["imad_peak"], imads)
+        out[kernel] = {"shape": shape, "ms": ms, "call_ms": call_ms,
+                       "bound_ms": b, "bound_by": by, "share": b / ms,
+                       "plain_ms": plain_ms}
+    return out
+
+
+def models_gpt2(dev, results, err, seen) -> dict:
+    """The GPT-2-style slice at full width (GPT2_ARGV) through
+    nanogpt_style.run, the gate path against the host path (card_vs_host);
+    a flipped commitment rejected; each kernel timed at its largest
+    launch; the gate's plan for each MSM size of the prove; the largest
+    MSM on the device and the host, in turns."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.curve.points import g1_generator
+    from jolt_atlas_tpu_torch.device import gate as dgate
+    from jolt_atlas_tpu_torch.examples import gpt2_style, nanogpt_style
+    from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+    msms, largest = [], {}
+
+    def run(device):
+        return nanogpt_style.run(gpt2_style.args(GPT2_ARGV
+                                                 + ["--device", device]))
+
+    def card():
+        with capture_msms(msms):
+            return run(dev.type)
+    out, _, report = card_vs_host(dev, results, "gpt2_style", MSM, card,
+                                  lambda: run("cpu"), err, seen, largest)
+    timed_largest = time_largest(results, largest) if dev.type == "cuda" \
+        else {}
+    results["models_timed"] = timed_largest
+    del largest
+    bad = serde.deserialize_proof(out["blob"])
+    pid = sorted(bad.commitments)[0]
+    bad.commitments[pid] = bad.commitments[pid] + g1_generator()
+    if AtlasVerifier(out["pp"]).verify(bad, out["io"]):
+        raise AssertionError("gpt2_style: a flipped commitment verified")
+    gate = dgate.for_device(dev)
+    n = max(c for _, counts, _ in msms for c in counts)
+    srs = out["pp"].srs
+    prep = srs.prepared_bases()
+    engine = srs.device_bases(dev, dgate.forced("device"))
+    raw = dgate.random_scalars(n, 2121)
+    want = prep.msm_packed(raw, n)
+    ms = {"device": [], "host": []}
+    for which in ("device", "host", "host", "device", "device", "host"):
+        t0 = time.perf_counter()
+        got = (engine.msm_packed(raw, n) if which == "device"
+               else prep.msm_packed(raw, n))
+        ms[which].append((time.perf_counter() - t0) * 1e3)
+        if got != want:
+            raise AssertionError(f"{n}-point MSM: the {which} differs")
+    a, model = gpt2_style.args(GPT2_ARGV), out["model"]
+    return {"model": f"{a.blocks} blocks, {a.heads} heads, d{a.dim}, seq "
+                     f"{a.seq}, vocab {a.vocab}, scale 2^{a.scale}, "
+                     f"{len(model.graph.nodes)} nodes, largest polynomial "
+                     f"2^{model.graph.max_num_vars()}",
+            "argv": GPT2_ARGV, "tamper_rejected": True, **report,
+            "msm_plan": msm_plan(gate, msms),
+            "plan_2e20_2e21": {str(m): list(gate.choose(m)) for m in (
+                1 << 20, (1 << 21) - 3)},
+            "kernels_at_largest_launch": timed_largest,
+            "largest_msm": {"n": n, "ms_in_turns": ms,
+                            "device_min_ms": min(ms["device"]),
+                            "host_min_ms": min(ms["host"])}}
+
+
+def models_qwen(dev, results, err, seen) -> dict:
+    """qwen_slice from the committed ONNX through qwen_style.run: the gate
+    path against the host path (card_vs_host)."""
+    from jolt_atlas_tpu_torch.examples import qwen_style
+
+    def run(device):
+        return qwen_style.run(qwen_style.parser().parse_args(
+            ["--device", device]))
+    out, _, report = card_vs_host(dev, results, "qwen_slice", MSM,
+                                  lambda: run(dev.type), lambda: run("cpu"),
+                                  err, seen)
+    return {"nodes": len(out["model"].graph.nodes), **report}
+
+
+ZK = MSM + ("reduction_bind", "rows_points", "rows_from_i64")
+
+
+def models_zk(dev, results, err, seen) -> dict:
+    """prove_zk on BENCH_SMALL (nanogpt_style at its default shape) and on
+    _relu_mlp under one seeded blinding stream: the card with the MSM and
+    rows engines forced against the host path (card_vs_host); verify_zk
+    accepts (inside the driver); the masked opening's MSMs dispatched to
+    the card, the reduction on the host ("zk")."""
+    import argparse
+
+    from jolt_atlas_tpu_torch.device import gate as dgate
+    from jolt_atlas_tpu_torch.device import rows as drows
+    from jolt_atlas_tpu_torch.examples import nanogpt_style
+    mlp, mlp_in = relu_mlp()
+    cases = {
+        "bench_small": lambda device, **kw: nanogpt_style.run(
+            nanogpt_style.parser().parse_args(["--zk", "--gen", "1",
+                                               "--device", device]), **kw),
+        "relu_mlp": lambda device, **kw: nanogpt_style.prove_model(
+            mlp, mlp_in, argparse.Namespace(device=device, zk=True,
+                                            trace=False), **kw)}
+    report = {}
+    for case, run in cases.items():
+        def card():
+            with nanogpt_style.seeded_blinding():
+                return run(dev.type, msm_gate=dgate.forced("device"),
+                           iop_gate=drows.forced())
+
+        def host():
+            with nanogpt_style.seeded_blinding():
+                return run("cpu")
+        _, tele, report[case] = card_vs_host(dev, results, f"zk {case}", ZK,
+                                             card, host, err, seen)
+        d, why = tele["dispatches"], tele["decisions"]
+        for site in ("msm:hyperkzg_fold", "msm:hyperkzg_witness"):
+            if not d.get(site):
+                raise AssertionError(f"zk {case}: no device MSM dispatch "
+                                     f"at {site}: {tele}")
+        if why.get("reduction") != "zk":
+            raise AssertionError(f"zk {case}: reduction decision "
+                                 f"{why.get('reduction')}")
+    return report
+
+
+def prove_timed(pp, inputs, **how) -> dict:
+    """One AtlasProver(pp, **how).prove of ``inputs``: its serialized
+    bytes, io and seconds."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    t0 = time.time()
+    proof, io = AtlasProver(pp, **how).prove(inputs)
+    return {"blob": serde.serialize_proof(proof), "io": io,
+            "prove_s": time.time() - t0}
+
+
+def models_dory(dev, results, err, seen) -> dict:
+    """tests/test_dory.py's e2e model with pcs="dory": the opening
+    reduction and the rows engine forced on the card against the host
+    path (card_vs_host); kernels 4-8 launch; the port verifies."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.device import reduction as dred
+    from jolt_atlas_tpu_torch.device import rows as drows
+    from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
+    from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+    model, inputs = dory_e2e()
+    pp = AtlasPreprocessing.preprocess(model, pcs="dory")
+    out, _, report = card_vs_host(
+        dev, results, "dory", REDUCTION + ROWS,
+        lambda: prove_timed(pp, inputs, device=dev,
+                            reduction_gate=dred.forced(),
+                            iop_gate=drows.forced()),
+        lambda: prove_timed(pp, inputs, device="cpu"), err, seen)
+    if not AtlasVerifier(pp).verify(serde.deserialize_proof(out["blob"]),
+                                    out["io"]):
+        raise AssertionError("dory: the verifier rejected the card's proof")
+    return report
+
+
+def models_keccak(dev, results, err, seen) -> dict:
+    """The full bench nanoGPT (phase 9's) under KeccakTranscript with the
+    default gates against the host path (card_vs_host): the reduction
+    declines, the MSM and rows engines engage, the port verifies."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.transcripts import KeccakTranscript
+    from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+    pp, toks = results["bench"]["pp"], results["bench"]["toks"]
+    out, tele, report = card_vs_host(
+        dev, results, "keccak", MSM + ROWS,
+        lambda: prove_timed(pp, [toks], device=dev,
+                            transcript_factory=KeccakTranscript),
+        lambda: prove_timed(pp, [toks], device="cpu",
+                            transcript_factory=KeccakTranscript),
+        err, seen)
+    why = tele["decisions"]
+    if dev.type == "cuda":
+        if why.get("reduction") != "transcript not BLAKE2b":
+            raise AssertionError(f"keccak: reduction decision "
+                                 f"{why.get('reduction')}")
+        for engine in ("msm", "iop"):
+            if not why.get(engine, "").startswith("ENGAGED"):
+                raise AssertionError(f"keccak: {engine} did not engage: "
+                                     f"{why}")
+    if not AtlasVerifier(pp, KeccakTranscript).verify(
+            serde.deserialize_proof(out["blob"]), out["io"]):
+        raise AssertionError("keccak: the verifier rejected the proof")
+    return report
+
+
+def phase_models(dev, results) -> None:
+    """The model entry points on the card, each against the host path's
+    bytes: the GPT-2-style slice at full width, qwen_slice from the
+    committed ONNX, prove_zk, Dory and the Keccak transcript; every
+    kernel shape they launch held against its plain version."""
+    err: dict = {}
+    seen: set = set()
+    for name, step in (("gpt2_style", models_gpt2),
+                       ("qwen_slice", models_qwen), ("zk", models_zk),
+                       ("dory", models_dory), ("keccak", models_keccak)):
+        t0 = time.time()
+        rec = step(dev, results, err, seen)
+        say("models", json.dumps({"path": name, "seconds": time.time() - t0,
+                                  **rec}))
+    for k, v in err.items():
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], v)
+    say("models", json.dumps({"classes_held": len(seen), "max_abs_err": err,
+                              "launches_models": results[
+                                  "launches_models"]}))
+
+
 KERNELS = (
     ("pp_add", "jolt_atlas_tpu_torch/csrc/curve.cu",
      "jolt_atlas_tpu/tpu/pallas_curve.py:174"),
@@ -2482,24 +2982,37 @@ def main() -> int:
     card = card_line()
     say("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    phase_build()
+    t_start = time.time()
+
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        say("time", f"{name}: {time.time() - t0:.1f} s (script "
+            f"{time.time() - t_start:.1f} s)")
+        return out
+
+    phase("build", phase_build)
     results: dict = {"imad_peak": imad_peak()}
     from jolt_atlas_tpu_torch.preprocessing import cached_srs
+    # the GPT-2-style slice's SRS (2^21) first: the bench's 2^18 is this
+    # file trimmed
+    phase("srs 2^21", cached_srs, 21)
     srs = cached_srs(18)  # the bench prove's SRS size
     bases = srs.device_bases(dev, gate.forced("device")).bases
-    phase_pp_add(dev, bases, results)
-    sums = phase_bucket(dev, bases, results)
-    phase_combine(dev, bases, results, sums)
+    phase("pp_add", phase_pp_add, dev, bases, results)
+    sums = phase("bucket", phase_bucket, dev, bases, results)
+    phase("combine", phase_combine, dev, bases, results, sums)
     del sums  # not to count toward the proves' peak device memory
-    phase_msm(dev, srs)
-    phase_gate(dev, results)
-    phase_split(dev, srs, results)
-    cap, rows_cap = phase_prove(dev, srs, results)
-    phase_reduction(dev, results, cap)
+    phase("msm", phase_msm, dev, srs)
+    phase("gate", phase_gate, dev, results)
+    phase("split", phase_split, dev, srs, results)
+    cap, rows_cap = phase("prove", phase_prove, dev, srs, results)
+    phase("reduction", phase_reduction, dev, results, cap)
     del cap
-    phase_rows(dev, results, rows_cap)
-    phase_mesh(dev, results)
-    phase_exact(dev, results)
+    phase("rows", phase_rows, dev, results, rows_cap)
+    phase("mesh", phase_mesh, dev, results)
+    phase("exact", phase_exact, dev, results)
+    phase("models", phase_models, dev, results)
     require_checked(results)
     launches = results["launches"]
     kernels = []
@@ -2509,6 +3022,7 @@ def main() -> int:
                "replaces": repl, "launches": launches.get(name, 0),
                "launches_per_prove": results["launches_per_prove"].get(
                    name, 0),
+               "launches_models": results["launches_models"].get(name, 0),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"],
@@ -2537,6 +3051,8 @@ def main() -> int:
                 "launches_mesh_prove"].get(name, 0)
             if name in results["mesh_timed"]:
                 row["mesh_largest_launch"] = results["mesh_timed"][name]
+        if name in results["models_timed"]:  # phase 15's largest launch
+            row["models_largest_launch"] = results["models_timed"][name]
         if name == "exact_matmul":
             row["runs_in"] = "the quantized forward (entry(), torchexec.py)"
             for extra in ("bound_imad_ms", "share", "share_imad",

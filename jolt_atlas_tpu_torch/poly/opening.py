@@ -293,12 +293,14 @@ class ProverOpeningAccumulator:
             joint = vec.to_fr(joint)
         return proof, r_sumcheck, group_claims, joint
 
-    def prove_batch_opening_zk(self, poly_map, transcript, gens, srs):
+    def prove_batch_opening_zk(self, poly_map, transcript, gens, srs,
+                               dev=None, gate=None):
         """Hidden-claim batched opening (zk pipeline): the group claims
         stay Pedersen-committed (ZkBatchedSumcheck hidden-final mode) and
         the joint polynomial opens through the masked HyperKZG protocol
-        (subprotocols/zk_opening.py). Returns (zk_sumcheck_proof,
-        zk_joint_opening_proof)."""
+        (subprotocols/zk_opening.py). ``dev`` and ``gate``: the prover's
+        MSM engine and gate, for that protocol's public HyperKZG opening.
+        Returns (zk_sumcheck_proof, zk_joint_opening_proof)."""
         from ..device import telemetry
         from ..subprotocols.zk_opening import ZkJointOpening
         from ..subprotocols.zk_sumcheck import ZkBatchedSumcheck
@@ -338,7 +340,7 @@ class ProverOpeningAccumulator:
             joint = vec.to_fr(joint)
         zk_open = ZkJointOpening.open(srs, gens, joint, list(r_sumcheck),
                                       nus, g_vals, g_blinds, e_g,
-                                      transcript)
+                                      transcript, dev, gate)
         return proof, zk_open
 
 

@@ -308,11 +308,13 @@ class AtlasProver:
                 # zk pipeline: group claims stay Pedersen-committed and the
                 # joint polynomial opens through the masked HyperKZG
                 # protocol — no reduced claim is ever serialized in the
-                # clear (subprotocols/zk_opening.py)
+                # clear (subprotocols/zk_opening.py); its public opening
+                # takes the MSM engine and gate as the plain path's does
                 with span("batch_opening_reduction"):
                     bo_proof, hk_proof = \
                         accumulator.prove_batch_opening_zk(
-                            poly_map, transcript, gens, self.pp.srs)
+                            poly_map, transcript, gens, self.pp.srs, dev,
+                            gate)
                 reduced_claims = []
             else:
                 with span("batch_opening_reduction"):

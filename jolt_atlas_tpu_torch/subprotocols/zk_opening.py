@@ -146,12 +146,14 @@ def _rand_poly(n: int):
 class ZkJointOpening:
     @staticmethod
     def open(srs, gens, joint, point, nus, g_vals, g_blinds, e_g,
-             transcript) -> ZkJointOpeningProof:
+             transcript, dev=None, gate=None) -> ZkJointOpeningProof:
         """joint: FrArray (the delta-RLC joint polynomial), point: the
         reduction's r_sumcheck, nus: public multipliers with
         y_joint = sum nu_i g_i (delta * shorter-group prefix factors),
         (g_vals, g_blinds, e_g): the hidden group claims from the
-        reduction's hidden-final sigma."""
+        reduction's hidden-final sigma. ``dev`` and ``gate``: the MSM
+        engine and gate of the public opening of K (HyperKZG.open); the
+        mask's commitments stay on the host."""
         from ..commitment.hyperkzg import HyperKZG
         from ..commitment.kzg import kzg_commit
         from ..field import frvec
@@ -176,7 +178,8 @@ class ZkJointOpening:
         m_val = last.item(0) + point[0] * (last.item(1) - last.item(0))
         y_k = y_joint + rho * m_val
         transcript.append_scalar(y_k)
-        hk_k = HyperKZG.open(srs, k_poly, list(point), transcript)
+        hk_k = HyperKZG.open(srs, k_poly, list(point), transcript, dev=dev,
+                             gate=gate)
 
         # 3. committed-evaluation opening of M at the same point
         c_folds = [kzg_commit(srs, p) for p in m_folds[1:]]

@@ -25,6 +25,16 @@ def enable(on: bool = True) -> None:
     _ENABLED = on
 
 
+def enabled() -> bool:
+    return _ENABLED
+
+
+def events() -> list[tuple[str, float, int]]:
+    """The closed spans since the last reset(), in closing order: (name
+    indented two spaces a nesting level, wall seconds, RSS delta in KB)."""
+    return list(_EVENTS)
+
+
 def _rss_kb() -> int:
     try:
         with open("/proc/self/status") as f:

@@ -663,3 +663,38 @@ def test_compile_forward_defaults_to_the_card(gpu):
     out = torchexec.compile_forward(model)(torch.as_tensor(xq, device=gpu))
     assert out[0].device.type == "cuda"
     assert np.array_equal(out[0].cpu().numpy(), model.forward([xq])[0])
+
+
+def test_zk_driver_on_gpu_matches_host(gpu):
+    """nanogpt_style --zk at BENCH_SMALL's shape with the MSM and rows
+    engines forced on the card, under one seeded blinding stream: the
+    card's bytes equal the host path's, verify_zk accepts (inside the
+    driver), the masked opening's MSMs run on the card."""
+    from jolt_atlas_tpu_torch.device import rows
+    from jolt_atlas_tpu_torch.examples import nanogpt_style
+    blobs = {}
+    for device in ("cuda", "cpu"):
+        args = nanogpt_style.parser().parse_args(
+            ["--zk", "--gen", "1", "--device", device])
+        how = ({"msm_gate": gate.forced("device"),
+                "iop_gate": rows.forced()} if device == "cuda" else {})
+        with nanogpt_style.seeded_blinding():
+            out = nanogpt_style.run(args, **how)
+        blobs[device] = out["blob"]
+        if device == "cuda":
+            tele = out["telemetry"]
+            assert tele["dispatches"].get("msm:hyperkzg_witness", 0) > 0
+            assert tele["decisions"]["reduction"] == "zk"
+            for k in ("bucket_accumulate", "bucket_combine", "rows_points",
+                      "rows_from_i64"):
+                assert tele["launches"].get(k, 0) > 0, k
+    assert blobs["cuda"] == blobs["cpu"]
+
+
+def test_qwen_driver_on_gpu_matches_host(gpu):
+    """qwen_style on the committed models/qwen_slice: the card's default
+    gates against the host path, bytes equal."""
+    from jolt_atlas_tpu_torch.examples import qwen_style
+    blobs = {device: qwen_style.run(qwen_style.parser().parse_args(
+        ["--device", device]))["blob"] for device in ("cuda", "cpu")}
+    assert blobs["cuda"] == blobs["cpu"]
