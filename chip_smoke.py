@@ -19,7 +19,8 @@ script exits non-zero when any phase fails:
               random pairs plus doubling, P + (-P), the identity on either
               side and coordinates near p; bit-equal, timed at the gate's
               2^17 lanes
-  4. bucket   kernel 2 against its plain version on the digit lanes of
+  4. bucket   kernel 2 (its runs, then its levels of joins) against its
+              plain version on the digit lanes of
               4096 scalars at c = 6 (runs of 1, 5, 16 and 64 entries) and
               of a 2^16-point (c = 12), a 2^17-point and a 2^18 - 3 point
               (c = 14) MSM; bit-equal, each of the latter timed (2^17
@@ -30,7 +31,9 @@ script exits non-zero when any phase fails:
               c = 14, with identity buckets and the add's edge cases;
               bit-equal, each timed
   6. msm      the device MSM against the host csrc MSM at n = 2^17: random
-              254-bit scalars (adaptive window) and 16-bit scalars; affine
+              254-bit scalars (adaptive window) and 16-bit scalars (at c =
+              8, and at the adaptive window, where the reference's grid
+              refuses them as skewed: their deepest lane printed); affine
               points equal; the stage breakdown of one MSM
   7. gate     the MSM gate measures this card and host (the calibration
               path: pp_add chain, host MSM, device MSM at 2^16 and 2^18)
@@ -107,10 +110,11 @@ script exits non-zero when any phase fails:
               beside 16 torch._int_mm limb products with b row-major and
               column-major; entry() on the card against the CPU forward.
  15. models   the model entry points on the card, each against the host
-              path (device="cpu"): the GPT-2-style slice at full width (2
+              path (device="cpu"): the GPT-2-style slice (GPT-2 cut to 2
               blocks, 4 heads, d128, seq 16, vocab 8192, scale 2^12; its
-              SRS of 2^21 points is made before phase 3, and the bench's
-              2^18 is that file trimmed) through examples/nanogpt_style's
+              SRS of 2^21 points, like the bench's 2^18, is phase 16's
+              2^24 trimmed; its folds of 2^20 - 2^18 points, skewed, on
+              the card) through examples/nanogpt_style's
               run: bytes equal, verified, a flipped commitment rejected,
               each path's phase and setup seconds, every engine decision,
               the gate's route for each MSM size of the prove and its
@@ -125,7 +129,30 @@ script exits non-zero when any phase fails:
               gates (the reduction declines: "transcript not BLAKE2b").
               Kernels 2-7 are held bit-equal to their plain versions at
               the first launch of every shape class and MSM size these
-              paths make (hold_kernels).
+              paths make (hold_kernels): the GPT-2-style slice in a run
+              before its counted one, the other paths in their counted
+              run (their card seconds then hold the plain versions').
+ 16. flagship GPT-2 at the reference's padded 125M shape (examples/
+              gpt2_style.py --full: dim 1024, 16 heads, vocab 50257 padded
+              to 65536, seq 16, scale 2^12) cut to FLAGSHIP_BLOCKS blocks
+              (printed; its opening is 2^24 points at any depth), its SRS
+              of 2^24 points made before phase 3 into a temporary
+              directory out of the checkout: proved on the card with the
+              default gates through nanogpt_style.run, counted, kernels
+              3-7 held after it at every class it launched (the first
+              launch of each copied); verified,
+              a flipped commitment and a flipped byte rejected, the
+              reduction ENGAGED, hyperkzg_open's fold batch and witness on
+              the card; the largest fold's and the witness's MSMs on the
+              card equal to the host engine's; kernel 2 held at the class
+              of its flagship launches (c = 16, level 1 a thread a chunk,
+              a lane over 32 x the mean) on 2^20 of the largest fold's
+              scalars; kernels 2 and 3 timed at their largest launches
+              (kernel 2's runs and join also launched apart, kernels 2 + 3
+              on the witness at c = 16 and 18 in turns); set-up (the
+              SRS, the bases' upload), prove, phases, verify, proof bytes,
+              peak memory, the gate's routes and every MSM's deepest lane
+              printed.
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
@@ -135,14 +162,16 @@ durations (``device_ms``); the wrapper's call time, host work included,
 is printed beside them.
 
 Each path (gate calibration, split, the two device proves, the two mesh
-proves, the forward, phase 15's proves) runs with the launch counts set
-to 0 just before it and read just after; the kernels JSON sums them, and
-gives the traced prove's own launches, a mesh prove's and phase 15's
-(``launches_models``). Each phase prints its seconds. Every shape a
-path launched a kernel at (its lane count; for kernel 3 also its blocks
-per window; for kernels 4 and 5 their branch class; for kernel 7 its rows,
+proves, the forward, phase 15's proves, phase 16's counted prove) runs
+with the launch counts set to 0 just before it and read just after; the
+kernels JSON sums them, and gives the traced prove's own launches, a mesh
+prove's, phase 15's (``launches_models``) and phase 16's
+(``launches_flagship``). Each phase prints its seconds. Every shape a
+path launched a kernel at (its lane count; for kernel 2 also its level
+1's mapping; for kernel 3 also its blocks per window; for kernels 4 and 5
+their branch class; for kernel 7 its rows,
 points, terms, weight layout and launch plan; for kernel 9 its mode and
-whether it is batched) must be one that phases 3-5 and 11-15 held against
+whether it is batched) must be one that phases 3-5 and 11-16 held against
 the plain version, or the run fails. The
 second line from the end is that JSON, the last line {"ok": true,
 "device": {...}}. Imports nothing of JAX or jolt_atlas_tpu.
@@ -156,8 +185,10 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -377,7 +408,6 @@ def timed(results, kernel: str, shape: str, ms: float, adds: int,
 KEPT_SASS = ("cuda_12.9.r12.9/compiler.36037853_0", {
     "pp_add_kernel": "6a280bd3dc5ad72a",
     "bucket_accumulate_runs": "2709131d31bdd729",
-    "bucket_accumulate_join": "ef8c9f7e69f4151d",
     "bucket_combine_kernel": "e0dbf2927a6f71fa",
     "bucket_combine_groups": "4bea8a975503be53",
     "reduction_bind_kernel": "be07dc0fe3190249",
@@ -393,7 +423,7 @@ EXACT_KERNELS = ("exact_matmul_wide", "exact_matmul_narrow",
                  "exact_matmul_finish")
 # kernels 1-3 (the complete add and its users), 8 and 9: no spill
 NO_SPILL = ("pp_add_kernel", "bucket_accumulate_runs",
-            "bucket_accumulate_join", "bucket_combine_kernel",
+            "bucket_accumulate_level", "bucket_combine_kernel",
             "bucket_combine_groups", "rows_from_i64_kernel") + EXACT_KERNELS
 
 
@@ -449,6 +479,9 @@ def phase_build() -> None:
             f"with {KEPT_SASS[0]})")
         return
     sass = kernel_report.sass(build.CUDA_SRC)
+    say("build", "SASS digests of the kernels not recorded in KEPT_SASS: "
+        + json.dumps({k: v["digest"] for k, v in sorted(sass.items())
+                      if k not in KEPT_SASS[1]}))
     moved = sorted(k for k, d in KEPT_SASS[1].items()
                    if sass.get(k, {}).get("digest") != d)
     if moved:
@@ -531,13 +564,13 @@ def phase_bucket(dev, bases, results,
             f"bucket_accumulate (c=6, run={run})",
             dmsm.bucket_accumulate(bases, lanes, run=run),
             dmsm.bucket_accumulate_plain(bases, lanes, run)))
-    checked(results, "bucket_accumulate", lanes[2].shape[0] - 1)
+        checked(results, "bucket_accumulate",
+                dmsm.accumulate_class(lanes, run))
     sums, shapes = {}, []
     for i, n in enumerate(sizes):
         c = dmsm._pick_c(n)
         raw = random_scalars(n, 78 + i)
         lanes = dmsm.digit_lanes(dmsm.scalars_tensor(raw, n, dev), c)
-        dmsm.rows_for(raw, n, c)  # the reference's skew gate passes
         ms, call_ms, got = device_ms(
             lambda: dmsm.bucket_accumulate(bases, lanes), 5,
             "bucket_accumulate")
@@ -547,7 +580,7 @@ def phase_bucket(dev, bases, results,
         L = lanes[2].shape[0] - 1
         err = max(err, require_equal(
             f"bucket_accumulate (n={n}, c={c}, {L} lanes)", got, want))
-        checked(results, "bucket_accumulate", L)
+        checked(results, "bucket_accumulate", dmsm.accumulate_class(lanes))
         sums.setdefault(c, got)
         adds, nbytes = accumulate_work(lanes, n)
         shapes.append(timed(results, "bucket_accumulate",
@@ -675,8 +708,6 @@ def _msm_stages(engine, raw: bytes, n: int) -> dict:
         out[name] = (now - t) * 1e3
         t = now
 
-    dmsm.rows_for(raw, n, c)
-    lap("host_count")
     sc = dmsm.scalars_tensor(raw, n, engine.device)
     lap("upload")
     lanes = dmsm.digit_lanes(sc, c)
@@ -688,13 +719,13 @@ def _msm_stages(engine, raw: bytes, n: int) -> dict:
     lap("bucket_combine")
     after = telemetry.launches()
     out["combine_launches"] = sum(after.values()) - sum(before.values())
-    engine.finish(([(R, [0], c)], 1))
+    dmsm.window_points(R, c)
     lap("host_horner")
     return out
 
 
 def phase_msm(dev, srs, n: int = 1 << 17) -> None:
-    from jolt_atlas_tpu_torch.device import gate, msm as dmsm
+    from jolt_atlas_tpu_torch.device import gate, msm as dmsm, telemetry
     from jolt_atlas_tpu_torch.curve.native import pack_scalars
     from jolt_atlas_tpu_torch.field.constants import FR_MODULUS
     prep = srs.prepared_bases()
@@ -704,8 +735,11 @@ def phase_msm(dev, srs, n: int = 1 << 17) -> None:
     full = pack_scalars(vals)
     small = pack_scalars(rng.integers(0, 1 << 16, size=n))
     out = []
-    # 16-bit scalars at c = 8: a window straddling bit 16 would be skewed
-    for name, raw, c in (("254-bit", full, 0), ("16-bit", small, 8)):
+    # 16-bit scalars at c = 8 (every window's digits uniform) and at the
+    # adaptive window, where the reference's grid refuses them as skewed
+    # (a window straddling bit 16)
+    for name, raw, c in (("254-bit", full, 0), ("16-bit", small, 8),
+                         ("16-bit", small, 0)):
         engine = srs.device_bases(dev, gate.forced("device"), c=c)
         engine.msm_packed(raw, n)  # warm-up
         host_ms, dev_ms = [], []
@@ -728,10 +762,12 @@ def phase_msm(dev, srs, n: int = 1 << 17) -> None:
     out.append("stages (min of 3, ms) " + ", ".join(
         f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in stages.items()))
-    if dmsm._host_grid_rows(small, n, dmsm._pick_c(n)) >= 0:
-        raise AssertionError("16-bit scalars at the adaptive window were "
-                             "not refused as skewed")
-    out.append("16-bit at the adaptive window refused as skewed")
+    telemetry.reset()
+    srs.device_bases(dev, gate.forced("device")).msm_packed(small, n,
+                                                           site="16-bit")
+    [(_, deepest, mean)] = telemetry.snapshot()["msm_depth"]["16-bit"]
+    out.append(f"16-bit at the adaptive window on the card: deepest lane "
+               f"{deepest} entries, mean {mean:.3f}")
     say("msm", f"n={n} equal to the host MSM; " + "; ".join(out))
 
 
@@ -799,8 +835,12 @@ def phase_gate(dev, results) -> None:
         "host_msm_pps_2e18": g.cal["host_msm_pps"],
         "dev_msm_pps_2e16": g.cal["dev_msm_pps_16"],
         "dev_msm_pps_2e18": g.cal["dev_msm_pps"],
+        "dev_msm_pps_2e21": g.cal["dev_msm_pps_21"],
         "dev_base_setup_s_per_pt": g.cal["dev_base_setup_sppt"],
         "fit_fixed_s": fixed, "fit_rate_pps": rate,
+        "fit_above_2e18": list(g.fit(1 << 21)),
+        "plan_flagship": {f"2^{e}": list(g.choose(1 << e)[:2])
+                          for e in (21, 22, 23, 24)},
         "plan_route_ndev": plan,
         "fold_batch_on_device": g.engage(folds)[0],
         "why_64": g.choose(64)[2],
@@ -1285,7 +1325,8 @@ def tail_latency_bound(results) -> dict:
 
 
 def phase_reduction(dev, results, cap, tail_shapes=((8, 5), (2, 0),
-                                                    (256, 175), (256, 256)),
+                                                    (256, 175), (256, 256),
+                                                    (640, 600), (385, 385)),
                     b2_n=4096, long_lg=21) -> None:
     """Kernels 4-6 and the BLAKE2b test kernel against their plain versions
     at small shapes and at the edges, bit for bit, and the test kernel
@@ -1984,9 +2025,21 @@ HELD = ("bucket_accumulate", "bucket_combine", "reduction_bind",
         "reduction_q0", "reduction_tail", "rows_points")
 
 
+def _clone(obj):
+    """obj with every tensor in it (through tuples and lists) copied."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_clone(o) for o in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_clone(o) for o in obj)
+    return obj
+
+
 @contextlib.contextmanager
 def hold_kernels(results, err: dict, label: str, kernels=HELD,
-                 largest: dict | None = None, note=dict, seen=None):
+                 largest: dict | None = None, note=dict, seen=None,
+                 defer: list | None = None):
     """While entered, each of ``kernels`` (kernels 2-7) is held bit-equal
     to its plain version (on the card, on the launch's own inputs) at the
     first launch of every shape class the path makes, which is then
@@ -1994,7 +2047,10 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
     for kernels 2 and 3 also the MSM's entries and the batch's MSMs, so
     that each new MSM size is held once. Yields ``seen``, the set of
     (kernel, class) held (a set given in is added to). ``largest`` keeps
-    each kernel's largest launch: its size, its arguments and ``note()``."""
+    each kernel's largest launch: its size, its arguments and ``note()``.
+    ``defer``: the launch's inputs and result are copied into this list
+    instead, to be held after the path (``check_deferred``), so that the
+    plain versions stay out of the path's time."""
     from jolt_atlas_tpu_torch.device import msm as dmsm
     from jolt_atlas_tpu_torch.device import reduction as dred
     from jolt_atlas_tpu_torch.device import rows as drows
@@ -2004,23 +2060,27 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
             "reduction_tail": dred.tail, "rows_points": drows.points}
     seen = set() if seen is None else seen
 
-    def first(kernel, key, case, got, plain, size, args):
+    def first(kernel, key, case, got, plain_of, args, size,
+              plain_args=None):
         if largest is not None and (kernel not in largest
                                     or size > largest[kernel][0]):
             largest[kernel] = (size, args, note())
         if (kernel, key) in seen:
             return
         seen.add((kernel, key))
-        err[kernel] = max(err.get(kernel, 0.0), require_equal(
-            f"{kernel} ({label}, class {key})", got, plain()))
-        checked(results, kernel, case)
+        held = (kernel, key, case, got, plain_of,
+                args if plain_args is None else plain_args)
+        if defer is not None:
+            defer.append(_clone(held))
+        else:
+            hold_one(results, err, label, *held)
 
     def accumulate(bases, lanes, out=None, run=dmsm.ACCUM_RUN):
         got = real["bucket_accumulate"](bases, lanes, out, run)
-        L, E = lanes[2].shape[0] - 1, lanes[0].shape[0]
-        first("bucket_accumulate", (L, E), L, got,
-              lambda: dmsm.bucket_accumulate_plain(bases, lanes, run), E,
-              (bases, lanes))
+        case, E = dmsm.accumulate_class(lanes, run), lanes[0].shape[0]
+        first("bucket_accumulate", (case, E), case, got,
+              lambda a: dmsm.bucket_accumulate_plain(a[0], a[1], run),
+              (bases, lanes), E)
         return got
 
     def combine(acc, c, groups=0):
@@ -2032,21 +2092,22 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
         L = acc[0].shape[1]
         # the largest is the widest window's, then the largest batch
         first("bucket_combine", (L, G, k), (L, G), got,
-              lambda: dmsm.bucket_combine_plain(acc, c, G), (L, k), (acc, c))
+              lambda a: dmsm.bucket_combine_plain(a[0], a[1], G), (acc, c),
+              (L, k))
         return got
 
     def q0(*a):
         got = real["reduction_q0"](*a)
         case = dred.q0_case(a[4])
-        first("reduction_q0", case, case, [got], lambda: [dred.q0_plain(*a)],
-              a[3] << a[4], a)
+        first("reduction_q0", case, case, [got],
+              lambda b: [dred.q0_plain(*b)], a, a[3] << a[4])
         return got
 
     def bind(*a):
         got = real["reduction_bind"](*a)
         case = dred.bind_case(a[4], a[5])
         first("reduction_bind", case, case, [got],
-              lambda: [dred.bind_plain(*a)], a[5] << a[6], a)
+              lambda b: [dred.bind_plain(*b)], a, a[5] << a[6])
         return got
 
     def tail(*a):
@@ -2058,8 +2119,8 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
         if new:
             first("reduction_tail", lanes, lanes, (a[2], a[3], a[10], a[11],
                                                    a[12]),
-                  lambda: dred.tail_plain(*a[:2], pre[0], pre[1], *a[4:10],
-                                          pre[2]), lanes, a)
+                  lambda b: dred.tail_plain(*b), a, lanes,
+                  (*a[:2], pre[0], pre[1], *a[4:10], pre[2]))
         return None
 
     def points(x, n, nevals, terms, w, tile=None, group=None):
@@ -2067,7 +2128,7 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
         a = (x, n, nevals, terms, w)
         case = drows.kernel_case(*a)
         first("rows_points", case, case, [got],
-              lambda: [drows.points_plain(*a)], x.shape[0] * nevals, a)
+              lambda b: [drows.points_plain(*b)], a, x.shape[0] * nevals)
         return got
 
     # (module, name) of each wrapper where its callers find it: the rows
@@ -2087,6 +2148,21 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
         for k in kernels:
             for mod, attr in wrap[k][0]:
                 setattr(mod, attr, real[k])
+
+
+def hold_one(results, err: dict, label: str, kernel, key, case, got,
+             plain_of, args) -> None:
+    """Hold one launch of ``kernel`` (its result ``got``) against its plain
+    version on the same inputs, plain_of(args); note the class checked."""
+    err[kernel] = max(err.get(kernel, 0.0), require_equal(
+        f"{kernel} ({label}, class {key})", got, plain_of(args)))
+    checked(results, kernel, case)
+
+
+def check_deferred(results, err: dict, label: str, defer: list) -> None:
+    """Hold the launches that hold_kernels(defer=) kept, emptying it."""
+    while defer:
+        hold_one(results, err, label, *defer.pop(0))
 
 
 @contextlib.contextmanager
@@ -2549,7 +2625,8 @@ def phase_exact(dev, results, timed=EXACT_TIMED) -> None:
 # ---------------------------------------------------------------------------
 
 MSM = ("bucket_accumulate", "bucket_combine")
-# the GPT-2-style slice's flags beyond gpt2_style's own (its full width)
+# the GPT-2-style slice's flags beyond gpt2_style's own (2 blocks, 4 heads,
+# d128, vocab 8192)
 GPT2_ARGV = ["--gen", "1"]
 
 
@@ -2635,19 +2712,26 @@ def path_record(out: dict, tele: dict) -> dict:
 
 
 def models_path(results, name: str, required, fn, err, seen,
-                largest: dict | None = None):
+                largest: dict | None = None, merged: bool = False):
     """One phase-15 path on the card, run twice: first with every kernel
     shape it launches held against its plain version (hold_kernels, which
     keeps ``largest``), then counted, where each kernel of ``required``
-    and of the first run's launches must launch; the counted launches are
-    added to results["launches_models"]. Returns the counted run's result
-    and telemetry."""
+    and of the first run's launches must launch. ``merged``: one run, held
+    and counted at once (its seconds then hold the plain versions'). The
+    counted launches are added to results["launches_models"]. Returns the
+    counted run's result and telemetry."""
     from jolt_atlas_tpu_torch.device import telemetry
-    telemetry.reset()
-    with hold_kernels(results, err, name, largest=largest, seen=seen):
-        fn()
-    need = tuple(sorted(set(required) | set(telemetry.launches())))
-    out, tele = counted(results, need, fn)
+
+    def held():
+        with hold_kernels(results, err, name, largest=largest, seen=seen):
+            return fn()
+    if merged:
+        out, tele = counted(results, required, held)
+    else:
+        telemetry.reset()
+        held()
+        need = tuple(sorted(set(required) | set(telemetry.launches())))
+        out, tele = counted(results, need, fn)
     total = results.setdefault("launches_models", {})
     for k, v in tele["launches"].items():
         total[k] = total.get(k, 0) + v
@@ -2655,19 +2739,21 @@ def models_path(results, name: str, required, fn, err, seen,
 
 
 def card_vs_host(dev, results, name: str, required, card, host, err,
-                 seen, largest: dict | None = None):
+                 seen, largest: dict | None = None, merged: bool = False):
     """One phase-15 path: ``card()`` through models_path (its kernel
-    shapes held, then counted; ``required``, on a CUDA ``dev``, must
-    launch), ``host()`` counted. Each returns a dict with the proof's
-    bytes under "blob"; they must be equal. Returns the card run's result
-    and telemetry, and the report of both runs."""
+    shapes held, then counted, or both in one run when ``merged``;
+    ``required``, on a CUDA ``dev``, must launch), ``host()`` counted. Each
+    returns a dict with the proof's bytes under "blob"; they must be equal.
+    Returns the card run's result and telemetry, and the report of both
+    runs."""
     out, tele = models_path(results, name, required if dev.type == "cuda"
-                            else (), card, err, seen, largest)
+                            else (), card, err, seen, largest, merged)
     host_out, host_tele = counted(results, (), host)
     if out["blob"] != host_out["blob"]:
         raise AssertionError(f"{name}: the card's bytes differ from the "
                              "host path's")
     return out, tele, {"bytes_equal": True, "verified": True,
+                       "held_in_the_counted_run": merged,
                        "card": path_record(out, tele),
                        "host": path_record(host_out, host_tele)}
 
@@ -2738,8 +2824,9 @@ def time_largest(results, largest: dict) -> dict:
 
 
 def models_gpt2(dev, results, err, seen) -> dict:
-    """The GPT-2-style slice at full width (GPT2_ARGV) through
-    nanogpt_style.run, the gate path against the host path (card_vs_host);
+    """The GPT-2-style slice (GPT2_ARGV: GPT-2 cut to 2 blocks, 4 heads,
+    d128, vocab 8192) through nanogpt_style.run, the gate path against the
+    host path (card_vs_host), its 2^20 - 2^18 point folds on the card;
     a flipped commitment rejected; each kernel timed at its largest
     launch; the gate's plan for each MSM size of the prove; the largest
     MSM on the device and the host, in turns."""
@@ -2808,7 +2895,7 @@ def models_qwen(dev, results, err, seen) -> dict:
             ["--device", device]))
     out, _, report = card_vs_host(dev, results, "qwen_slice", MSM,
                                   lambda: run(dev.type), lambda: run("cpu"),
-                                  err, seen)
+                                  err, seen, merged=True)
     return {"nodes": len(out["model"].graph.nodes), **report}
 
 
@@ -2845,7 +2932,8 @@ def models_zk(dev, results, err, seen) -> dict:
             with nanogpt_style.seeded_blinding():
                 return run("cpu")
         _, tele, report[case] = card_vs_host(dev, results, f"zk {case}", ZK,
-                                             card, host, err, seen)
+                                             card, host, err, seen,
+                                             merged=True)
         d, why = tele["dispatches"], tele["decisions"]
         for site in ("msm:hyperkzg_fold", "msm:hyperkzg_witness"):
             if not d.get(site):
@@ -2884,7 +2972,8 @@ def models_dory(dev, results, err, seen) -> dict:
         lambda: prove_timed(pp, inputs, device=dev,
                             reduction_gate=dred.forced(),
                             iop_gate=drows.forced()),
-        lambda: prove_timed(pp, inputs, device="cpu"), err, seen)
+        lambda: prove_timed(pp, inputs, device="cpu"), err, seen,
+        merged=True)
     if not AtlasVerifier(pp).verify(serde.deserialize_proof(out["blob"]),
                                     out["io"]):
         raise AssertionError("dory: the verifier rejected the card's proof")
@@ -2905,7 +2994,7 @@ def models_keccak(dev, results, err, seen) -> dict:
                             transcript_factory=KeccakTranscript),
         lambda: prove_timed(pp, [toks], device="cpu",
                             transcript_factory=KeccakTranscript),
-        err, seen)
+        err, seen, merged=True)
     why = tele["decisions"]
     if dev.type == "cuda":
         if why.get("reduction") != "transcript not BLAKE2b":
@@ -2923,7 +3012,7 @@ def models_keccak(dev, results, err, seen) -> dict:
 
 def phase_models(dev, results) -> None:
     """The model entry points on the card, each against the host path's
-    bytes: the GPT-2-style slice at full width, qwen_slice from the
+    bytes: the GPT-2-style slice (2 blocks, d128), qwen_slice from the
     committed ONNX, prove_zk, Dory and the Keccak transcript; every
     kernel shape they launch held against its plain version."""
     err: dict = {}
@@ -2940,6 +3029,287 @@ def phase_models(dev, results) -> None:
     say("models", json.dumps({"classes_held": len(seen), "max_abs_err": err,
                               "launches_models": results[
                                   "launches_models"]}))
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the reference's flagship, GPT-2 at its padded 125M shape
+# ---------------------------------------------------------------------------
+
+# GPT-2 at the reference's padded 125M shape (examples/gpt2_style.py --full:
+# dim 1024, 16 heads, vocab 50257 padded to 65536, seq 16, scale 2^12), its
+# depth cut to FLAGSHIP_BLOCKS: the blocks are all alike, so one is a whole
+# period of the layer pattern, and the joint opening is 2^24 points at any
+# depth (LOG_K_CHUNK + log2(16 x 65536)); fewer blocks make the host IOP's
+# share smaller than in the 12-block model
+FLAGSHIP_BLOCKS = 1
+FLAGSHIP_ARGV = ["--full", "--blocks", str(FLAGSHIP_BLOCKS), "--gen", "0"]
+FLAGSHIP_VARS = 24
+# kernel 2 is held at the flagship's class (c = 16, level 1 a thread a
+# chunk, a lane far over 32 x the mean) on the 2^20 scalars of the largest
+# fold that hold most of its deepest lane, at runs of 4 (16 windows x 2^20
+# entries: 4 runs a lane), where its plain version takes seconds; kernels
+# 3-7 on every class the prove launches
+FLAGSHIP_HOLD_N = 1 << 20
+FLAGSHIP_HOLD_RUN = 4
+FLAGSHIP_HELD = ("bucket_combine", "reduction_bind", "reduction_q0",
+                 "reduction_tail", "rows_points")
+
+
+@contextlib.contextmanager
+def keep_msm_scalars(store: dict):
+    """Keep (packed scalars, points) of the fold batch's first (largest)
+    MSM and of the witness MSM of the proves inside, as store["fold"] and
+    store["witness"]."""
+    from jolt_atlas_tpu_torch.device import split as dsplit
+    real = (dsplit.msm_batch_routed, dsplit.msm_fold_batch)
+
+    def routed(dev, gate, prep, packed, counts, site):
+        if site == "hyperkzg_witness":
+            store["witness"] = (packed[0], counts[0])
+        return real[0](dev, gate, prep, packed, counts, site)
+
+    def folds(dev, gate, prep, packed, counts, site):
+        store["fold"] = (packed[0], counts[0])
+        return real[1](dev, gate, prep, packed, counts, site)
+
+    dsplit.msm_batch_routed, dsplit.msm_fold_batch = routed, folds
+    try:
+        yield store
+    finally:
+        dsplit.msm_batch_routed, dsplit.msm_fold_batch = real
+
+
+def accumulate_stages_ms(bases, lanes, want) -> tuple:
+    """Device milliseconds (CUDA events, mean of 3 after a warm-up) of
+    kernel 2's runs alone and of its levels, the join, alone on digit
+    lanes, the levels repeated after a launch of the runs; the buckets the
+    two leave are held equal to ``want``, the one-call result."""
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    L = lanes[2].shape[0] - 1
+    outs = [torch.empty((L, 4), dtype=torch.int64, device=lanes[0].device)
+            for _ in range(3)]
+    parts = dmsm.accumulate_scratch(lanes)
+    runs, _ = cuda_ms(lambda: dmsm.accumulate_launch(
+        bases, lanes, outs, parts, stages=1), 3)
+    join, _ = cuda_ms(lambda: dmsm.accumulate_launch(
+        bases, lanes, outs, parts, stages=2), 3)
+    if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+        raise AssertionError("kernel 2's runs and levels launched apart "
+                             "differ from one launch of both")
+    return runs, join
+
+
+def lane_depth(lanes) -> dict:
+    """The deepest lane (entries) of digit lanes beside the mean a lane."""
+    starts = lanes[2]
+    L = starts.shape[0] - 1
+    deepest = int((starts[1:] - starts[:-1]).max())
+    mean = int(starts[L]) / L
+    return {"deepest": deepest, "mean": mean, "ratio": deepest / mean}
+
+
+def time_flagship_msm(dev, results, engine, scal: dict, largest: dict,
+                      err: dict, windows=(16, 18)) -> dict:
+    """Kernels 2 and 3 at the flagship's largest launches beside their
+    bounds: kernel 2 on the witness's and the largest fold's digit lanes
+    (also its runs and its levels, the join, launched apart), kernel 3 at
+    the largest combine the prove launched; kernels 2 + 3 on the witness
+    at c = 16 and c = 18 (``windows``) in turns; kernel 2 held against its
+    plain version at the class of these launches (FLAGSHIP_HOLD_N). These
+    launches take milliseconds on data of gigabytes (no L2 flush needed);
+    their device time is taken by CUDA events (``cuda_ms``, mean of 3
+    after a warm-up)."""
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    bases = engine.bases
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for site in ("witness", "fold"):
+        raw, n = scal[site]
+        c = dmsm._pick_c(n)
+        lanes = dmsm.digit_lanes(dmsm.scalars_tensor(raw, n, dev), c)
+        ms, want = cuda_ms(lambda: dmsm.bucket_accumulate(bases, lanes), 3)
+        runs_ms, join_ms = accumulate_stages_ms(bases, lanes, want)
+        adds, nbytes = accumulate_work(lanes, n)
+        b, by = bound(adds, nbytes, results["imad_peak"])
+        out[f"bucket_accumulate {site}"] = {
+            "shape": f"n={n} c={c}", "ms": ms, "bound_ms": b,
+            "bound_by": by, "share": b / ms, "runs_ms": runs_ms,
+            "join_ms": join_ms, "class": dmsm.accumulate_class(lanes),
+            "levels": len(dmsm.accumulate_levels(lanes[0].shape[0])) - 1,
+            **lane_depth(lanes)}
+        if site == "fold":
+            # the first of the FLAGSHIP_HOLD_N points that hold the most
+            # of the deepest lane's entries
+            starts = lanes[2]
+            deep = int((starts[1:] - starts[:-1]).argmax())
+            p = lanes[1][int(starts[deep]):int(starts[deep + 1])].long()
+            ends = torch.searchsorted(p, p + FLAGSHIP_HOLD_N)
+            first = int(p[int((ends - torch.arange(
+                p.shape[0], device=p.device)).argmax())])
+        del lanes, want
+    raw, n = scal["witness"]
+    sc = dmsm.scalars_tensor(raw, n, dev)
+    turns = {c: [] for c in windows}
+    for rep in range(3):
+        for c in (windows if rep % 2 == 0 else windows[::-1]):
+            lanes = dmsm.digit_lanes(sc, c)
+
+            def both():
+                acc = dmsm.bucket_accumulate(bases, lanes)
+                return dmsm.bucket_combine(tuple(a.unsqueeze(0)
+                                                 for a in acc), c)
+            turns[c].append(cuda_ms(both, 1)[0])
+            del lanes
+    out["witness_k2_k3_by_window_ms"] = turns
+    del sc
+    size, (acc, c), _ = largest["bucket_combine"]
+    k = acc[0].shape[0]
+    ms, _ = cuda_ms(lambda: dmsm.bucket_combine(acc, c), 3)
+    adds, nbytes = combine_work(k, c)
+    b, by = bound(adds, nbytes, results["imad_peak"])
+    out["bucket_combine"] = {
+        "shape": f"k={k} c={c} G={dmsm.combine_groups(k, c, sms)} "
+                 f"({dmsm.combine_threads(c)} threads)",
+        "ms": ms, "bound_ms": b, "bound_by": by, "share": b / ms}
+    del acc
+    raw, n = scal["fold"]
+    m, run, c = min(n, FLAGSHIP_HOLD_N), FLAGSHIP_HOLD_RUN, dmsm._pick_c(n)
+    a = max(0, min(first, n - m))
+    lanes = dmsm.digit_lanes(dmsm.scalars_tensor(raw[32 * a:32 * (a + m)],
+                                                 m, dev), c, a)
+    case, depth = dmsm.accumulate_class(lanes, run), lane_depth(lanes)
+    if case[1] != 1 or depth["deepest"] <= max(64, 32 * depth["mean"]):
+        raise AssertionError("kernel 2's hold is not at the flagship's "
+                             f"class: {case}, {depth}")
+    got = dmsm.bucket_accumulate(bases, lanes, run=run)
+    t0 = time.time()
+    want = dmsm.bucket_accumulate_plain(bases, lanes, run)
+    plain_s = time.time() - t0
+    err["bucket_accumulate"] = max(err.get("bucket_accumulate", 0.0),
+                                   require_equal(
+        f"bucket_accumulate (the largest fold's scalars {a}..{a + m})", got,
+        want))
+    checked(results, "bucket_accumulate", case)
+    out["bucket_accumulate held"] = {
+        "shape": f"the largest fold's scalars [{a}, {a + m}), c={c}, runs "
+                 f"of {run}", "class": case, "plain_s": plain_s,
+        "levels": len(dmsm.accumulate_levels(lanes[0].shape[0], run)) - 1,
+        **depth}
+    return out
+
+
+def curve_points(R) -> list:
+    """Window sums (k, W, 4) x 3 on the card as affine points."""
+    from jolt_atlas_tpu_torch.device import curve
+    return curve.tensors_to_points(tuple(t.reshape(-1, 4).cpu() for t in R))
+
+
+FLAGSHIP_REQUIRED = MSM + REDUCTION
+
+
+def phase_flagship(dev, results, windows=(16, 18)) -> None:
+    """GPT-2 at the reference's padded 125M shape (FLAGSHIP_ARGV) through
+    nanogpt_style.run on the card with the default gates, counted and
+    timed; the first launch of every class of kernels 3-7 is copied and
+    held against its plain version after the prove (hold_kernels(defer=)),
+    kernel 2 at the class of its launches (time_flagship_msm). Requires
+    the verifier's acceptance, a flipped commitment and a flipped byte
+    rejected, hyperkzg_open's fold batch and witness MSMs on the card or
+    split, and the reduction ENGAGED; the largest fold's and the
+    witness's points on the card equal to the host engine's; kernels 2
+    and 3 at their largest launches beside their bounds. Prints set-up (the SRS, the bases'
+    upload), the prove and its phases, verify, proof bytes, peak memory,
+    the gate's routes, every engine decision and the MSMs' lane depths."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.curve.points import g1_generator
+    from jolt_atlas_tpu_torch.device import gate as dgate
+    from jolt_atlas_tpu_torch.examples import gpt2_style, nanogpt_style
+    from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+    a = gpt2_style.args(FLAGSHIP_ARGV)
+    say("flagship", f"GPT-2 at its padded 125M shape: {a.blocks} of 12 "
+        f"blocks, dim {a.dim}, {a.heads} heads, seq {a.seq}, vocab "
+        f"{a.vocab}, scale 2^{a.scale}")
+    msms, scal, largest, err, seen, defer = [], {}, {}, {}, set(), []
+
+    def run():
+        with capture_msms(msms), keep_msm_scalars(scal), hold_kernels(
+                results, err, "flagship", kernels=FLAGSHIP_HELD,
+                largest=largest, seen=seen, defer=defer):
+            return nanogpt_style.run(gpt2_style.args(FLAGSHIP_ARGV))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, tele = counted(results, FLAGSHIP_REQUIRED, run)
+    results["launches_flagship"] = tele["launches"]
+    t0 = time.time()
+    check_deferred(results, err, "flagship", defer)
+    held_s = time.time() - t0
+    why, d = tele["decisions"], tele["dispatches"]
+    if not why.get("reduction", "").startswith("ENGAGED"):
+        raise AssertionError(f"flagship: reduction {why.get('reduction')}")
+    for site in ("hyperkzg_fold", "hyperkzg_witness"):
+        route = why.get("msm:" + site, "")
+        if not route.startswith(("device", "split")) or not d.get(
+                "msm:" + site):
+            raise AssertionError(f"flagship: {site} not on the card: "
+                                 f"{route!r}, {d}")
+    if any("skew" in k for k in d):
+        raise AssertionError(f"flagship: a refusal was counted: {d}")
+    model = out["model"]
+    verifier = AtlasVerifier(out["pp"])
+    bad = serde.deserialize_proof(out["blob"])
+    pid = sorted(bad.commitments)[0]
+    bad.commitments[pid] = bad.commitments[pid] + g1_generator()
+    if verifier.verify(bad, out["io"]):
+        raise AssertionError("flagship: a flipped commitment verified")
+    blob = bytearray(out["blob"])
+    blob[len(blob) // 2] ^= 1
+    try:
+        accepted = verifier.verify(serde.deserialize_proof(bytes(blob)),
+                                   out["io"])
+    except Exception:  # a byte that no longer parses is a rejection
+        accepted = False
+    if accepted:
+        raise AssertionError("flagship: a flipped byte verified")
+    engine = out["pp"].srs.device_bases(dev, dgate.forced("device"))
+    prep = out["pp"].srs.prepared_bases()
+    equal = {}
+    for site in ("fold", "witness"):
+        raw, n = scal[site]
+        t1 = time.perf_counter()
+        want = prep.msm_packed(raw, n)
+        t2 = time.perf_counter()
+        got = engine.msm_packed(raw, n)
+        t3 = time.perf_counter()
+        if got != want:
+            raise AssertionError(f"flagship: the {site}'s {n}-point MSM on "
+                                 "the card differs from the host engine's")
+        equal[site] = {"n": n, "host_ms": (t2 - t1) * 1e3,
+                       "card_ms": (t3 - t2) * 1e3}
+    timed_msm = time_flagship_msm(dev, results, engine, scal, largest, err,
+                                  windows)
+    del largest, scal
+    for k, v in err.items():
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], v)
+    results["flagship_timed"] = timed_msm
+    depth = {site: max(tele["msm_depth"].get("msm:" + site, []),
+                       key=lambda r: r[1], default=None)
+             for site in ("commit", "hyperkzg_fold", "hyperkzg_witness")}
+    say("flagship", json.dumps({
+        "model": f"{a.blocks} blocks, {a.heads} heads, d{a.dim}, seq "
+                 f"{a.seq}, vocab {a.vocab}, scale 2^{a.scale}, "
+                 f"{len(model.graph.nodes)} nodes, largest polynomial "
+                 f"2^{model.graph.max_num_vars()}",
+        "argv": FLAGSHIP_ARGV, "holds_s": held_s,
+        "classes_held": len(seen), "max_abs_err": err,
+        "tamper_rejected": True, "verified": True,
+        **path_record(out, tele),
+        "srs_s": out["srs_s"], "bases_s": out["bases_s"],
+        "peak_memory_gb": out["peak_memory"],
+        "msm_plan": msm_plan(dgate.for_device(dev), msms),
+        "deepest_lane_points_deepest_mean": depth,
+        "msm_depth": tele["msm_depth"],
+        "card_vs_host_engine": equal,
+        "kernels_at_largest_launch": timed_msm}))
 
 
 KERNELS = (
@@ -2977,6 +3347,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import jolt_atlas_tpu_torch  # noqa: F401  (fails outside a checkout)
+    # the SRS files (the flagship's ~1 GB) go to a temporary directory, out
+    # of the checkout, removed at the end
+    cache = tempfile.mkdtemp(prefix="jolt_srs_")
+    os.environ["JOLT_ATLAS_SRS_CACHE"] = cache
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def run_phases() -> int:
     from jolt_atlas_tpu_torch.device import gate
     dev = torch.device("cuda")
     card = card_line()
@@ -2994,9 +3375,12 @@ def main() -> int:
     phase("build", phase_build)
     results: dict = {"imad_peak": imad_peak()}
     from jolt_atlas_tpu_torch.preprocessing import cached_srs
-    # the GPT-2-style slice's SRS (2^21) first: the bench's 2^18 is this
-    # file trimmed
-    phase("srs 2^21", cached_srs, 21)
+    # the flagship's SRS (2^24, ~1 GB) first, made once: the GPT-2-style
+    # slice's 2^21 and the bench's 2^18 are it trimmed
+    flagship = phase(f"srs 2^{FLAGSHIP_VARS}", cached_srs, FLAGSHIP_VARS)
+    flagship.trim(1 << 21).save(os.path.join(
+        os.environ["JOLT_ATLAS_SRS_CACHE"], "srs_2e21.bin"))
+    del flagship
     srs = cached_srs(18)  # the bench prove's SRS size
     bases = srs.device_bases(dev, gate.forced("device")).bases
     phase("pp_add", phase_pp_add, dev, bases, results)
@@ -3013,6 +3397,7 @@ def main() -> int:
     phase("mesh", phase_mesh, dev, results)
     phase("exact", phase_exact, dev, results)
     phase("models", phase_models, dev, results)
+    phase("flagship", phase_flagship, dev, results)
     require_checked(results)
     launches = results["launches"]
     kernels = []
@@ -3023,6 +3408,8 @@ def main() -> int:
                "launches_per_prove": results["launches_per_prove"].get(
                    name, 0),
                "launches_models": results["launches_models"].get(name, 0),
+               "launches_flagship": results["launches_flagship"].get(name,
+                                                                     0),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"],
@@ -3053,6 +3440,10 @@ def main() -> int:
                 row["mesh_largest_launch"] = results["mesh_timed"][name]
         if name in results["models_timed"]:  # phase 15's largest launch
             row["models_largest_launch"] = results["models_timed"][name]
+        if name in MSM:  # phase 16's largest launches
+            row["flagship_largest_launch"] = {
+                k: v for k, v in results["flagship_timed"].items()
+                if k.startswith(name)}
         if name == "exact_matmul":
             row["runs_in"] = "the quantized forward (entry(), torchexec.py)"
             for extra in ("bound_imad_ms", "share", "share_imad",

@@ -103,8 +103,7 @@ class HyperKZG:
         batch; otherwise the largest fold's device share, if the gate
         splits it, is queued first and the host runs its prefix and the
         other folds meanwhile. The n-point witness MSM goes to the device,
-        a split or the host by the gate. An MSM whose digit grid would be
-        skewed takes the host engine (counted in telemetry)."""
+        a split or the host by the gate."""
         from ..field.frvec import FrArray
         ell = len(point)
         n = len(coeffs)

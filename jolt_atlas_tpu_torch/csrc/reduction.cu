@@ -56,7 +56,12 @@ constexpr int Q0_THREADS = 1 << LOG_Q0_THREADS;
 constexpr int LOG_Q0_PER_THREAD = 4;  // 16 terms
 
 constexpr int Q0_PER_THREAD = 1 << LOG_Q0_PER_THREAD;
-constexpr int TAIL_MAX_LANES = 1024;
+constexpr int TAIL_MAX_LANES = 4096;
+// kernel 6 takes a lane a thread up to TAIL_BLOCK_LANES lanes (its ~145
+// registers a thread leave room for 13 warps a block); beyond, its wide
+// form takes them on TAIL_WIDE_THREADS threads, several lanes each
+constexpr int TAIL_BLOCK_LANES = 384;
+constexpr int TAIL_WIDE_THREADS = 256;
 
 __global__ void __launch_bounds__(BIND_THREADS)
     reduction_bind_kernel(const u64* __restrict__ buf,
@@ -328,6 +333,70 @@ __global__ void reduction_tail_kernel(
              t, t < joined, BlockSum2{sums});
 }
 
+// Lane u's message terms (s0, s2), as tail_round forms lane t's
+__device__ __forceinline__ void tail_terms(const TailIo& io, int64_t u,
+                                           Fr& s0, Fr& s2) {
+  const Fr q0 = load_fr(io.q0s, u);
+  const Fr l0 = load_fr(io.l0, u);
+  const Fr esv = load_fr(io.es, u);
+  const Fr l0q0 = fr_mul(l0, q0);
+  const Fr q1 = fr_mul(fr_sub(load_fr(io.Q, u), l0q0), load_fr(io.inv_l1, u));
+  const Fr cf = load_fr(io.coeff, u);
+  s0 = fr_mul(cf, fr_mul(esv, l0q0));
+  s2 = fr_mul(cf, fr_mul(esv, fr_mul(fr_sub(load_fr(io.l1, u), l0),
+                                     fr_sub(q1, q0))));
+}
+
+// The block sum of kernel 6's wide form: a thread's lanes t + blockDim,
+// t + 2 blockDim, ... add their terms to lane t's first (the sums are exact
+// in Fr, so the order does not show in b0 and b2)
+struct WideSum2 {
+  Fr* sums;
+  const TailIo* io;
+  int64_t joined;
+  __device__ __forceinline__ void operator()(Fr& x, Fr& y) const {
+    for (int64_t u = threadIdx.x + blockDim.x; u < joined; u += blockDim.x) {
+      Fr s0, s2;
+      tail_terms(*io, u, s0, s2);
+      x = fr_add(x, s0);
+      y = fr_add(y, s2);
+    }
+    block_sum2(x, y, sums);
+  }
+};
+
+// Kernel 6 beyond TAIL_BLOCK_LANES lanes: tail_round on lane t of each
+// thread, the thread's further lanes summed into its terms (WideSum2) and
+// updated after the challenge, which thread 0 left in c_out
+__global__ void __launch_bounds__(TAIL_WIDE_THREADS)
+    reduction_tail_wide_kernel(
+        const u64* __restrict__ q0s, int64_t joined, int64_t lanes,
+        u64* __restrict__ Q, u64* __restrict__ es,
+        const u64* __restrict__ qinit, const u64* __restrict__ coeff,
+        const u64* __restrict__ l0p, const u64* __restrict__ l1p,
+        const u64* __restrict__ inv_l1p, const u64* __restrict__ const_b0,
+        u64* __restrict__ state, u64* __restrict__ c_out,
+        u64* __restrict__ msg) {
+  __shared__ Fr sums[64];
+  const int t = threadIdx.x;
+  for (int64_t u = t; u < lanes; u += blockDim.x)
+    if (u >= joined) store_fr(Q, u, load_fr(qinit, u));
+  const TailIo io{q0s, Q, es, coeff, l0p, l1p, inv_l1p, const_b0, state,
+                  c_out, msg};
+  tail_round(io, t, t < joined, WideSum2{sums, &io, joined});
+  const Fr c = load_fr(c_out, 0);
+  for (int64_t u = t + blockDim.x; u < joined; u += blockDim.x) {
+    const Fr q0 = load_fr(q0s, u);
+    const Fr l0 = load_fr(l0p, u);
+    const Fr q1 = fr_mul(fr_sub(load_fr(Q, u), fr_mul(l0, q0)),
+                         load_fr(inv_l1p, u));
+    store_fr(Q, u, fr_add(q0, fr_mul(fr_sub(q1, q0), c)));
+    store_fr(es, u, fr_mul(load_fr(es, u),
+                           fr_add(l0, fr_mul(fr_sub(load_fr(l1p, u), l0),
+                                             c))));
+  }
+}
+
 constexpr int TRANSCRIPT_THREADS = 128;  // four a transcript
 
 // n independent transcript steps, each on four lanes (transcript_step_x4,
@@ -396,7 +465,8 @@ extern "C" int jolt_reduction_q0(const void* buf, const void* tab,
 }
 
 // One round's message, transcript step and challenge over `lanes` lanes
-// (at most 1024), the first `joined` of them joined, from their q(0) (q0s,
+// (at most TAIL_MAX_LANES; beyond TAIL_BLOCK_LANES on kernel 6's wide
+// form), the first `joined` of them joined, from their q(0) (q0s,
 // a row a lane); Q and es advance in place, state (5 u64) too; c_out gets
 // the challenge, msg (2 elements) b0 and b2.
 extern "C" int jolt_reduction_tail(const void* q0s, int64_t joined,
@@ -409,6 +479,15 @@ extern "C" int jolt_reduction_tail(const void* q0s, int64_t joined,
   using jolt::u64;
   if (lanes < 1 || lanes > jolt::TAIL_MAX_LANES || joined > lanes)
     return (int)cudaErrorInvalidValue;
+  if (lanes > jolt::TAIL_BLOCK_LANES) {
+    jolt::reduction_tail_wide_kernel<<<1, jolt::TAIL_WIDE_THREADS, 0,
+                                       (cudaStream_t)stream>>>(
+        (const u64*)q0s, joined, lanes, (u64*)Q, (u64*)es,
+        (const u64*)qinit, (const u64*)coeff, (const u64*)l0,
+        (const u64*)l1, (const u64*)inv_l1, (const u64*)const_b0,
+        (u64*)state, (u64*)c_out, (u64*)msg);
+    return (int)cudaGetLastError();
+  }
   const int threads = (int)((lanes + 31) / 32 * 32);
   jolt::reduction_tail_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
       (const u64*)q0s, joined, lanes, (u64*)Q, (u64*)es, (const u64*)qinit,

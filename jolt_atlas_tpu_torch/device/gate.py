@@ -7,8 +7,9 @@ git-ignored build directory, keyed by the GPU's name, the host's CPU count
 and the digests of the kernels' and the host MSM's sources, so changed
 kernels are measured again: the chain of complete adds of kernel 1, the
 host csrc Pippenger at 2^18 points, and the whole device MSM
-(``DeviceBases``, packed scalar bytes to affine point) at 2^16 and 2^18
-points, fitted as fixed + n / rate. ``MsmGate`` turns a calibration into
+(``DeviceBases``, packed scalar bytes to affine point) at 2^16, 2^18 and
+2^21 points, fitted as fixed + n / rate between each two neighbouring
+sizes (the last line beyond 2^21). ``MsmGate`` turns a calibration into
 decisions:
 
 - ``engage(n)``: the device alone, when its measured rate beats the host's
@@ -46,12 +47,16 @@ FULL_MARGIN = 1.25
 # come from an NVIDIA H100 80GB HBM3 beside an 8-CPU host (PERF.md):
 # a 2^15 device share saved nothing there, the fitted fixed cost (4.6 ms)
 # equals the linear cost of ~2^16 points, the calibration measures sizes
-# up to 2^18, and the host MSM at 2^18 varied by ~22 ms within one run.
+# up to 2^21, whose line the largest opening (2^24 points, GPT-2 at its
+# padded 125M shape) extends 8x, and the host MSM at 2^18 varied by ~22 ms
+# within one run.
 SPLIT_MIN_DEV = 1 << 16          # smallest device share worth its launches
 SPLIT_FLOOR = 2 * SPLIT_MIN_DEV  # smallest MSM worth splitting
-SPLIT_MAX_DEV = 1 << 18          # largest share the measured fit covers
+SPLIT_MAX_DEV = 1 << 24          # largest share: the largest opening's
 SPLIT_MIN_SAVE_S = 0.025         # least saving that is not host noise
-CAL_SIZES = (1 << 16, 1 << 18)
+# the device MSM's measured sizes and their calibration keys (points/s)
+CAL_SIZES = (1 << 16, 1 << 18, 1 << 21)
+CAL_KEYS = ("dev_msm_pps_16", "dev_msm_pps", "dev_msm_pps_21")
 
 
 class MsmGate:
@@ -69,26 +74,28 @@ class MsmGate:
         self.split_max_dev = split_max_dev
         self.split_min_save_s = split_min_save_s
 
-    def fit(self):
-        """(fixed seconds, points/s) of dev_time(n) = fixed + n / rate from
-        the two measured sizes (tpu/linkcal.py:_dev_time_model), or None
-        without a measured device rate."""
-        p18 = self.cal.get("dev_msm_pps", 0.0)
-        p16 = self.cal.get("dev_msm_pps_16", 0.0)
-        if not p18:
+    def fit(self, n: int = 1 << 18):
+        """(fixed seconds, points/s) of dev_time(n) = fixed + n / rate on
+        the line through the two neighbouring measured sizes that hold n
+        (the first two below them, the last two beyond; with 2^16 and 2^18
+        alone, tpu/linkcal.py:_dev_time_model), or None without a measured
+        device rate at 2^18."""
+        if not self.cal.get("dev_msm_pps", 0.0):
             return None
-        t18 = (1 << 18) / p18
-        if p16:
-            t16 = (1 << 16) / p16
-            rate = ((1 << 18) - (1 << 16)) / max(t18 - t16, 1e-3)
-            fixed = max(t18 - (1 << 18) / rate, 0.0)
-        else:
-            rate, fixed = p18, 0.0
-        return fixed, rate
+        pts = [(m, m / self.cal[k]) for m, k in zip(CAL_SIZES, CAL_KEYS)
+               if self.cal.get(k, 0.0)]
+        if len(pts) == 1:
+            return 0.0, self.cal["dev_msm_pps"]
+        i = 1
+        while i < len(pts) - 1 and n > pts[i][0]:
+            i += 1
+        (a, ta), (b, tb) = pts[i - 1], pts[i]
+        rate = (b - a) / max(tb - ta, 1e-3)
+        return max(tb - b / rate, 0.0), rate
 
     def dev_time(self, n: int):
         """(seconds, description) of one n-point device MSM by the fit."""
-        fit = self.fit()
+        fit = self.fit(n)
         if fit is None:
             return None, "no measured device MSM rate"
         fixed, rate = fit
@@ -107,7 +114,7 @@ class MsmGate:
                f"(n=2^{n.bit_length() - 1})")
         if not dev_pps > FULL_MARGIN * host_pps:
             return False, msg
-        fixed, rate = self.fit()
+        fixed, rate = self.fit(n)
         if fixed > 0 and fixed + n / rate >= n / host_pps:
             return False, (f"{msg}; below the size floor: device "
                            f"{fixed + n / rate:.6f}s >= host "
@@ -175,11 +182,10 @@ def forced(route: str) -> MsmGate:
     host, no fixed cost), "split" (equal rates: half of each MSM, rounded
     down to a power of two, on the device) or "host" (no device rate)."""
     if route == "device":
-        return MsmGate({"dev_msm_pps": 1e15, "dev_msm_pps_16": 1e15,
-                        "host_msm_pps": 1.0})
+        return MsmGate({k: 1e15 for k in CAL_KEYS} | {"host_msm_pps": 1.0})
     if route == "split":
-        return MsmGate({"dev_msm_pps": 1e6, "dev_msm_pps_16": 1e6,
-                        "host_msm_pps": 1e6}, split_floor=2, split_min_dev=1,
+        return MsmGate({k: 1e6 for k in CAL_KEYS} | {"host_msm_pps": 1e6},
+                       split_floor=2, split_min_dev=1,
                        split_max_dev=1 << 62, split_min_save_s=-1.0)
     if route == "host":
         return MsmGate({})
@@ -250,7 +256,9 @@ def _measure_device_msm(engine, n: int) -> float:
 
 def measure(device) -> dict:
     """Measure the calibration of a CUDA device against this host, on the
-    2^18-point seed SRS. Raises where a kernel does not build or run."""
+    2^18-point seed SRS (its bases repeated 8 times at 2^21: the kernels'
+    time does not depend on the points). Raises where a kernel does not
+    build or run."""
     from ..preprocessing import cached_srs
     device = torch.device(device)
     prep = cached_srs(18).prepared_bases()
@@ -265,10 +273,11 @@ def measure(device) -> dict:
     cal["host_msm_pps"] = _measure_host_msm(prep)
     # a device whose adds are hopeless gets no MSM rate (host only)
     ok = cal["pp_add_adds_per_s"] > 1e6
-    cal["dev_msm_pps_16"] = (_measure_device_msm(engine, CAL_SIZES[0])
-                             if ok else 0.0)
-    cal["dev_msm_pps"] = (_measure_device_msm(engine, CAL_SIZES[1])
-                          if ok else 0.0)
+    for n, key in zip(CAL_SIZES, CAL_KEYS):
+        if n > prep.n:
+            engine = DeviceBases(prep.buf.raw * -(-n // prep.n),
+                                 -(-n // prep.n) * prep.n, device)
+        cal[key] = _measure_device_msm(engine, n) if ok else 0.0
     return cal
 
 
@@ -304,7 +313,7 @@ def for_device(device, remeasure: bool = False) -> MsmGate:
                     cal = json.load(f)
             except (OSError, ValueError):
                 pass
-        if not isinstance(cal, dict) or "dev_msm_pps" not in cal:
+        if not isinstance(cal, dict) or not all(k in cal for k in CAL_KEYS):
             cal = measure(device)
             tmp = path + ".tmp"
             with open(tmp, "w") as f:

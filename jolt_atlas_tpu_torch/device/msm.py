@@ -22,13 +22,13 @@ Counterpart of jolt_atlas_tpu/tpu/msm.py, with the same structure:
   point arithmetic gives the affine result.
 
 Each MSM of a batch takes its own window, ``_pick_c(count)``, unless one
-is forced. A host counting pass (csrc ``msm_digit_grid``, the same digit
-semantics) first checks the grid depth the reference would need and raises
-``_GridSkewError`` on pathologically skewed scalars, before any device
-work; ``try_msm_batch`` refuses such MSMs one by one and ``host_fill``
-gives them to the host engine. ``DeviceBases.start`` returns as soon as
-the kernels are queued; ``finish`` is the only synchronisation, so the host
-can work meanwhile (device/split.py).
+is forced. The reference's TPU grid refuses scalars whose deepest lane
+passes max(64, 32 x the mean) (tpu/msm.py:_host_grid_rows); kernel 2 has no
+grid and takes any depth, so no MSM is refused here. ``finish`` records
+each MSM's deepest lane beside its mean in telemetry, so a run shows the
+skew the card carries. ``DeviceBases.start`` returns as soon as the
+kernels are queued; ``finish`` is the only synchronisation, so the host can
+work meanwhile (device/split.py).
 
 On a CUDA device the kernels run; on the CPU their plain versions do.
 """
@@ -40,14 +40,6 @@ import torch
 
 from . import curve, field, telemetry
 from .curve import pp_add_plain, pp_identity
-
-
-class _GridSkewError(RuntimeError):
-    """Raised when a digit grid would be pathologically deep (non-uniform
-    scalar distribution); callers fall back to the host Pippenger."""
-
-    def __init__(self, depth: int, lanes: int):
-        super().__init__(f"grid depth {depth} over {lanes} lanes")
 
 
 _NBITS = 254
@@ -69,37 +61,6 @@ def window_shape(c: int) -> tuple[int, int, int]:
     B = 1 << c
     topbits = _NBITS - (W - 1) * c
     return W, B, B >> topbits
-
-
-def grid_rows_for(n: int, c: int) -> int:
-    """The reference's static row budget for its on-device grid
-    (tpu/msm.py:grid_rows_for): ~2x the expected lane occupancy plus slack
-    covers the Poisson max over W*2^c lanes for uniform scalars."""
-    avg = max(1, n >> c)
-    return -(-(2 * avg + 32) // 16) * 16
-
-
-def _host_grid_rows(raw: bytes, n: int, c: int) -> int:
-    """Row budget the grid needs (16-multiple), or -1 for pathologically
-    skewed scalars: the csrc counting pass, with the same digit semantics
-    as ``digit_lanes``."""
-    from ..curve import native
-    return int(native._load().msm_digit_grid(raw, n, c, _NBITS, None, 0))
-
-
-def rows_for(raw: bytes, count: int, c: int) -> int:
-    """The grid rows the reference would give one MSM: the static budget,
-    doubled until it holds the true depth. Raises _GridSkewError on skewed
-    scalars: the port keeps the reference's refusal (and so its routes and
-    telemetry), though its kernels take the lanes at any depth."""
-    need = _host_grid_rows(raw, count, c)
-    if need < 0:
-        W, B, _ = window_shape(c)
-        raise _GridSkewError(-1, W * B)
-    rows = grid_rows_for(count, c)
-    while rows < need:
-        rows *= 2
-    return rows
 
 
 def scalars_tensor(raw: bytes, count: int, device) -> torch.Tensor:
@@ -155,7 +116,23 @@ def digit_lanes(sc: torch.Tensor, c: int, offset: int = 0) -> tuple:
 # kernel 2: bucket accumulation
 # ---------------------------------------------------------------------------
 
-ACCUM_RUN = 16  # entries per thread of kernel 2
+ACCUM_RUN = 16   # entries per thread of kernel 2's level 0
+ACCUM_JOIN = 16  # partials per thread of each of its later levels
+
+
+def accumulate_levels(n_entries: int, run: int = ACCUM_RUN,
+                      join: int = ACCUM_JOIN) -> list[int]:
+    """[P_1, ..., P_{K+1}] of kernel 2 on ``n_entries`` entries: level
+    k's positions P_k (P_1 the runs of level 0, P_{k+1} = ceil(P_k /
+    join)) for its K levels after the runs, launched while more than one
+    position is left (level 1 always: it also writes the empty lanes), and
+    the partials the last one leaves. The head and tail scratch hold their
+    sum in rows; a call launches K levels, and the runs when P_1 > 0."""
+    P = [-(-n_entries // run)]
+    while True:
+        P.append(-(-P[-1] // join))
+        if P[-1] < 2:
+            return P
 
 
 def _set_points(dst, index, src) -> None:
@@ -163,13 +140,18 @@ def _set_points(dst, index, src) -> None:
         d[index] = v
 
 
-def bucket_accumulate_plain(bases, lanes, run: int = ACCUM_RUN):
+def bucket_accumulate_plain(bases, lanes, run: int = ACCUM_RUN,
+                            join: int = ACCUM_JOIN):
     """Plain version of kernel 2, with the kernel's partition and order of
-    adds, so the two are bit-equal: the entries [starts[0], starts[L]) are
-    cut into runs of ``run``; within a run, consecutive entries of one lane
-    are added in order, the first one taken as it is; a lane cut by a run
-    boundary is joined from the run where it starts, its partials added in
-    run order. Empty lanes are the identity."""
+    adds, so the two are bit-equal. Level 0: the entries [starts[0],
+    starts[L]) are cut into runs of ``run``; within a run, consecutive
+    entries of one lane are added in order, the first one taken as it is; a
+    lane inside the run is finished, the run's first lane leaves a head
+    partial when it began earlier, its last lane a tail when it goes on.
+    Level k >= 1: level k - 1's head partials, in chunks of ``join``, by
+    the same rule; a lane finished at level k is its tails of levels 0 ..
+    k - 1 (one a level) plus the chunk's sum, added in that order. Empty
+    lanes are the identity."""
     lane, pts, starts = (t.to(torch.int64) for t in lanes)
     L = starts.shape[0] - 1
     device = lane.device
@@ -183,7 +165,7 @@ def bucket_accumulate_plain(bases, lanes, run: int = ACCUM_RUN):
     head = pp_identity(nruns, device)
     tail = pp_identity(nruns, device)
     acc = None
-    for i in range(run):                       # pass 1: every run at once
+    for i in range(run):                       # level 0: every run at once
         e = e0 + i
         live = e < e1
         ec = torch.where(live, e, 0)
@@ -202,18 +184,50 @@ def bucket_accumulate_plain(bases, lanes, run: int = ACCUM_RUN):
         _set_points(head, is_head, tuple(a[is_head] for a in acc))
         _set_points(tail, is_tail, tuple(a[is_tail] for a in acc))
         _set_points(out, ln[whole], tuple(a[whole] for a in acc))
-    ln = lane[e1 - 1]                          # pass 2: the cut lanes
-    end = starts[ln + 1]
-    own = torch.nonzero((starts[ln] >= e0) & (end > e1)).squeeze(1)
-    if own.numel():
-        last = (end[own] - 1) // run
-        acc = tuple(t[own] for t in tail)
-        for step in range(1, int((last - own).max()) + 1):
-            q = own + step
-            live = q <= last
-            nxt = tuple(h[torch.where(live, q, 0)] for h in head)
-            acc = _where(live, pp_add_plain(acc, nxt), acc)
-        _set_points(out, ln[own], acc)
+    tails, V, P, span = [tail], head, nruns, run
+    s = starts[:L] // run + 1                  # each lane's positions at
+    e = (starts[1:] - 1).clamp(min=-1) // run + 1  # level 1: [s, e)
+    k = 1
+    while P >= 2 and bool((e > s).any()):      # level k: a lane has heads
+        nch = -(-P // join)
+        c0 = torch.arange(nch, dtype=torch.int64, device=device) * join
+        c1 = torch.clamp(c0 + join, max=P)
+        cur = torch.full((nch,), -1, dtype=torch.int64, device=device)
+        have = torch.zeros(nch, dtype=torch.bool, device=device)
+        acc = pp_identity(nch, device)
+        nhead, ntail = pp_identity(nch, device), pp_identity(nch, device)
+        for i in range(join + 1):
+            p = c0 + i
+            valid = p < c1
+            pc = torch.where(valid, p, 0)
+            lp = torch.where(valid, lane[pc * span], -1)
+            change = lp != cur
+            fl = change & have                 # flush lane cur's sum
+            if bool(fl.any()):
+                lc = torch.where(fl, cur, 0)
+                is_head = fl & (s[lc] < c0)
+                is_tail = fl & ~is_head & (e[lc] > c1)
+                whole = fl & ~is_head & ~is_tail
+                _set_points(nhead, is_head, tuple(a[is_head] for a in acc))
+                _set_points(ntail, is_tail, tuple(a[is_tail] for a in acc))
+                w = lc[whole]
+                a = starts[w] // run
+                tot = tuple(t[a] for t in tails[0])
+                for lvl in range(1, k):
+                    a = (a + 1) // join
+                    tot = pp_add_plain(tot, tuple(t[a] for t in tails[lvl]))
+                _set_points(out, w, pp_add_plain(
+                    tot, tuple(x[whole] for x in acc)))
+            cur = torch.where(change, lp, cur)
+            have = have & ~change
+            lc = torch.where(lp >= 0, lp, 0)
+            live = valid & (s[lc] <= p) & (p < e[lc])
+            v = tuple(x[pc] for x in V)
+            acc = _where(live, _where(have, pp_add_plain(acc, v), v), acc)
+            have = have | live
+        tails.append(ntail)
+        V, P, span, k = nhead, nch, span * join, k + 1
+        s, e = s // join + 1, (e - 1).clamp(min=-1) // join + 1
     return tuple(out)
 
 
@@ -233,8 +247,8 @@ def bucket_accumulate(bases, lanes, out=None, run: int = ACCUM_RUN):
     """(X, Y, Z) bases (N, 4) and an MSM's digit lanes (``digit_lanes``)
     -> the L bucket sums (L, 4) each, written into ``out`` when given
     (three contiguous (L, 4) int64 tensors, e.g. one MSM's rows of a
-    batch's stack). CUDA tensors run kernel 2 (two launches: the runs, then
-    the cut lanes and the empty ones), CPU tensors its plain version."""
+    batch's stack). CUDA tensors run kernel 2 (the runs, then its levels:
+    ``accumulate_levels``), CPU tensors its plain version."""
     device = lanes[0].device
     curve.check_points(bases, device)
     L = _check_lanes(lanes, device)
@@ -255,30 +269,66 @@ def bucket_accumulate(bases, lanes, out=None, run: int = ACCUM_RUN):
         return tuple(out)
     if device.type != "cuda":
         raise ValueError(f"bucket_accumulate: no kernel for device {device}")
-    from . import build
     lanes = tuple(t.contiguous() for t in lanes)
-    bx, by, bz = (curve._flat(b) for b in bases)
     outs = list(out) if out is not None else [
         torch.empty((L, 4), dtype=torch.int64, device=device)
         for _ in range(3)]
-    n_entries = lanes[0].shape[0]
-    nruns = -(-n_entries // run)
-    parts = [torch.empty((max(nruns, 1), 4), dtype=torch.int64,
-                         device=device) for _ in range(6)]
-    if L:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = build.cuda_library().jolt_bucket_accumulate(
-                bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
-                *(lanes[i].data_ptr() for i in (1, 0, 2)), n_entries, L, run,
-                *(t.data_ptr() for t in parts),
-                *(t.data_ptr() for t in outs), stream)
-        if rc != 0:
-            raise RuntimeError("bucket_accumulate kernel launch failed: "
-                               f"CUDA error {rc}")
-        for _ in range(2 if nruns else 1):
-            telemetry.launch("bucket_accumulate", L)
+    accumulate_launch(bases, lanes, outs, accumulate_scratch(lanes, run),
+                      run)
     return tuple(outs)
+
+
+ACCUM_CHUNK_RUNS = 4  # runs a lane on average from which level 1 is chunked
+
+
+def accumulate_class(lanes, run: int = ACCUM_RUN) -> tuple[int, int]:
+    """Kernel 2's launch class on digit lanes, as telemetry records it: (L
+    lanes, 1 when its level 1 takes a thread a chunk, the lanes averaging
+    ACCUM_CHUNK_RUNS runs or more so that their heads fill the chunks, else
+    0, a thread a position)."""
+    L = lanes[2].shape[0] - 1
+    return L, int(lanes[0].shape[0] >= ACCUM_CHUNK_RUNS * run * L)
+
+
+def accumulate_scratch(lanes, run: int = ACCUM_RUN) -> list:
+    """Kernel 2's head and tail partials of every level for digit lanes
+    ``lanes``: six (P_1 + ... + P_{K+1}, 4) int64 tensors on their device
+    (``accumulate_levels``)."""
+    rows = sum(accumulate_levels(lanes[0].shape[0], run))
+    return [torch.empty((max(rows, 1), 4), dtype=torch.int64,
+                        device=lanes[0].device) for _ in range(6)]
+
+
+def accumulate_launch(bases, lanes, outs, parts, run: int = ACCUM_RUN,
+                      stages: int = 3) -> None:
+    """Queue kernel 2 on CUDA tensors that ``bucket_accumulate`` checks:
+    its runs (``stages`` 1), its levels (2) or both (3), the partials in
+    ``parts`` (``accumulate_scratch``), the buckets into ``outs``. The
+    levels read the partials the runs left and write other rows, so a
+    levels-only launch after the runs can be repeated (chip_smoke.py times
+    the join so)."""
+    from . import build
+    device = lanes[0].device
+    L, chunked = accumulate_class(lanes, run)
+    if not L:
+        return
+    bx, by, bz = (curve._flat(b) for b in bases)
+    n_entries = lanes[0].shape[0]
+    levels = accumulate_levels(n_entries, run)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = build.cuda_library().jolt_bucket_accumulate(
+            bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
+            *(lanes[i].data_ptr() for i in (1, 0, 2)), n_entries, L, run,
+            ACCUM_JOIN, chunked, stages,
+            *(t.data_ptr() for t in parts), *(t.data_ptr() for t in outs),
+            stream)
+    if rc != 0:
+        raise RuntimeError("bucket_accumulate kernel launch failed: "
+                           f"CUDA error {rc}")
+    launched = len(levels) - 1 if stages & 2 else 0
+    for _ in range(launched + bool(stages & 1 and levels[0])):
+        telemetry.launch("bucket_accumulate", (L, chunked))
 
 
 # ---------------------------------------------------------------------------
@@ -287,23 +337,37 @@ def bucket_accumulate(bases, lanes, out=None, run: int = ACCUM_RUN):
 
 COMBINE_MAX_THREADS = 128
 COMBINE_MIN_CHUNK = 8  # buckets a thread keeps at least, where G > 1
+# From window c = 16 on, kernel 3 runs 64-thread blocks and fills one wave
+# of the card: its resident threads an SM are 384 (3 blocks of 128 at its
+# __launch_bounds__, 168 registers; 6 of 64)
+COMBINE_WIDE_C = 16
+COMBINE_WIDE_THREADS = 64
+COMBINE_SM_THREADS = 384
 
 
 def combine_threads(c: int) -> int:
     """Threads per block of kernel 3: a power of two, at most 128, at most
-    half the buckets."""
+    half the buckets; 64 from window COMBINE_WIDE_C on."""
+    if c >= COMBINE_WIDE_C:
+        return COMBINE_WIDE_THREADS
     return min(COMBINE_MAX_THREADS, (1 << c) >> 1)
 
 
 def combine_groups(k: int, c: int, sms: int) -> int:
     """Blocks G per (MSM, window) of kernel 3 for k MSMs at window c on a
-    card of ``sms`` SMs: doubled from 1 while the launch has fewer than two
-    blocks per SM and each thread would still keep at least
-    COMBINE_MIN_CHUNK buckets. G and the thread count fix the partition
-    of the buckets and so the order of the adds, which the plain version
-    follows."""
+    card of ``sms`` SMs. Below COMBINE_WIDE_C: doubled from 1 while the
+    launch has fewer than two blocks per SM and each thread would still
+    keep at least COMBINE_MIN_CHUNK buckets. From it on: as many as one
+    wave of the card holds (COMBINE_SM_THREADS an SM), each thread keeping
+    COMBINE_MIN_CHUNK buckets at least, so the launch ends with no second,
+    partial wave (any G: the kernel splits a window's buckets over G * T
+    threads). G and the thread count fix the partition of the buckets and
+    so the order of the adds, which the plain version follows."""
     W, B, _ = window_shape(c)
     T = combine_threads(c)
+    if c >= COMBINE_WIDE_C:
+        G = sms * COMBINE_SM_THREADS // T // (k * W)
+        return max(1, min(G, B // (T * COMBINE_MIN_CHUNK)))
     G = 1
     while k * W * G < 2 * sms and B // (2 * G * T) >= COMBINE_MIN_CHUNK:
         G *= 2
@@ -426,17 +490,22 @@ def bucket_combine(acc, c: int, groups: int = 0):
     return tuple(outs)
 
 
-def _combine_windows(window_points: list, c: int):
-    """Host Horner over the window sums (list of G1, lowest window first)
-    -> affine G1."""
+def window_points(R, c: int) -> list:
+    """Window sums (k, W, 4) x 3 of one combine at window c -> the k MSMs'
+    affine G1 (waits for the device): a host Horner loop over each MSM's
+    window sums, lowest window first."""
     from ..curve.points import (jacobian_add_affine, jacobian_double,
                                 jacobian_to_affine, JINF)
-    total = JINF
-    for p in reversed(window_points):
-        for _ in range(c):
-            total = jacobian_double(total)
-        total = jacobian_add_affine(total, p)
-    return jacobian_to_affine(total)
+    host = tuple(t.cpu() for t in R)
+    out = []
+    for j in range(host[0].shape[0]):
+        total = JINF
+        for p in reversed(curve.tensors_to_points(tuple(t[j] for t in host))):
+            for _ in range(c):
+                total = jacobian_double(total)
+            total = jacobian_add_affine(total, p)
+        out.append(jacobian_to_affine(total))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -481,91 +550,69 @@ class DeviceBases:
                                  f"with {len(raw) // 32} scalars: this "
                                  f"engine holds {self.n} bases")
 
-    def _windows(self, packed, counts) -> list[int]:
-        """Each MSM's window. Raises _GridSkewError, before any device
-        work, if one would be skewed (``rows_for``, the reference's gate)."""
-        cs = [self.c or _pick_c(n) for n in counts]
-        for raw, count, c in zip(packed, counts, cs):
-            rows_for(raw, count, c)
-        return cs
+    def _windows(self, counts) -> list[int]:
+        """Each MSM's window: the forced one, else ``_pick_c(count)``."""
+        return [self.c or _pick_c(n) for n in counts]
 
     def _launch(self, packed, counts, offsets, cs, site: str):
         """Queue the batch: upload every MSM's scalars first (a copy from
         pageable host memory may wait for the stream's earlier work), then
         per window size its MSMs' digit lanes and kernel 2 into their rows
         of one (k_c, L_c, 4) stack, and kernel 3 once for the stack. Nothing
-        after the uploads waits for the device."""
+        after the uploads waits for the device; each MSM's deepest lane and
+        entry count stay on the device until ``finish``."""
         scalars = [scalars_tensor(raw, count, self.device)
                    for raw, count in zip(packed, counts)]
         by_c: dict[int, list[int]] = {}
         for i, c in enumerate(cs):
             by_c.setdefault(c, []).append(i)
-        parts = []
+        parts, depth = [], []
         for c, idx in by_c.items():
             W, B, _ = window_shape(c)
             acc = tuple(torch.empty((len(idx), W * B, 4), dtype=torch.int64,
                                     device=self.device) for _ in range(3))
             for j, i in enumerate(idx):
-                bucket_accumulate(self.bases,
-                                  digit_lanes(scalars[i], c, offsets[i]),
+                lanes = digit_lanes(scalars[i], c, offsets[i])
+                starts = lanes[2]
+                depth.append((counts[i], W * B, torch.stack([
+                    (starts[1:] - starts[:-1]).max(), starts[-1]])))
+                bucket_accumulate(self.bases, lanes,
                                   out=tuple(a[j] for a in acc))
                 telemetry.count(site)
             parts.append((bucket_combine(acc, c), idx, c))
             telemetry.count(site)
-        return (parts, len(packed))
+        return (parts, len(packed), site, depth)
 
     def start(self, packed: list[bytes], counts: list[int],
               offsets: list[int] | None = None, site: str = "msm"):
         """Queue a batch of MSMs (canonical 32-byte LE scalars against
         base ranges [offset, offset + count)) and return without waiting
         for the device; pair with ``finish()``. One accumulation per MSM,
-        then one combine per window size. Raises _GridSkewError before any
-        device work if one would be skewed."""
+        then one combine per window size."""
         offsets = offsets or [0] * len(packed)
         self._check(packed, counts, offsets)
-        cs = self._windows(packed, counts)
-        return self._launch(packed, counts, offsets, cs, site)
+        return self._launch(packed, counts, offsets, self._windows(counts),
+                            site)
 
     def finish(self, handle) -> list:
         """Collect a ``start()`` batch (waits for the device): list of
-        affine G1, the window sums combined by a host Horner loop."""
-        parts, k = handle
+        affine G1 (``window_points``). Records each MSM's deepest lane
+        (entries) beside the mean over its lanes (``telemetry.lane_depth``)."""
+        parts, k, site, depth = handle
         out: list = [None] * k
         for R, idx, c in parts:
-            host = tuple(t.cpu() for t in R)
-            for j, i in enumerate(idx):
-                out[i] = _combine_windows(curve.tensors_to_points(
-                    tuple(t[j] for t in host)), c)
+            for i, pt in zip(idx, window_points(R, c)):
+                out[i] = pt
+        if depth:
+            got = torch.stack([d for _, _, d in depth]).tolist()
+            for (n, lanes, _), (deepest, entries) in zip(depth, got):
+                telemetry.lane_depth(site, n, deepest, entries / lanes)
         return out
 
     def msm_batch_packed(self, packed: list[bytes], counts: list[int],
                          offsets: list[int] | None = None,
                          site: str = "msm") -> list:
         return self.finish(self.start(packed, counts, offsets, site))
-
-    def try_msm_batch(self, packed: list[bytes], counts: list[int],
-                      site: str) -> list:
-        """``msm_batch_packed`` MSM by MSM: the affine point of each, or
-        None for each MSM whose digit grid would be skewed; the caller takes
-        the host engine for those (``host_fill``). The rest run as one
-        device batch, counted as dispatches of ``msm:<site>``;
-        ``msm_skew_fallback:<site>`` counts each refusal."""
-        self._check(packed, counts, [0] * len(packed))
-        out: list = [None] * len(packed)
-        keep, cs = [], []
-        for i, (raw, count) in enumerate(zip(packed, counts)):
-            try:
-                cs += self._windows([raw], [count])
-                keep.append(i)
-            except _GridSkewError:
-                telemetry.count("msm_skew_fallback:" + site)
-        if keep:
-            pts = self.finish(self._launch(
-                [packed[i] for i in keep], [counts[i] for i in keep],
-                [0] * len(keep), cs, "msm:" + site))
-            for i, pt in zip(keep, pts):
-                out[i] = pt
-        return out
 
     def msm_packed(self, scalar_bytes: bytes, count: int, offset: int = 0,
                    site: str = "msm"):
@@ -574,7 +621,7 @@ class DeviceBases:
 
 
 def host_fill(pts: list, host_batch) -> list:
-    """Fill the MSMs that ``try_msm_batch`` left to the host (None) with
+    """Fill the MSMs that the gate routed to the host (None) with
     ``host_batch(indices)``, the host engine's points for those indices."""
     miss = [i for i, pt in enumerate(pts) if pt is None]
     if miss:

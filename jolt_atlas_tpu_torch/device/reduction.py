@@ -66,7 +66,7 @@ from .field import FR, NLIMBS, from_planes, int_to_limbs64, to_planes
 
 Q0_THREADS = 256       # csrc/reduction.cu
 Q0_PER_THREAD = 16     # terms a thread of kernel 5 sums
-TAIL_MAX_LANES = 1024  # one block of kernel 6
+TAIL_MAX_LANES = 4096  # kernel 6's one block (csrc/reduction.cu)
 SIZE_FLOOR = 1 << 21   # the reference's floor (tpu/reduction.py:328)
 ABSENT_SHIFT = 62      # j >> 62 = 0: a lane without a whi table
 _TWO384 = pow(2, 384, FR_MODULUS)          # raw: times 2^-128 in Montgomery

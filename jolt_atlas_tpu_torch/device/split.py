@@ -18,7 +18,7 @@ import os
 from dataclasses import dataclass
 
 from . import telemetry
-from .msm import DeviceBases, _GridSkewError, host_fill
+from .msm import DeviceBases, host_fill
 
 
 @dataclass
@@ -31,18 +31,12 @@ class SplitState:
 
 
 def start_split(dev: DeviceBases, packed: bytes, count: int, n_dev: int,
-                site: str) -> SplitState | None:
+                site: str) -> SplitState:
     """Queue the device's share, bases [count - n_dev, count), of one MSM
-    and return without waiting for it; None when its digit grid would be
-    skewed (counted as ``msm_skew_fallback:<site>``: the caller takes the
-    host engine for the whole MSM)."""
+    and return without waiting for it."""
     k = count - n_dev
-    try:
-        handle = dev.start([packed[32 * k:32 * count]], [n_dev], offsets=[k],
-                           site="msm:" + site)
-    except _GridSkewError:
-        telemetry.count("msm_skew_fallback:" + site)
-        return None
+    handle = dev.start([packed[32 * k:32 * count]], [n_dev], offsets=[k],
+                       site="msm:" + site)
     return SplitState(dev, handle, k)
 
 
@@ -92,10 +86,8 @@ def msm_packed_split(dev: DeviceBases, prep, packed: bytes, count: int,
                      n_dev: int, site: str):
     """One MSM of ``count`` canonical 32-byte LE scalars over bases
     [0, count), the last n_dev on the device and the prefix on the host at
-    the same time. The affine point, or None when the suffix is skewed."""
+    the same time. The affine point."""
     st = start_split(dev, packed, count, n_dev, site)
-    if st is None:
-        return None
     host_pt = None
     if st.k:
         with host_threads(spare_threads()):
@@ -109,9 +101,9 @@ def msm_batch_split_first(dev: DeviceBases, prep, packed: list[bytes],
     device: the suffix is queued first, so it overlaps the host's work on
     the first MSM's prefix and on every other MSM (commitment/hyperkzg.py:
     130-146 of the reference). The affine points, in order."""
-    st = start_split(dev, packed[0], counts[0], n_dev, site) if n_dev else None
-    if st is None:
+    if not n_dev:
         return prep.msm_batch_packed(packed)
+    st = start_split(dev, packed[0], counts[0], n_dev, site)
     host_work = ([packed[0][:32 * st.k]] if st.k else []) + packed[1:]
     host = []
     if host_work:
@@ -138,9 +130,7 @@ def msm_fold_batch(dev: DeviceBases | None, gate, prep,
     route = "device" if whole else "split" if n_dev else "host"
     telemetry.decide("msm:" + site, f"{route}: {why}")
     if whole:
-        return host_fill(dev.try_msm_batch(packed, counts, site),
-                         lambda ix: prep.msm_batch_packed(
-                             [packed[i] for i in ix]))
+        return dev.msm_batch_packed(packed, counts, site="msm:" + site)
     return msm_batch_split_first(dev, prep, packed, counts, n_dev, site)
 
 
@@ -149,8 +139,8 @@ def msm_batch_routed(dev: DeviceBases | None, gate, prep,
                      site: str) -> list:
     """Each MSM of a batch (bases [0, count)) by the gate's route: the
     "device" ones as one device batch, the "split" ones one by one, the
-    rest, and any the device refuses as skewed, as one host batch. With no
-    device engine, all on the host. The affine points, in order."""
+    rest as one host batch (``host_fill``). With no device engine, all on
+    the host. The affine points, in order."""
     pts: list = [None] * len(packed)
     if dev is not None:
         routes = [gate.choose(n) for n in counts]
@@ -159,8 +149,9 @@ def msm_batch_routed(dev: DeviceBases | None, gate, prep,
             telemetry.count(f"msm_route_{route}:{site}")
         on_dev = [i for i, r in enumerate(routes) if r[0] == "device"]
         if on_dev:
-            got = dev.try_msm_batch([packed[i] for i in on_dev],
-                                    [counts[i] for i in on_dev], site)
+            got = dev.msm_batch_packed([packed[i] for i in on_dev],
+                                       [counts[i] for i in on_dev],
+                                       site="msm:" + site)
             for i, pt in zip(on_dev, got):
                 pts[i] = pt
         for i, (route, n_dev, _) in enumerate(routes):

@@ -9,7 +9,10 @@ so a run can show that its main path really went through the kernels.
 or for kernel 3 the lane count and blocks per window: what fixes its
 partition; for kernel 7 its rows, points, terms, weight layout and launch
 plan), so a run can check that each one was held against the plain
-version. The plain PyTorch versions count nothing.
+version. The plain PyTorch versions count nothing. ``lane_depth`` keeps
+each device MSM's deepest digit lane beside its mean, the skew that kernel
+2 carries (the reference's TPU grid refuses a lane deeper than max(64, 32
+x the mean)).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ _COUNTS: dict[str, int] = {}
 _DECISIONS: dict[str, str] = {}
 _LAUNCHES: dict[str, int] = {}
 _LANES: dict[str, set] = {}
+_DEPTHS: dict[str, list] = {}
 
 
 def count(engine: str, n: int = 1) -> None:
@@ -38,22 +42,32 @@ def launch(kernel: str, lanes) -> None:
         tuple(lanes) if isinstance(lanes, tuple) else int(lanes))
 
 
+def lane_depth(site: str, n: int, deepest: int, mean: float) -> None:
+    """Record one device MSM of n points at ``site``: its deepest lane
+    (entries) and the mean entries a lane."""
+    _DEPTHS.setdefault(site, []).append([int(n), int(deepest), float(mean)])
+
+
 def launches() -> dict[str, int]:
     return dict(_LAUNCHES)
 
 
 def snapshot() -> dict:
     """{"dispatches": {engine: n}, "decisions": {engine: reason},
-    "launches": {kernel: n}, "lanes": {kernel: sorted launch shapes}}."""
+    "launches": {kernel: n}, "lanes": {kernel: sorted launch shapes},
+    "msm_depth": {site: [[points, deepest lane, mean lane], ...]}}."""
     return {"dispatches": dict(_COUNTS), "decisions": dict(_DECISIONS),
             "launches": dict(_LAUNCHES),
-            "lanes": {k: sorted(v) for k, v in _LANES.items()}}
+            "lanes": {k: sorted(v) for k, v in _LANES.items()},
+            "msm_depth": {k: [list(r) for r in v]
+                          for k, v in _DEPTHS.items()}}
 
 
 def reset() -> None:
-    """Zero the dispatch and launch counts and forget the decisions and
-    the launch widths."""
+    """Zero the dispatch and launch counts and forget the decisions, the
+    launch widths and the MSMs' lane depths."""
     _COUNTS.clear()
+    _DEPTHS.clear()
     _LAUNCHES.clear()
     _LANES.clear()
     _DECISIONS.clear()

@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import random
+import resource
 import secrets
 import sys
 import time
@@ -78,8 +79,9 @@ def seeded_blinding(seed: int = 0x5EED):
 def prove_model(model, inputs: list, args, **prover) -> dict:
     """Preprocess ``model``, prove ``inputs`` on ``args.device`` (prove_zk
     under ``args.zk``) and verify the deserialized proof; prints the
-    setup, prove and verify lines, each engine's decision and the prove's
-    phase spans (every span under ``args.trace``). ``prover``: keyword
+    setup (the SRS apart from the bases' upload to the card), prove and
+    verify lines, each engine's decision and the prove's phase spans
+    (every span under ``args.trace``). ``prover``: keyword
     arguments of AtlasProver (gates, transcript_factory); the verifier
     takes the same transcript. Raises if the verifier rejects the proof.
     Returns the preprocessing, proof, io, serialized bytes, seconds and
@@ -97,13 +99,17 @@ def prove_model(model, inputs: list, args, **prover) -> dict:
     print("preprocessing (SRS)...")
     t0 = time.time()
     pp = AtlasPreprocessing.preprocess(model)
+    srs_s = time.time() - t0
     prv = AtlasProver(pp, device=device, **prover)
+    t1 = time.time()
     if prv.uses_msm_engine and device.type == "cuda":
         # the bases' upload to the card is set-up, as the SRS is
         pp.srs.device_bases(device, prv.msm_gate, c=prv.msm_window)
         torch.cuda.synchronize(device)
+    bases_s = time.time() - t1
     setup_s = time.time() - t0
-    print(f"  setup: {setup_s:.1f}s")
+    print(f"  setup: {setup_s:.1f}s (SRS {srs_s:.1f}s, the bases' upload "
+          f"to the card {bases_s:.1f}s)")
     was = profiling.enabled()
     profiling.enable()
     profiling.reset()
@@ -118,6 +124,12 @@ def prove_model(model, inputs: list, args, **prover) -> dict:
     profiling.enable(was)
     blob = serialize_proof(proof)
     print(f"  prove: {prove_s:.1f}s, proof {len(blob) / 1024:.1f} KB")
+    peak = {"host_rss_gb": resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20}
+    if device.type == "cuda":
+        peak["card_gb"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    print("  peak memory: " + ", ".join(f"{k} {v:.2f}"
+                                       for k, v in peak.items()))
     t0 = time.time()
     verifier = AtlasVerifier(pp, prover.get("transcript_factory",
                                             Blake2bTranscript))
@@ -135,8 +147,9 @@ def prove_model(model, inputs: list, args, **prover) -> dict:
     if not ok:
         raise AssertionError("the verifier rejected the proof")
     return {"pp": pp, "proof": proof, "io": io, "blob": blob,
-            "setup_s": setup_s, "prove_s": prove_s, "verify_s": verify_s,
-            "phases": phases, "telemetry": tele}
+            "setup_s": setup_s, "srs_s": srs_s, "bases_s": bases_s,
+            "prove_s": prove_s, "verify_s": verify_s, "phases": phases,
+            "peak_memory": peak, "telemetry": tele}
 
 
 def run(args, **prover) -> dict:

@@ -163,7 +163,7 @@ class Constant(Op):
     @classmethod
     def from_array(cls, arr: np.ndarray) -> "Constant":
         arr = np.asarray(arr, dtype=np.int32)
-        return cls(value=tuple(int(x) for x in arr.ravel()), dims=tuple(arr.shape))
+        return cls(value=tuple(arr.ravel().tolist()), dims=tuple(arr.shape))
 
     @property
     def array(self) -> np.ndarray:

@@ -53,12 +53,26 @@ def _round_half_away(v: float) -> float:
 
 
 def quantize_tensor(arr, scale: int) -> np.ndarray:
+    """``quantize_float`` of every element, as numpy array operations (the
+    same float64 steps, so the same integers; a vocabulary-scale weight
+    matrix has ~10^8 elements). Raises as quantize_float does at the first
+    element it refuses."""
     a = np.asarray(arr, dtype=np.float64)
-    out = np.empty(a.shape, dtype=np.int32)
-    flat_in, flat_out = a.ravel(), out.ravel()
-    for i in range(flat_in.size):
-        flat_out[i] = quantize_float(float(flat_in[i]), scale)
-    return out
+    x = a.ravel()
+    mult = scale_to_multiplier(scale)
+    max_value = round(I32_MAX / mult)
+    low, high = x < -max_value, x > max_value
+    bad = np.isnan(x) | (low & ~(x < -1e6)) | (high & ~(x > 1e6))
+    if bad.any():
+        quantize_float(float(x[np.argmax(bad)]), scale)  # raises
+    clamped = np.where(low, -mask_sentinel_magnitude(scale),
+                       np.where(high, max_value / 2.0, x))
+    v = clamped * mult
+    r = np.where(v >= 0, np.floor(v + 0.5), np.ceil(v - 0.5))
+    if ((r < I32_MIN) | (r > I32_MAX)).any():
+        raise OverflowError(f"quantized value out of int32 at scale {scale}")
+    r = np.where((r == 0) & (x != 0.0), np.where(x > 0.0, 1.0, -1.0), r)
+    return r.astype(np.int32).reshape(a.shape)
 
 
 def dequantize(arr, scale: int) -> np.ndarray:

@@ -229,9 +229,7 @@ class AtlasProver:
                 if dn_pids:
                     # dense witness commits, each by the gate's route: the
                     # device, a host+device split or the host batch-affine
-                    # engine, which also takes any commit whose digit grid
-                    # would be skewed (low-entropy windows); all counted in
-                    # telemetry
+                    # engine; all counted in telemetry
                     from .curve.native import pack_scalars
                     from .device.split import msm_batch_routed
                     pts = msm_batch_routed(

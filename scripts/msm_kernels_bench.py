@@ -2,7 +2,7 @@
 and bucket_combine; csrc/curve.cu, msm.cu, combine.cu) alone on one GPU.
 
     python3 scripts/msm_kernels_bench.py [--root DIR] [--expect FILE]
-                                         [--shapes]
+                                         [--shapes] [--plans]
 
 Inputs, at chip_smoke.py's shapes, from its seeds: the bench's SRS
 (cached_srs(18)) as the bases; kernel 1 at the gate's 2^17 lanes (the
@@ -25,6 +25,13 @@ unpacked with ``git archive``), so two versions are compared within one
 call: run this, parent, this, parent. ``--shapes`` also builds kernel 1's
 lane (csrc/curve.cu pp_add_lane) at other launch shapes (threads a block,
 ``__launch_bounds__`` minimum blocks) and times each on the same lanes.
+``--plans`` also times kernel 3 at c = 16 for one MSM (the witness's
+launch) and for five (the fold batch's), on sums of two random bases, at two
+launch plans in turns (PLANS_TURNS, CUDA events, mean of 5 a turn):
+128-thread blocks, G doubled while the launch holds fewer than two blocks
+an SM and a thread keeps 8 buckets, and 64-thread blocks, G as many as one
+wave of the card holds (6 blocks an SM); the two plans' window sums are
+held equal as points.
 Prints ptxas's registers and spills of kernels 1-3, the card's name and
 power limit, then one JSON line. Exits non-zero without a CUDA device.
 """
@@ -44,8 +51,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("pp_add_kernel", "bucket_accumulate_runs",
-           "bucket_accumulate_join", "bucket_combine_kernel",
+           "bucket_accumulate_level", "bucket_combine_kernel",
            "bucket_combine_groups")
+PLANS_TURNS = 5
 # kernel 1's launch shapes for --shapes: (threads a block, minimum blocks
 # an SM for __launch_bounds__, 0 for none)
 SHAPES = ((64, 0), (128, 0), (128, 3), (128, 4), (256, 0), (256, 2),
@@ -96,11 +104,54 @@ extern "C" int jolt_{name}(const void* x1, const void* y1, const void* z1,
     return "\n".join(out) + "\n"
 
 
+def combine_plans(cs, curve, dmsm, dev, bases, sms: int) -> list:
+    """Kernel 3 at c = 16 under its two launch plans in turns (--plans)."""
+    c = 16
+    W, B, _ = dmsm.window_shape(c)
+    real = dmsm.combine_threads
+    out = []
+    for k in (1, 5):
+        # sums of two random bases: curve points only (two orders of adds
+        # agree only on those; random_bucket_sums adds raw field elements)
+        gen = torch.Generator(device="cpu").manual_seed(2025 + k)
+        i1, i2 = (torch.randint(0, bases[0].shape[0], (k * W * B,),
+                                generator=gen).to(dev) for _ in range(2))
+        acc = tuple(t.reshape(k, W * B, 4) for t in curve.pp_add(
+            tuple(b[i1] for b in bases), tuple(b[i2] for b in bases)))
+        G = 1
+        while k * W * G < 2 * sms and B // (2 * G * 128) >= 8:
+            G *= 2
+        plans = {(128, G): [], (64, max(1, min(sms * 6 // (k * W),
+                                               B // (64 * 8)))): []}
+        want = None
+        for turn in range(PLANS_TURNS):
+            for T, G in (list(plans) if turn % 2 == 0
+                         else list(plans)[::-1]):
+                dmsm.combine_threads = lambda cc, T=T: T
+                try:
+                    ms, got = cs.cuda_ms(
+                        lambda: dmsm.bucket_combine(acc, c, G), 5)
+                finally:
+                    dmsm.combine_threads = real
+                pts = cs.curve_points(got)
+                if want is None:
+                    want = pts
+                if pts != want:
+                    raise AssertionError(f"kernel 3 at k={k}, {T} threads, "
+                                         f"G={G} differs")
+                plans[(T, G)].append(ms)
+        out.append({"k": k, "c": c, "turns_ms": {
+            f"{T} threads G={G}": v for (T, G), v in plans.items()}})
+        del acc
+    return out
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--expect", default=None)
     ap.add_argument("--shapes", action="store_true")
+    ap.add_argument("--plans", action="store_true")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("msm_kernels_bench: no CUDA device", file=sys.stderr)
@@ -203,6 +254,8 @@ def main(argv: list[str]) -> int:
                     "threads": t, "min_blocks": mb, "ms": ms,
                     "call_ms": call, "share": b / ms,
                     **lib.ptxas[f"pp_add_{t}_{mb}"]})
+    if a.plans:
+        out["plans"] = combine_plans(cs, curve, dmsm, dev, bases, sms)
     for k, r in out["ptxas"].items():
         print(f"ptxas -v {k}: {json.dumps(r)}")
     print(cs.card_line())

@@ -80,8 +80,60 @@ def test_bucket_kernel_matches_plain(gpu, srs, c, run):
     assert bool((starts[1:] == starts[:-1]).any())  # empty lanes
     before = telemetry.launches().get("bucket_accumulate", 0)
     got = dmsm.bucket_accumulate(bases, lanes, run=run)
-    assert telemetry.launches()["bucket_accumulate"] - before == 2
+    assert telemetry.launches()["bucket_accumulate"] - before == len(
+        dmsm.accumulate_levels(lanes[0].shape[0], run))
     assert _equal(got, dmsm.bucket_accumulate_plain(bases, lanes, run))
+
+
+@pytest.mark.parametrize("depth,run,L", [(1 << 16, 16, 64),
+                                         (70_001, 16, 64), (1 << 16, 5, 64),
+                                         (1 << 16, 16, 1 << 16)])
+def test_bucket_kernel_deep_lane_matches_plain(gpu, srs, depth, run, L):
+    """Kernel 2 against its plain version on a lane of depth >= 2^16 (far
+    over 32 x the mean, which the reference's grid refuses) among L - 1
+    lanes of a few entries and empty ones: its runs joined through several
+    levels, level 1 a thread a chunk (64 lanes: 4 runs a lane or more on
+    average) or a thread a position (2^16 lanes)."""
+    bases = srs.device_bases(gpu, gate.forced("device")).bases
+    rng = np.random.default_rng(depth + run)
+    counts = rng.integers(0, 5, size=L)
+    counts[17] = depth
+    starts = torch.zeros(L + 1, dtype=torch.int64)
+    starts[1:] = torch.from_numpy(np.cumsum(counts))
+    E = int(starts[-1])
+    lane = torch.repeat_interleave(torch.arange(L), torch.from_numpy(
+        counts))
+    pts = torch.from_numpy(rng.integers(0, N, size=E))
+    lanes = tuple(t.to(torch.int32).to(gpu) for t in (lane, pts, starts))
+    levels = dmsm.accumulate_levels(E, run)
+    assert len(levels) >= 4  # the deep lane's heads reach level 3
+    case = dmsm.accumulate_class(lanes, run)
+    assert case == (L, int(L == 64))
+    before = telemetry.launches().get("bucket_accumulate", 0)
+    got = dmsm.bucket_accumulate(bases, lanes, run=run)
+    assert telemetry.launches()["bucket_accumulate"] - before == len(levels)
+    assert case in telemetry.snapshot()["lanes"]["bucket_accumulate"]
+    assert _equal(got, dmsm.bucket_accumulate_plain(bases, lanes, run))
+
+
+@pytest.mark.parametrize("c", [6, 12])
+def test_bucket_kernel_stages_apart_match_one_launch(gpu, srs, c):
+    """Kernel 2's runs and its levels launched apart, the levels twice (as
+    chip_smoke.py times the join), leave the buckets of one launch of
+    both."""
+    bases = srs.device_bases(gpu, gate.forced("device")).bases
+    rng = np.random.default_rng(c)
+    packed = pack_scalars([int.from_bytes(rng.bytes(32), "little")
+                           % FR_MODULUS for _ in range(N)])
+    lanes = dmsm.digit_lanes(dmsm.scalars_tensor(packed, N, gpu), c)
+    L = lanes[2].shape[0] - 1
+    want = dmsm.bucket_accumulate(bases, lanes)
+    outs = [torch.empty((L, 4), dtype=torch.int64, device=gpu)
+            for _ in range(3)]
+    parts = dmsm.accumulate_scratch(lanes)
+    for stages in (1, 2, 2):
+        dmsm.accumulate_launch(bases, lanes, outs, parts, stages=stages)
+    assert _equal(outs, want)
 
 
 @pytest.mark.parametrize("kind", ["random254", "bits16"])
@@ -93,24 +145,28 @@ def test_device_msm_matches_host_on_gpu(gpu, srs, kind):
         c = 0  # the adaptive window
     else:
         scalars = [int(x) for x in rng.integers(0, 1 << 16, size=N)]
-        c = 8  # divides 16: a window straddling bit 16 would be skewed
+        c = 8  # divides 16: every window's digits are uniform
     packed = pack_scalars(scalars)
     want = srs.prepared_bases().msm_packed(packed, N)
     before = telemetry.launches()
     got = srs.device_bases(gpu, gate.forced("device"), c=c).msm_packed(
         packed, N)
     assert (got.infinity, got.x, got.y) == (want.infinity, want.x, want.y)
-    G = dmsm.combine_groups(1, c or dmsm._pick_c(N), _sms(gpu))
-    for k, n in (("bucket_accumulate", 2),
+    cc = c or dmsm._pick_c(N)
+    G = dmsm.combine_groups(1, cc, _sms(gpu))
+    W = dmsm.window_shape(cc)[0]
+    for k, n in (("bucket_accumulate",
+                  len(dmsm.accumulate_levels(W * N))),
                  ("bucket_combine", 2 if G > 1 else 1)):
         assert telemetry.launches()[k] - before.get(k, 0) == n
 
 
 @pytest.mark.parametrize("k,c", [(3, 6), (1, 12), (2, 14), (1, 14),
-                                 (16, 12)])
+                                 (16, 12), (1, 16), (5, 16)])
 def test_combine_kernel_matches_plain(gpu, srs, k, c):
     """Kernel 3 against its plain version at the blocks per window the
-    card's rule gives (G = 16 for one MSM at c = 14): projective bucket
+    card's rule gives (G = 16 for one MSM at c = 14; from c = 16, 64-thread
+    blocks filling one wave: G = 49 for one MSM, 9 for five): projective bucket
     sums, a fifth of them the identity, and the add's edge cases (doubling,
     P + (-P), coordinates near p) in the first lanes of every MSM."""
     bases = srs.device_bases(gpu, gate.forced("device")).bases
@@ -138,6 +194,35 @@ def test_combine_kernel_matches_plain(gpu, srs, k, c):
     assert (L, G) in telemetry.snapshot()["lanes"]["bucket_combine"]
     assert got[0].shape == (k, W, 4)
     assert _equal(got, dmsm.bucket_combine_plain(acc, c, G))
+
+
+def test_device_msm_takes_skewed_batch_on_gpu(gpu):
+    """The card's engine against the host engine on a skewed batch at the
+    adaptive windows, which the reference's grid refuses: a 2^18-point
+    fold-like vector (a constant run over 3/4 of it), 2^17 all-equal
+    scalars and 2^16 small commit-like values; equal affine points, every
+    MSM on the card, and the deepest lane recorded far over the mean."""
+    big = KZGSRS.setup(1 << 18)
+    rng = np.random.default_rng(18)
+
+    def rand(m):
+        return [int.from_bytes(rng.bytes(32), "little") % FR_MODULUS
+                for _ in range(m)]
+    n = 1 << 18
+    fold = rand(n // 8) + [FR_MODULUS - 5] * (n * 3 // 4) + rand(n // 8)
+    packed = [pack_scalars(fold), pack_scalars([FR_MODULUS - 3] * (n // 2)),
+              pack_scalars([int(x) for x in np.minimum(
+                  rng.geometric(0.6, size=n // 4) - 1, 255)])]
+    counts = [n, n // 2, n // 4]
+    want = big.prepared_bases().msm_batch_packed(packed)
+    telemetry.reset()
+    got = big.device_bases(gpu, gate.forced("device")).msm_batch_packed(
+        packed, counts, site="skewed")
+    assert [(p.infinity, p.x, p.y) for p in got] == [
+        (p.infinity, p.x, p.y) for p in want]
+    depth = telemetry.snapshot()["msm_depth"]["skewed"]
+    assert [d[0] for d in depth] == counts
+    assert all(d[1] > max(64, 32 * d[2]) for d in depth)
 
 
 def test_split_msm_matches_host_on_gpu(gpu, srs):
@@ -211,10 +296,12 @@ def test_reduction_q0_worst_case_and_long_lane(gpu, lanes, lg, edge):
 
 
 @pytest.mark.parametrize("lanes,joined", [(8, 5), (256, 175), (2, 0),
-                                          (32, 32)])
+                                          (32, 32), (384, 384), (385, 300),
+                                          (640, 600), (4096, 4000)])
 def test_reduction_tail_matches_plain(gpu, lanes, joined):
     """Kernel 6 against its plain version: unjoined and zero-padding
-    lanes, l1 = 0 (1/l1 given as 0) and l0 = 0 in lanes 0 and 1."""
+    lanes, l1 = 0 (1/l1 given as 0) and l0 = 0 in lanes 0 and 1; beyond
+    384 lanes its wide form (several lanes a thread)."""
     d = dred.random_tail(gpu, np.random.default_rng(31 + lanes), lanes,
                          joined)
     k = {n: t.clone() for n, t in d.items()}

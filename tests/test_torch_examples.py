@@ -132,6 +132,23 @@ def test_gpt2_style_flags():
     assert gpt2_style.args(["--blocks", "1"]).blocks == 1
 
 
+def test_gpt2_style_full_flags_match_reference(monkeypatch):
+    """--full parses to the reference driver's configuration, GPT-2 at its
+    padded 125M shape: 12 blocks, dim 1024, 16 heads, seq 16, vocab 50257
+    (padded to 65536 by the model), scale 2^12; the reference driver's own
+    command line, read where it calls its nanogpt main, parses to the same
+    arguments."""
+    full = gpt2_style.args(["--full", "--gen", "1"])
+    assert (full.blocks, full.dim, full.heads, full.seq, full.vocab,
+            full.scale, full.gen) == (12, 1024, 16, 16, 50257, 12, 1)
+    seen = []
+    monkeypatch.setattr(ref_gpt2, "nanogpt_main",
+                        lambda: seen.append(list(sys.argv)) or 0)
+    monkeypatch.setattr(sys, "argv", ["gpt2_style.py"])
+    ref_gpt2.main(["--full", "--gen", "1"])
+    assert vars(nanogpt_style.parser().parse_args(seen[0][1:])) == vars(full)
+
+
 def test_qwen_style_raises_without_its_file(tmp_path):
     args = qwen_style.parser().parse_args(
         ["--model", str(tmp_path / "network.onnx"), "--device", "cpu"])
@@ -186,7 +203,7 @@ def test_drivers_import_no_jax():
 
 @pytest.mark.slow
 def test_gpt2_style_slice_bytes_equal_reference(monkeypatch):
-    """The GPT-2-style slice at full width (2 blocks, 4 heads, d128, seq 16,
+    """The GPT-2-style slice (GPT-2 cut to 2 blocks, 4 heads, d128, seq 16,
     vocab 8192, scale 2^12; an SRS of 2^21)."""
     want = reference_bytes(lambda: ref_gpt2.main(["--gen", "1"]), [],
                            monkeypatch)

@@ -121,6 +121,60 @@ def test_choose_orders_device_split_host():
                 assert (route, n_dev) == ("host", 0)
 
 
+def _cal3(p16, p18, p21, host=HOST):
+    """A calibration measured at the three sizes (points/s each)."""
+    return {"host_msm_pps": host, "dev_msm_pps_16": p16, "dev_msm_pps": p18,
+            "dev_msm_pps_21": p21, "dev_base_setup_sppt": 0.0}
+
+
+def test_fit_from_three_sizes():
+    """With the 2^21 rate measured, sizes up to 2^18 keep the line through
+    2^16 and 2^18 (the reference's two-size fit, so its decisions do not
+    move) and larger sizes take the line through 2^18 and 2^21, which goes
+    on beyond it."""
+    t = {16: 0.010, 18: 0.020, 21: 0.090}  # seconds at 2^16, 2^18, 2^21
+    g = gate.MsmGate(_cal3(*((1 << e) / t[e] for e in (16, 18, 21))))
+    two = gate.MsmGate({k: v for k, v in g.cal.items()
+                        if k != "dev_msm_pps_21"})
+    for n in (64, 1 << 16, 3 << 16, 1 << 18):
+        assert g.fit(n) == pytest.approx(two.fit(n))
+        assert g.dev_time(n) == two.dev_time(n)
+    for n in ((1 << 18) + 1, 1 << 20, 1 << 21, 1 << 24):
+        fixed, rate = g.fit(n)
+        assert rate == pytest.approx(((1 << 21) - (1 << 18)) / 0.070)
+        assert fixed == pytest.approx(0.090 - (1 << 21) / rate)
+        assert g.dev_time(n)[0] == pytest.approx(fixed + n / rate)
+    for e in (16, 18, 21):  # through every measured point
+        assert g.dev_time(1 << e)[0] == pytest.approx(t[e])
+
+
+@pytest.mark.parametrize("name,routes", [
+    # a card ~25x the host at 2^21 (as an H100 beside an 8-CPU host):
+    # every flagship size on the device alone
+    ("fast", ["device"] * 4),
+    # a card that only keeps up at 2^18: the rate margin fails, and a
+    # large MSM splits with a share the 2^21 line prices
+    ("even", ["split"] * 4),
+    # no device rate: the host
+    ("none", ["host"] * 4)])
+def test_routes_at_flagship_sizes(name, routes):
+    """The gate's route for each MSM size of GPT-2 at its padded 125M
+    shape (2^21 .. 2^24 points: the fold batch's largest folds and the
+    2^24 witness) from synthetic three-size calibrations, with the port's
+    thresholds; a split's share is a power of two up to SPLIT_MAX_DEV."""
+    cal = {"fast": _cal3(2e6, 5e6, 2.5e7),
+           "even": _cal3(0.9e6, 1e6, 1.1e6),
+           "none": _cal3(0.0, 0.0, 0.0)}[name]
+    g = gate.MsmGate(cal)
+    sizes = [(1 << 21) - 3, 1 << 22, 1 << 23, (1 << 24) - 3]
+    got = [g.choose(n) for n in sizes]
+    assert [r for r, _, _ in got] == routes
+    for n, (route, n_dev, _) in zip(sizes, got):
+        if route == "split":
+            assert n_dev & (n_dev - 1) == 0 and n_dev <= gate.SPLIT_MAX_DEV
+            assert n_dev == 1 << (n.bit_length() - 2)  # even rates: half
+
+
 @pytest.mark.parametrize("route", ["device", "split", "host"])
 def test_forced_gates(route):
     g = gate.forced(route)
@@ -146,7 +200,7 @@ def fake_card(tmp_path, monkeypatch):
 
     def fake_measure(device):
         calls.append(device)
-        return _cal("faster")
+        return _cal("faster") | {"dev_msm_pps_21": 5e6}  # all three sizes
 
     path = tmp_path / "cal.json"
     monkeypatch.setattr(gate, "measure", fake_measure)

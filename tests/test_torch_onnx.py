@@ -329,3 +329,38 @@ def test_nonpow2_padding():
     got = dequantize(model.forward([quantize_tensor(xpad, 8)])[0], 8)
     want = np.maximum(x @ w, 0)
     assert np.abs(got[:, :10] - want).max() < 0.1
+
+
+def _quantized_or_error(fn, a, scale):
+    try:
+        return "ok", fn(a, scale).tolist()
+    except (ValueError, OverflowError) as e:
+        return (type(e).__name__,)
+
+
+@pytest.mark.parametrize("scale", [0, 4, 8, 12, 16, 24])
+def test_quantize_tensor_matches_reference(scale):
+    """The port's quantize_tensor works on whole arrays; the reference's
+    element by element (jolt_atlas_tpu/frontend/quantize.py). Equal
+    integers, or the same error, on random values and on the edges: signed
+    zeros, ties at +-0.5, 1.5, 2.5 units, values that round to 0 (kept as
+    +-1), the clamp bounds and just past them, the mask sentinel's range,
+    infinities, NaN and an int32 overflow."""
+    rng = np.random.default_rng(scale)
+    m = 2.0 ** scale
+    mv = round((2 ** 31 - 1) / m)
+    edges = [0.0, -0.0, 1e-12, -1e-12, 0.5 / m, -0.5 / m, 1.5 / m, -1.5 / m,
+             2.5 / m, -2.5 / m, 0.49999999999999994 / m, mv, -mv, mv + 0.4,
+             -mv - 0.4, mv - 0.6, 3e6, -3e6, 1e7, -1e7, 1e300, -1e300,
+             np.inf, -np.inf, np.nan]
+    for v in edges:
+        a = np.array([1.0, v, -2.0])
+        assert _quantized_or_error(quantize_tensor, a, scale) == \
+            _quantized_or_error(ref_quantize, a, scale), v
+    a = np.concatenate([rng.normal(size=(3000,)) * 10,
+                        rng.normal(size=(500,)) * mv / 3,
+                        rng.integers(-100, 100, size=500) / m * 0.5])
+    a = np.clip(a, -0.99 * mv, 0.99 * mv).reshape(40, 100)
+    got = quantize_tensor(a, scale)
+    assert got.dtype == np.int32 and got.shape == a.shape
+    assert np.array_equal(got, ref_quantize(a, scale))

@@ -309,7 +309,8 @@ def test_plain_q0_matches_reference(lanes, lg):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("lanes,joined,bpl", [(8, 5, 3), (4, 0, 1),
-                                              (4, 4, 2), (32, 32, 1)])
+                                              (4, 4, 2), (32, 32, 1),
+                                              (640, 600, 1)])
 def test_plain_tail_matches_host_oracle(lanes, joined, bpl):
     """Unjoined and zero-padding lanes; l1 = 0 with 1/l1 given as 0 (lane
     0) and l0 = 0 (lane 1). Each joined lane's q(0) is the sum of bpl

@@ -96,19 +96,31 @@ def test_split_msm_matches_python_oracle(setup, monkeypatch):
     assert (got.x, got.y) == (want.x, want.y)
 
 
-def test_skewed_suffix_falls_back_to_host(setup):
-    """A suffix of equal scalars is refused by the host count before any
-    device work: the split returns None, counted, and the routed call
-    gives the host engine's point."""
-    _, prep, dev = setup
-    packed = pack_scalars(_scalars(256) + [1] * 256)
+def test_skewed_suffix_falls_back_to_host(setup, monkeypatch):
+    """A suffix of equal scalars, which the reference's TPU grid refuses as
+    skewed, runs on the device all the same: the split's point, and the
+    routed call's, equal the reference's host engine's and the big-int
+    oracle's; nothing is refused or left to the host, and the suffix's
+    deepest lane is recorded."""
+    from jolt_atlas_tpu.tpu import msm as tmsm
+    ref, prep, dev = setup
+    scalars = _scalars(256) + [1] * 256
+    packed = pack_scalars(scalars)
+    assert tmsm._host_grid_rows(packed[32 * 256:], 256, C) < 0
+    want = prep.msm_packed(packed, N)
     telemetry.reset()
-    assert split.msm_packed_split(dev, prep, packed, N, 256, "test") is None
-    assert telemetry.snapshot()["dispatches"] == {
-        "msm_skew_fallback:test": 1}
+    got = split.msm_packed_split(dev, prep, packed, N, 256, "test")
+    assert _xy(got) == _xy(want)
+    tele = telemetry.snapshot()
+    assert tele["dispatches"] == {"msm:test": 2}
+    assert tele["msm_depth"]["msm:test"][0][:2] == [256, 256]
     got = split.msm_batch_routed(dev, gate.forced("split"), prep, [packed],
                                  [N], "test")
-    assert _xy(got[0]) == _xy(prep.msm_packed(packed, N))
+    assert _xy(got[0]) == _xy(want)
+    monkeypatch.setattr(ref_native, "_LIB", None)
+    monkeypatch.setattr(ref_native, "_TRIED", True)
+    oracle = python_msm(ref.g1_powers[:N], scalars)
+    assert (got[0].x, got[0].y) == (oracle.x, oracle.y)
 
 
 def test_host_threads_set_and_restored(setup, monkeypatch):
