@@ -94,7 +94,10 @@ script exits non-zero when any phase fails:
               against their plain versions at the first launch of every
               shape class the mesh path makes; the sharded product round at
               2^20 elements over 8 shards against the CPU plain path and
-              Python integers; dryrun_multichip(8).
+              Python integers; BENCH_SMALL's nanoGPT under KeccakTranscript
+              over 8 shards of the card, bytes equal to the host path's
+              Keccak prove, the Keccak verifier accepting and the BLAKE2b
+              verifier rejecting it; dryrun_multichip(8).
  14. exact    kernel 9 (csrc/exact.cu) bit-equal to its plain version at
               the example MLP's products, the one-block transformer's and
               the bench's attention products (batched), K = 4096 with every
@@ -153,6 +156,11 @@ script exits non-zero when any phase fails:
               SRS, the bases' upload), prove, phases, verify, proof bytes,
               peak memory, the gate's routes and every MSM's deepest lane
               printed.
+ 17. bench    the port's bench entry (python -m jolt_atlas_tpu_torch.bench)
+              once, in a subprocess, at the full bench shape on the card:
+              its JSON line printed; it exits 0 (its proof verified), the
+              proof is 764,841 bytes and the MSM, reduction and rows
+              engines engaged in its fastest prove.
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
@@ -161,7 +169,7 @@ tensor cores' int8 rate (``exact_bounds``). Kernel times are the profiler's devi
 durations (``device_ms``); the wrapper's call time, host work included,
 is printed beside them.
 
-Each path (gate calibration, split, the two device proves, the two mesh
+Each path (gate calibration, split, the two device proves, the three mesh
 proves, the forward, phase 15's proves, phase 16's counted prove) runs
 with the launch counts set to 0 just before it and read just after; the
 kernels JSON sums them, and gives the traced prove's own launches, a mesh
@@ -2277,6 +2285,68 @@ def time_mesh_kernels(dev, results, largest: dict) -> dict:
 MESH = ("reduction_bind", "reduction_q0", "rows_points", "rows_from_i64")
 
 
+def mesh_keccak(dev, results, err: dict, shards: int) -> dict:
+    """BENCH_SMALL's nanoGPT (1 block, 1 head, d16, seq 8, vocab 32, seed
+    1234) under KeccakTranscript in a ``shards``-shard mesh_scope on
+    ``dev``, counted: its bytes equal the host path's Keccak prove
+    (device="cpu"), the Keccak verifier accepts them and the BLAKE2b
+    verifier rejects them, both mesh engines engage (each runs its
+    Fiat-Shamir on the host, whatever the transcript); kernels 4, 5 and 7
+    held at the first launch of each new class, kernels 2 and 3 at each
+    new MSM size."""
+    from jolt_atlas_tpu_torch import models, serde
+    from jolt_atlas_tpu_torch.parallel import make_mesh, mesh_scope
+    from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    from jolt_atlas_tpu_torch.transcripts import KeccakTranscript
+    from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+    rng = np.random.default_rng(1234)
+    model = models.build_nanogpt(32, 8, 16, 1, 8, rng, heads=1)
+    toks = rng.integers(0, 32, size=8).astype(np.int32)
+    pp = AtlasPreprocessing.preprocess(model)
+    t0 = time.time()
+    host, _ = AtlasProver(pp, device="cpu",
+                          transcript_factory=KeccakTranscript).prove([toks])
+    host_s = time.time() - t0
+
+    def prove():
+        t0 = time.time()
+        with mesh_scope(make_mesh(shards, device=dev)):
+            proof, io = AtlasProver(pp, device=dev,
+                                    transcript_factory=KeccakTranscript
+                                    ).prove([toks])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return proof, io, time.time() - t0
+
+    need = MESH if dev.type == "cuda" else ()
+    with check_mesh_kernels(results, err, {}) as seen, hold_kernels(
+            results, err, "mesh path, Keccak", MSM, seen=seen):
+        (proof, io, wall), tele = counted(results, need, prove)
+    d = tele["decisions"]
+    blob = serde.serialize_proof(proof)
+    if blob != serde.serialize_proof(host):
+        raise AssertionError("the Keccak mesh proof's bytes differ from the "
+                             "host path's")
+    if not AtlasVerifier(pp, KeccakTranscript).verify(proof, io):
+        raise AssertionError("the Keccak verifier rejected the Keccak mesh "
+                             "proof")
+    if AtlasVerifier(pp).verify(proof, io):
+        raise AssertionError("the BLAKE2b verifier accepted the Keccak mesh "
+                             "proof")
+    for k in ("mesh_reduction", "mesh_iop"):
+        if not d.get(k, "").startswith("ENGAGED"):
+            raise AssertionError(f"Keccak mesh prove: {k} did not engage: "
+                                 f"{d}")
+    return {"model": "nanogpt 1 block, 1 head, d16, seq 8, vocab 32",
+            "proof_bytes": len(blob), "bytes_equal_host_path": True,
+            "keccak_verified": True, "blake2b_rejected": True,
+            "prove_s": wall, "host_prove_s": host_s,
+            "mesh_reduction": d["mesh_reduction"], "mesh_iop": d["mesh_iop"],
+            "launches": tele["launches"],
+            "classes_held": sorted(f"{k} {c}" for k, c in seen)}
+
+
 def phase_mesh(dev, results, shards: int = 8, log_t: int = 20) -> None:
     """The bench prove under mesh_scope over ``shards`` shards of the card,
     in one process and over a 1-rank NCCL group: bytes equal the gate
@@ -2353,6 +2423,7 @@ def phase_mesh(dev, results, shards: int = 8, log_t: int = 20) -> None:
                          "mesh_reduction": d["mesh_reduction"],
                          "launches": tele["launches"]}
     results["launches_mesh_prove"] = out["virtual"]["launches"]
+    keccak = mesh_keccak(dev, results, err, shards)
     results["mesh_timed"] = timed_mesh
     results["mesh_err"] = err
 
@@ -2414,6 +2485,7 @@ def phase_mesh(dev, results, shards: int = 8, log_t: int = 20) -> None:
         "kernels_at_largest_launch": timed_mesh,
         "max_abs_err": err,
         "product_round": product_round,
+        "keccak_bench_small": keccak,
         "dryrun_multichip_s": dry_s}))
 
 
@@ -3312,6 +3384,45 @@ def phase_flagship(dev, results, windows=(16, 18)) -> None:
         "kernels_at_largest_launch": timed_msm}))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the bench entry
+# ---------------------------------------------------------------------------
+
+BENCH_PROOF_BYTES = 764_841  # the bench proof's length, on every path
+
+
+def phase_bench(timeout: int = 300) -> None:
+    """``python -m jolt_atlas_tpu_torch.bench`` once, in a subprocess, at
+    the full bench shape on the card: its JSON line printed on a line of
+    its own; the entry exits 0 (it asserts that its proof verified), the
+    proof is BENCH_PROOF_BYTES long, and its fastest prove engaged the MSM,
+    reduction and rows engines (their decisions ENGAGED, the fold and
+    witness MSMs dispatched to the card)."""
+    env = {k: v for k, v in os.environ.items() if k != "BENCH_SMALL"}
+    r = subprocess.run([sys.executable, "-m", "jolt_atlas_tpu_torch.bench"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    lines = r.stdout.splitlines()
+    if r.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"the bench entry exited {r.returncode} with "
+                             f"{len(lines)} lines on stdout: "
+                             f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+    print(lines[0], flush=True)
+    out = json.loads(lines[0])
+    if out["proof_bytes"] != BENCH_PROOF_BYTES:
+        raise AssertionError(f"bench proof of {out['proof_bytes']} bytes, "
+                             f"not {BENCH_PROOF_BYTES}")
+    d = out["device"]["decisions"]
+    for engine in ("msm", "reduction", "iop"):
+        if not d.get(engine, "").startswith("ENGAGED"):
+            raise AssertionError(f"bench: the {engine} engine did not "
+                                 f"engage: {d}")
+    for site in ("msm:hyperkzg_fold", "msm:hyperkzg_witness"):
+        if not out["device"]["dispatches"].get(site):
+            raise AssertionError(f"bench: no device MSM dispatch at {site}: "
+                                 f"{out['device']}")
+
+
 KERNELS = (
     ("pp_add", "jolt_atlas_tpu_torch/csrc/curve.cu",
      "jolt_atlas_tpu/tpu/pallas_curve.py:174"),
@@ -3398,6 +3509,8 @@ def run_phases() -> int:
     phase("exact", phase_exact, dev, results)
     phase("models", phase_models, dev, results)
     phase("flagship", phase_flagship, dev, results)
+    torch.cuda.empty_cache()  # the entry's process has the card beside us
+    phase("bench", phase_bench)
     require_checked(results)
     launches = results["launches"]
     kernels = []

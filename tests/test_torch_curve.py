@@ -18,6 +18,7 @@ from jolt_atlas_tpu.curve import points as ref_points
 from jolt_atlas_tpu.field.constants import FQ_MODULUS
 from jolt_atlas_tpu.tpu import pallas_curve
 from jolt_atlas_tpu_torch.device import curve, field as F
+from test_torch_srs import reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -54,11 +55,8 @@ def _ref_point(x, y):
 def pairs():
     """1024 random pairs of SRS points, plus the edge cases: doubling,
     P + (-P), the identity on either side and on both."""
-    srs = RefSRS.setup(2047)
-    raw = np.frombuffer(srs._raw_points, dtype=np.uint64).reshape(-1, 8)
-    ints = [(F.limbs64_to_int(r[:4].view(np.int64)),
-             F.limbs64_to_int(r[4:].view(np.int64))) for r in raw]
-    pts = [_ref_point(x, y) for x, y in ints]
+    reference_native()
+    pts = list(RefSRS.setup(2047).g1_powers)
     A, B = pts[:1024], pts[1024:2048]
     g = ref_points.g1_generator()
     inf = ref_points.G1.identity()

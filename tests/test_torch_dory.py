@@ -36,6 +36,7 @@ from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.transcripts import Blake2bTranscript
 from jolt_atlas_tpu_torch.transcripts import KeccakTranscript
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+from test_torch_srs import reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -43,9 +44,12 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped likewise while this
-    file runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)

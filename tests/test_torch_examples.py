@@ -27,6 +27,7 @@ from jolt_atlas_tpu_torch.device import split
 from jolt_atlas_tpu_torch.examples import (bge_style, gpt2_style,
                                            microgpt_style, minigpt_style,
                                            nanogpt_style, qwen_style)
+from test_torch_srs import reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -42,9 +43,12 @@ BGE_NARROW = ["--blocks", "1", "--dim", "16", "--seq", "8", "--vocab", "64"]
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped likewise while this
-    file runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)

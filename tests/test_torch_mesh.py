@@ -25,8 +25,11 @@ import jax.numpy as jnp
 from jolt_atlas_tpu import serde as ref_serde
 from jolt_atlas_tpu.field import jaxfr
 from jolt_atlas_tpu.field.constants import FR_MODULUS
+from jolt_atlas_tpu.parallel import make_mesh as ref_make_mesh
+from jolt_atlas_tpu.parallel import mesh_scope as ref_mesh_scope
 from jolt_atlas_tpu.preprocessing import AtlasPreprocessing as RefPP
 from jolt_atlas_tpu.prover import AtlasProver as RefProver
+from jolt_atlas_tpu.transcripts import KeccakTranscript as RefKeccak
 from jolt_atlas_tpu_torch import convert, serde
 from jolt_atlas_tpu_torch.device import rows as drows
 from jolt_atlas_tpu_torch.device import split, telemetry
@@ -35,18 +38,22 @@ from jolt_atlas_tpu_torch.parallel import make_mesh, mesh_scope
 from jolt_atlas_tpu_torch.parallel import mesh as M
 from jolt_atlas_tpu_torch.parallel import shardedreduction as SR
 from jolt_atlas_tpu_torch.parallel import shardedrows
-from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
+from jolt_atlas_tpu_torch.transcripts import KeccakTranscript
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+from test_torch_srs import port_pp, reference_native
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped at 2 while this file
-    runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)
@@ -188,19 +195,6 @@ def test_sharded_product_round_matches_reference():
 # mesh proves against the reference's host prove
 # ---------------------------------------------------------------------------
 
-def _g2(pt):
-    return (pt.x.a, pt.x.b, pt.y.a, pt.y.b)
-
-
-def _port_pp(ref_model, ref_pp):
-    srs = ref_pp.srs
-    limbs = np.frombuffer(srs._raw_points, dtype=np.uint64).reshape(-1, 8)
-    port_srs = convert.srs_from_arrays(limbs, _g2(srs.g2), _g2(srs.beta_g2),
-                                       [_g2(q) for q in srs.g2_powers])
-    model = convert.model_from_reference(convert.describe_model(ref_model))
-    return AtlasPreprocessing(model, port_srs)
-
-
 def _multichip_model(name):
     """tests/test_multichip.py's models, their weights from a fresh
     generator of that file's seed: the MLP of test_mesh_proof_matches_
@@ -227,7 +221,7 @@ def _case(name):
         ref_pp = RefPP.preprocess(model)
         ref_bytes = ref_serde.serialize_proof(
             RefProver(ref_pp).prove(inputs)[0])
-        _CASES[name] = (name, model, _port_pp(model, ref_pp), inputs,
+        _CASES[name] = (name, model, port_pp(model, ref_pp), inputs,
                         ref_bytes)
     return _CASES[name]
 
@@ -289,6 +283,31 @@ def test_mesh_gate_declines():
     assert SR.mesh_decline(make_mesh(8, device="cpu"), 256) is None
     assert g.decline(3, 256, 21, 1) == "degree > 20"
     assert g.decline(3, 256, 3, 1) is None
+
+
+def test_keccak_mesh_prove_bytes_equal_reference_mesh():
+    """The MLP under KeccakTranscript: the reference's prove on its own
+    8-device CPU mesh and the port's in an 8-shard mesh_scope, both mesh
+    engines engaged (each runs Fiat-Shamir on the host, whatever the
+    transcript), give the same bytes; the port's Keccak verifier accepts
+    them and its BLAKE2b verifier rejects them."""
+    _, model, pp, inputs, _ = _case("mlp")
+    ref_pp = RefPP.preprocess(model)
+    with ref_mesh_scope(ref_make_mesh(8, dp=1)):
+        ref_proof, _ = RefProver(ref_pp,
+                                 transcript_factory=RefKeccak).prove(inputs)
+    telemetry.reset()
+    with mesh_scope(make_mesh(8, device="cpu"), _MLP_GATE):
+        proof, io = AtlasProver(pp, device="cpu",
+                                transcript_factory=KeccakTranscript
+                                ).prove(inputs)
+    tele = telemetry.snapshot()["decisions"]
+    assert tele["mesh_reduction"].startswith("ENGAGED (8 ")
+    assert tele["mesh_iop"].startswith("ENGAGED")
+    assert serde.serialize_proof(proof) == \
+        ref_serde.serialize_proof(ref_proof)
+    assert AtlasVerifier(pp, KeccakTranscript).verify(proof, io)
+    assert not AtlasVerifier(pp).verify(proof, io)
 
 
 _GLOO = textwrap.dedent("""

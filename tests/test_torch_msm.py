@@ -24,9 +24,9 @@ from jolt_atlas_tpu.curve.msm import msm as python_msm
 from jolt_atlas_tpu.curve.native import pack_scalars
 from jolt_atlas_tpu.field.constants import FR_MODULUS
 from jolt_atlas_tpu.tpu import msm as tmsm
-from jolt_atlas_tpu_torch import convert
 from jolt_atlas_tpu_torch.device import curve, gate, msm as dmsm, split
 from jolt_atlas_tpu_torch.device import telemetry
+from test_torch_srs import port_srs, reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -34,25 +34,18 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped likewise while this
-    file runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)
 
 N = 512
 C = 4  # 64 windows x 16 buckets: small for the plain versions
-
-
-def _g2(p):
-    return (p.x.a, p.x.b, p.y.a, p.y.b)
-
-
-def port_srs(ref):
-    limbs = np.frombuffer(ref._raw_points, dtype=np.uint64).reshape(-1, 8)
-    return convert.srs_from_arrays(limbs, _g2(ref.g2), _g2(ref.beta_g2),
-                                   [_g2(p) for p in ref.g2_powers])
 
 
 @pytest.fixture(scope="module")

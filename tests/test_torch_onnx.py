@@ -34,6 +34,7 @@ from jolt_atlas_tpu_torch.frontend.quantize import dequantize, quantize_tensor
 from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+from test_torch_srs import port_srs, reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -46,23 +47,15 @@ FIXTURES = sorted(d for d in os.listdir(os.path.join(REPO, "models"))
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped likewise while this
-    file runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)
-
-
-def _g2(p):
-    return (p.x.a, p.x.b, p.y.a, p.y.b)
-
-
-def _port_srs(ref_srs):
-    limbs = np.frombuffer(ref_srs._raw_points, dtype=np.uint64).reshape(-1, 8)
-    return convert.srs_from_arrays(limbs, _g2(ref_srs.g2),
-                                   _g2(ref_srs.beta_g2),
-                                   [_g2(p) for p in ref_srs.g2_powers])
 
 
 def _same(a, b) -> bool:
@@ -99,7 +92,7 @@ def _prove_both(ref_model, port_model, inputs):
     reference pp, port pp, port proof, io)."""
     ref_pp = RefPP.preprocess(ref_model)
     ref_proof, _ = RefProver(ref_pp).prove(inputs)
-    pp = AtlasPreprocessing(port_model, _port_srs(ref_pp.srs))
+    pp = AtlasPreprocessing(port_model, port_srs(ref_pp.srs))
     proof, io = AtlasProver(pp, device="cpu").prove(inputs)
     return ref_serde.serialize_proof(ref_proof), ref_pp, pp, proof, io
 

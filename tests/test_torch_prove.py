@@ -29,9 +29,9 @@ from jolt_atlas_tpu.verifier import AtlasVerifier as RefVerifier
 from jolt_atlas_tpu_torch import convert, models, serde
 from jolt_atlas_tpu_torch.curve.points import g1_generator
 from jolt_atlas_tpu_torch.device import gate, split, telemetry
-from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+from test_torch_srs import port_pp, reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -39,9 +39,12 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped likewise while this
-    file runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)
@@ -49,25 +52,12 @@ def _few_host_threads():
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _g2(p):
-    return (p.x.a, p.x.b, p.y.a, p.y.b)
-
-
-def _port_pp(ref_model, ref_pp):
-    srs = ref_pp.srs
-    limbs = np.frombuffer(srs._raw_points, dtype=np.uint64).reshape(-1, 8)
-    port_srs = convert.srs_from_arrays(limbs, _g2(srs.g2), _g2(srs.beta_g2),
-                                       [_g2(p) for p in srs.g2_powers])
-    model = convert.model_from_reference(convert.describe_model(ref_model))
-    return AtlasPreprocessing(model, port_srs)
-
-
 def _both(ref_model, inputs, msm_window):
     """Reference host prove and port prove with the device engine on the
     CPU; returns (ref_pp, ref bytes, port pp, port proof, io)."""
     ref_pp = RefPP.preprocess(ref_model)
     ref_proof, _ = RefProver(ref_pp).prove(inputs)
-    pp = _port_pp(ref_model, ref_pp)
+    pp = port_pp(ref_model, ref_pp)
     telemetry.reset()
     proof, io = AtlasProver(pp, device=torch.device("cpu"),
                             msm_window=msm_window,

@@ -43,7 +43,7 @@ from jolt_atlas_tpu.preprocessing import AtlasPreprocessing as RefPP
 from jolt_atlas_tpu.prover import AtlasProver as RefProver
 from jolt_atlas_tpu.tpu import reduction as ref_red
 from jolt_atlas_tpu.tpu.fqplanes import PlanesCtx
-from jolt_atlas_tpu_torch import convert, serde
+from jolt_atlas_tpu_torch import serde
 from jolt_atlas_tpu_torch.device import field as F
 from jolt_atlas_tpu_torch.device import reduction as R
 from jolt_atlas_tpu_torch.device import split, telemetry
@@ -53,6 +53,7 @@ from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.transcripts import Blake2bTranscript
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+from test_torch_srs import port_pp, reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -63,9 +64,12 @@ CSRC = os.path.join(REPO, "jolt_atlas_tpu_torch", "csrc")
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped likewise while this
-    file runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)
@@ -363,19 +367,6 @@ def test_plain_tail_matches_host_oracle(lanes, joined, bpl):
 # the engine end to end
 # ---------------------------------------------------------------------------
 
-def _g2(p):
-    return (p.x.a, p.x.b, p.y.a, p.y.b)
-
-
-def _port_pp(ref_model, ref_pp):
-    srs = ref_pp.srs
-    limbs = np.frombuffer(srs._raw_points, dtype=np.uint64).reshape(-1, 8)
-    port_srs = convert.srs_from_arrays(limbs, _g2(srs.g2), _g2(srs.beta_g2),
-                                       [_g2(p) for p in srs.g2_powers])
-    model = convert.model_from_reference(convert.describe_model(ref_model))
-    return AtlasPreprocessing(model, port_srs)
-
-
 def _mlp():
     """tests/test_tpu_reduction.py's MLP: 64 -> relu(64) -> 32."""
     rng = np.random.default_rng(0xD0)
@@ -403,7 +394,7 @@ def case(request):
         request.param]()
     ref_pp = RefPP.preprocess(model)
     ref_bytes = ref_serde.serialize_proof(RefProver(ref_pp).prove(inputs)[0])
-    pp = _port_pp(model, ref_pp)
+    pp = port_pp(model, ref_pp)
     telemetry.reset()
     host, _ = AtlasProver(pp, device="cpu").prove(inputs)
     assert telemetry.snapshot()["decisions"]["reduction"] == \
@@ -482,7 +473,7 @@ def test_keccak_transcript_keeps_the_host_path():
     ref_pp = RefPP.preprocess(model)
     ref_bytes = ref_serde.serialize_proof(RefProver(
         ref_pp, transcript_factory=RefKeccak).prove(inputs)[0])
-    pp = _port_pp(model, ref_pp)
+    pp = port_pp(model, ref_pp)
     host, _ = AtlasProver(pp, device="cpu",
                           transcript_factory=KeccakTranscript).prove(inputs)
     telemetry.reset()

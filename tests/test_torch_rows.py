@@ -45,7 +45,7 @@ from jolt_atlas_tpu.field.constants import FR_MODULUS
 from jolt_atlas_tpu.field.scalar import Fr as RefFr
 from jolt_atlas_tpu.preprocessing import AtlasPreprocessing as RefPP
 from jolt_atlas_tpu.prover import AtlasProver as RefProver
-from jolt_atlas_tpu_torch import convert, serde
+from jolt_atlas_tpu_torch import serde
 from jolt_atlas_tpu_torch.curve.points import g1_generator
 from jolt_atlas_tpu_torch.device import rows as R
 from jolt_atlas_tpu_torch.device import split, telemetry
@@ -59,6 +59,7 @@ from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.subprotocols.sumcheck import RowsInstance
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+from test_torch_srs import port_pp, reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -66,7 +67,12 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)
@@ -538,19 +544,6 @@ def test_direct_against_reference_mesh_gruen():
 # proofs
 # ---------------------------------------------------------------------------
 
-def _g2(p):
-    return (p.x.a, p.x.b, p.y.a, p.y.b)
-
-
-def _port_pp(ref_model, ref_pp):
-    srs = ref_pp.srs
-    limbs = np.frombuffer(srs._raw_points, dtype=np.uint64).reshape(-1, 8)
-    port_srs = convert.srs_from_arrays(limbs, _g2(srs.g2), _g2(srs.beta_g2),
-                                       [_g2(p) for p in srs.g2_powers])
-    model = convert.model_from_reference(convert.describe_model(ref_model))
-    return AtlasPreprocessing(model, port_srs)
-
-
 def _bench_small():
     """bench.py's BENCH_SMALL nanoGPT: vocab 32, seq 8, d16, 1 block."""
     rng = np.random.default_rng(1234)
@@ -580,7 +573,7 @@ def case(request):
         request.param]()
     ref_pp = RefPP.preprocess(model)
     ref_bytes = ref_serde.serialize_proof(RefProver(ref_pp).prove(inputs)[0])
-    return _port_pp(model, ref_pp), inputs, ref_bytes
+    return port_pp(model, ref_pp), inputs, ref_bytes
 
 
 def test_forced_engine_bytes_equal_reference(case, monkeypatch):

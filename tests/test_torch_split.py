@@ -23,12 +23,12 @@ from jolt_atlas_tpu.field.constants import FR_MODULUS
 from jolt_atlas_tpu.preprocessing import AtlasPreprocessing as RefPP
 from jolt_atlas_tpu.prover import AtlasProver as RefProver
 from jolt_atlas_tpu.verifier import AtlasVerifier as RefVerifier
-from jolt_atlas_tpu_torch import convert, serde
+from jolt_atlas_tpu_torch import serde
 from jolt_atlas_tpu_torch.curve import native
 from jolt_atlas_tpu_torch.device import gate, split, telemetry
-from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+from test_torch_srs import port_pp, port_srs, reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
@@ -36,9 +36,12 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped likewise while this
-    file runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)
@@ -47,20 +50,10 @@ N = 512
 C = 4  # small window: the plain versions stay quick
 
 
-def _g2(p):
-    return (p.x.a, p.x.b, p.y.a, p.y.b)
-
-
-def _port_srs(ref):
-    limbs = np.frombuffer(ref._raw_points, dtype=np.uint64).reshape(-1, 8)
-    return convert.srs_from_arrays(limbs, _g2(ref.g2), _g2(ref.beta_g2),
-                                   [_g2(p) for p in ref.g2_powers])
-
-
 @pytest.fixture(scope="module")
 def setup():
     ref = RefSRS.setup(N - 1)
-    srs = _port_srs(ref)
+    srs = port_srs(ref)
     dev = srs.device_bases("cpu", gate.forced("device"), c=C)
     return ref, srs.prepared_bases(), dev
 
@@ -187,13 +180,7 @@ def bench_small():
     toks = rng.integers(0, 32, size=8).astype(np.int32)
     ref_pp = RefPP.preprocess(model)
     ref_proof, _ = RefProver(ref_pp).prove([toks])
-    srs = ref_pp.srs
-    limbs = np.frombuffer(srs._raw_points, dtype=np.uint64).reshape(-1, 8)
-    port_srs = convert.srs_from_arrays(limbs, _g2(srs.g2), _g2(srs.beta_g2),
-                                       [_g2(p) for p in srs.g2_powers])
-    pp = AtlasPreprocessing(
-        convert.model_from_reference(convert.describe_model(model)),
-        port_srs)
+    pp = port_pp(model, ref_pp)
     return ref_pp, ref_serde.serialize_proof(ref_proof), pp, toks
 
 

@@ -24,25 +24,28 @@ from jolt_atlas_tpu.frontend.quantize import quantize_tensor
 from jolt_atlas_tpu.preprocessing import AtlasPreprocessing as RefPP
 from jolt_atlas_tpu.prover import AtlasProver as RefProver
 from jolt_atlas_tpu.verifier import AtlasVerifier as RefVerifier
-from jolt_atlas_tpu_torch import convert, serde
+from jolt_atlas_tpu_torch import serde
 from jolt_atlas_tpu_torch.curve.points import g1_generator
 from jolt_atlas_tpu_torch.device import gate, split, telemetry
 from jolt_atlas_tpu_torch.examples.nanogpt_style import seeded_blinding
 from jolt_atlas_tpu_torch.field.scalar import Fr
-from jolt_atlas_tpu_torch.preprocessing import AtlasPreprocessing
 from jolt_atlas_tpu_torch.prover import AtlasProver
 from jolt_atlas_tpu_torch.subprotocols.zk_opening import ZkJointOpeningProof
 from jolt_atlas_tpu_torch.subprotocols.zk_sumcheck import ZkSumcheckProof
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
+from test_torch_srs import port_pp, reference_native
 
 # the suite runs in several worker processes at once: a small intra-op
 # pool keeps this file from starving its neighbours' timed tests
 torch.set_num_threads(2)
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_host_threads():
-    """The csrc host engines' OpenMP threads capped likewise while this
-    file runs (the reference's wall-clock tests share the machine)."""
+def _host_engines():
+    """The reference's csrc engine loaded in this worker before a fixture
+    here builds a reference SRS (test_torch_srs.reference_native), and the
+    csrc host engines' OpenMP threads capped at 2 while this file runs
+    (the reference's wall-clock tests share the machine)."""
+    reference_native()
     split.set_host_threads(2)
     yield
     split.set_host_threads(None)
@@ -75,19 +78,6 @@ def _softmax():
 MODELS = {"relu_mlp": _relu_mlp, "softmax": _softmax}
 
 
-def _g2(p):
-    return (p.x.a, p.x.b, p.y.a, p.y.b)
-
-
-def _port_pp(ref_model, ref_pp):
-    srs = ref_pp.srs
-    limbs = np.frombuffer(srs._raw_points, dtype=np.uint64).reshape(-1, 8)
-    port_srs = convert.srs_from_arrays(limbs, _g2(srs.g2), _g2(srs.beta_g2),
-                                       [_g2(p) for p in srs.g2_powers])
-    model = convert.model_from_reference(convert.describe_model(ref_model))
-    return AtlasPreprocessing(model, port_srs)
-
-
 @pytest.fixture(scope="module")
 def zk_cases():
     """Per model: the reference's and the port's (host path) zk proofs
@@ -98,7 +88,7 @@ def zk_cases():
         ref_pp = RefPP.preprocess(ref_model)
         with seeded_blinding():
             ref_proof, _ = RefProver(ref_pp).prove_zk(inputs)
-        pp = _port_pp(ref_model, ref_pp)
+        pp = port_pp(ref_model, ref_pp)
         with seeded_blinding():
             proof, io = AtlasProver(pp, device="cpu").prove_zk(inputs)
         out[name] = {"ref_pp": ref_pp, "ref_bytes":
