@@ -19,22 +19,28 @@ script exits non-zero when any phase fails:
               random pairs plus doubling, P + (-P), the identity on either
               side and coordinates near p; bit-equal, timed at the gate's
               2^17 lanes
-  4. bucket   kernel 2 (its runs, then its levels of joins) against its
-              plain version on the digit lanes of
-              4096 scalars at c = 6 (runs of 1, 5, 16 and 64 entries) and
-              of a 2^16-point (c = 12), a 2^17-point and a 2^18 - 3 point
-              (c = 14) MSM; bit-equal, each of the latter timed (2^17
-              also at runs of 8 and 32 entries)
-  5. combine  kernel 3 against its plain version on the real bucket sums
-              of phase 4 (k = 1 at c = 12 and 14), at the fold batch's two
+  4. bucket   kernel 2 (its runs of mixed adds on affine bases, then its
+              levels of joins) against its plain version on the signed
+              digit lanes of 4096 scalars at c = 6 (runs of 1, 5, 16 and
+              64 entries), on a lane of the mixed add's edge cases (A, -A,
+              B, B, -B, A, A), and on those of a 2^16-point (c = 12), a
+              2^17-point and a 2^18 - 3 point (c = 14) MSM; bit-equal,
+              each of the latter timed beside the old design's bound and
+              its own (2^17 also at runs of 8 and 32 entries)
+  5. combine  kernel 3 (the walk, the blocks' combine, the window fold)
+              against its plain version on the real bucket sums of phase
+              4 (k = 1 at c = 12 and 14), at the fold batch's two
               launches (1 MSM at c = 14, 16 at c = 12) and at 17 MSMs at
               c = 14, with identity buckets and the add's edge cases;
-              bit-equal, each timed
+              bit-equal, each timed beside both bounds, its device ms
+              split by its kernels
   6. msm      the device MSM against the host csrc MSM at n = 2^17: random
               254-bit scalars (adaptive window) and 16-bit scalars (at c =
               8, and at the adaptive window, where the reference's grid
               refuses them as skewed: their deepest lane printed); affine
-              points equal; the stage breakdown of one MSM
+              points equal; the stage breakdown of one MSM at 2^17 and at
+              2^18 - 3 (upload, digit lanes, kernel 2, kernel 3 with the
+              fold, the affine conversion)
   7. gate     the MSM gate measures this card and host (the calibration
               path: pp_add chain, host MSM, device MSM at 2^16 and 2^18)
               and persists it; its plan for every MSM size of the bench
@@ -150,9 +156,11 @@ script exits non-zero when any phase fails:
               card equal to the host engine's; kernel 2 held at the class
               of its flagship launches (c = 16, level 1 a thread a chunk,
               a lane over 32 x the mean) on 2^20 of the largest fold's
-              scalars; kernels 2 and 3 timed at their largest launches
-              (kernel 2's runs and join also launched apart, kernels 2 + 3
-              on the witness at c = 16 and 18 in turns); set-up (the
+              scalars; kernels 2 and 3 timed on the witness's and the
+              largest fold's scalars and at the largest combine (CUDA
+              events; kernel 2's runs and join also launched apart,
+              kernels 2 + 3 on the witness at c = 16 and 18 in turns);
+              set-up (the
               SRS, the bases' upload), prove, phases, verify, proof bytes,
               peak memory, the gate's routes and every MSM's deepest lane
               printed.
@@ -164,8 +172,11 @@ script exits non-zero when any phase fails:
 
 Each timed kernel shape is printed beside its bound: the larger of the
 bytes it must move over the HBM rate and its 32-bit multiplies over the
-card's IMAD peak (``bound``); kernel 9's, its int8 limb products over the
-tensor cores' int8 rate (``exact_bounds``). Kernel times are the profiler's device
+card's IMAD peak (``bound``); kernels 2 and 3 count the work of their
+own design (``bound_ms``) and, beside it, the work the design before their
+redesign needed for the same MSMs (``bound_prev_design_ms``, as the
+earlier rows counted); kernel 9's, its int8 limb products
+over the tensor cores' int8 rate (``exact_bounds``). Kernel times are the profiler's device
 durations (``device_ms``); the wrapper's call time, host work included,
 is printed beside them.
 
@@ -341,11 +352,17 @@ def checked(results, kernel: str, lanes) -> None:
 # The least time the card could take (bound_ms): the larger of the bytes the
 # function must move (each input read once, each output written once) over
 # the HBM rate and its 32-bit integer multiplies over the IMAD peak. Kernels
-# 1-3 are complete projective adds: six Montgomery products of 264 32-bit
-# multiplies and three sums of two products reduced once (8 steps of two
-# product rows, m and a reduction row: 392), as csrc/fq.cuh pp_add_dev
-# forms them; 12 Montgomery products an add stand beside it
-# (bound_montgomery_ms).
+# 1-3 are counted in complete projective adds: six Montgomery products of
+# 264 32-bit multiplies and three sums of two products reduced once (8
+# steps of two product rows, m and a reduction row: 392), as csrc/fq.cuh
+# pp_add_dev forms them; 12 Montgomery products an add stand beside it
+# (bound_montgomery_ms). Kernels 2 and 3 count what their design does as
+# bound_ms: mixed adds (five products and three sums, pm_add_dev) on
+# 64-byte bases, 2^(c-1) lanes a window, the blocks' offsets and the
+# fold's doublings (six products and a sum, pp_double_dev); beside it
+# bound_prev_design_ms keeps the complete adds of the design before their
+# redesign (unsigned digits, 2^c lanes a window, 96-byte bases, the window
+# fold on the host), so that shares compare with the earlier rows.
 # Kernels 4-6 count Fr Montgomery products,
 # 264 multiplies each; the BLAKE2b step counts its 32-bit integer
 # operations (3-input adds, xors, funnel shifts) at the same rate. Hopper issues 64
@@ -357,11 +374,14 @@ IMADS_PER_MUL = 264
 IMADS_PER_SUM2 = 8 * (16 + 16 + 1 + 16)
 IMADS_PER_ADD = 6 * IMADS_PER_MUL + 3 * IMADS_PER_SUM2
 IMADS_PER_ADD_MONTGOMERY = 12 * IMADS_PER_MUL
+IMADS_PER_MIXED = 5 * IMADS_PER_MUL + 3 * IMADS_PER_SUM2
+IMADS_PER_DOUBLE = 6 * IMADS_PER_MUL + IMADS_PER_SUM2
 # kernel 8's two CIOS steps over |v|'s 32-bit words (csrc/rows.cu
 # fr_from_u64): a row of |v|_i C (16 IMAD), m = t0 N0 (1) and a row of m r
 # (16) each
 IMADS_PER_I64 = 2 * (16 + 1 + 16)
 POINT_BYTES = 3 * 32
+AFFINE_BYTES = 2 * 32  # kernel 2's bases since its redesign
 FR_BYTES = 32
 # one BLAKE2b compression: 12 rounds x 8 mixes x (4 u64 adds, two of them
 # 3-input, + 4 xors + 3 rotates; the rotate by 32 swaps halves), each two
@@ -388,18 +408,41 @@ def bound(adds: int, nbytes: int, peak: float,
                                                                "bytes")
 
 
+def msm_bound(results, design: tuple, prev: tuple, ms: float) -> tuple:
+    """(record, line) of kernels 2 and 3's bounds: ``design`` the (32-bit
+    multiplies, bytes) of their own design (bound_ms), ``prev`` the
+    (complete adds, bytes) of the design before their redesign on the
+    same MSMs (bound_prev_design_ms)."""
+    b, by = bound(design[0], design[1], results["imad_peak"], 1)
+    pb, pby = bound(prev[0], prev[1], results["imad_peak"])
+    return ({"bound_ms": b, "bound_by": by, "share": b / ms,
+             "bound_prev_design_ms": pb, "bound_prev_design_by": pby,
+             "share_prev_design": pb / ms},
+            f"bound {b:.4f} ms ({by}), share {b / ms:.3f}; the previous "
+            f"design's bound {pb:.4f} ms ({pby}), share {pb / ms:.3f}")
+
+
 def timed(results, kernel: str, shape: str, ms: float, adds: int,
           nbytes: int, imads_per: int = IMADS_PER_ADD,
-          call_ms: float | None = None) -> str:
+          call_ms: float | None = None, design: tuple | None = None) -> str:
     """Record one timed shape of a kernel (device ms, and the wrapper's
-    call ms: device_ms) beside its bound; its line."""
-    b, by = bound(adds, nbytes, results["imad_peak"], imads_per)
-    rec = {"shape": shape, "ms": ms, "call_ms": call_ms, "bound_ms": b,
-           "bound_by": by, "share": b / ms, "adds": adds}
+    call ms: device_ms) beside its bound; its line. Kernels 2 and 3 give
+    their design's (32-bit multiplies, bytes) as ``design`` and the
+    previous design's complete adds and bytes as ``adds``, ``nbytes``
+    (``msm_bound``)."""
+    rec = {"shape": shape, "ms": ms, "call_ms": call_ms, "adds": adds}
     line = (f"{shape}: kernel {ms:.4f} ms on the device (a call "
-            f"{call_ms:.4f} ms), bound {b:.4f} ms ({by}), share "
-            f"{b / ms:.3f}")
-    if imads_per == IMADS_PER_ADD:  # complete adds: 12 products beside it
+            f"{call_ms:.4f} ms), ")
+    if design is not None:
+        more, text = msm_bound(results, design, (adds, nbytes), ms)
+        rec.update(more)
+        line += text
+    else:
+        b, by = bound(adds, nbytes, results["imad_peak"], imads_per)
+        rec.update(bound_ms=b, bound_by=by, share=b / ms)
+        line += f"bound {b:.4f} ms ({by}), share {b / ms:.3f}"
+    if imads_per == IMADS_PER_ADD and design is None:
+        # complete adds: 12 products an add beside it
         mb = bound(adds, nbytes, results["imad_peak"],
                    IMADS_PER_ADD_MONTGOMERY)[0]
         rec.update(bound_montgomery_ms=mb, share_montgomery=mb / ms)
@@ -409,15 +452,18 @@ def timed(results, kernel: str, shape: str, ms: float, adds: int,
 
 
 # The SASS digests (kernel_report.sass) of kernels 1-8 and the BLAKE2b test
-# kernel, which the redesign of kernel 9 left as they were: equal for the
-# parent's sources and this tree's, built with this nvcc (the chip
-# machine's CUDA 12.9); kernels 4-7 and the test kernel recorded before
-# the redesign of kernels 8 and 1, kernels 1-3 and 8 after it
+# kernel, built with this nvcc (the chip machine's CUDA 12.9): kernels 1
+# and 4-8 and the test kernel as the redesigns of kernels 9, 2 and 3 left
+# them (kernels 4-7 and the test kernel recorded before the redesign of
+# kernels 8 and 1, kernels 1 and 8 after it); kernels 2 and 3 as their
+# redesign made them
 KEPT_SASS = ("cuda_12.9.r12.9/compiler.36037853_0", {
     "pp_add_kernel": "6a280bd3dc5ad72a",
-    "bucket_accumulate_runs": "2709131d31bdd729",
-    "bucket_combine_kernel": "e0dbf2927a6f71fa",
-    "bucket_combine_groups": "4bea8a975503be53",
+    "bucket_accumulate_runs": "c067fba3b45482e7",
+    "bucket_accumulate_level": "43c21499459cd102",
+    "bucket_combine_kernel": "f72cd1aa5ef2ef78",
+    "bucket_combine_groups": "f1ff5eb3b537b76b",
+    "bucket_combine_fold": "19bede60e811e872",
     "reduction_bind_kernel": "be07dc0fe3190249",
     "reduction_q0_kernel": "59f78d9c794c347c",
     "reduction_tail_kernel": "97fffe30758e5bfa",
@@ -432,7 +478,8 @@ EXACT_KERNELS = ("exact_matmul_wide", "exact_matmul_narrow",
 # kernels 1-3 (the complete add and its users), 8 and 9: no spill
 NO_SPILL = ("pp_add_kernel", "bucket_accumulate_runs",
             "bucket_accumulate_level", "bucket_combine_kernel",
-            "bucket_combine_groups", "rows_from_i64_kernel") + EXACT_KERNELS
+            "bucket_combine_groups", "bucket_combine_fold",
+            "rows_from_i64_kernel") + EXACT_KERNELS
 
 
 # ---------------------------------------------------------------------------
@@ -540,25 +587,70 @@ def phase_pp_add(dev, bases, results) -> None:
         f"cases and the {m} timed lanes; {line}; plain {plain_ms:.3f} ms")
 
 
-def accumulate_work(lanes, n: int) -> tuple:
-    """(complete adds, bytes) kernel 2 needs for these digit lanes of an
-    n-point MSM: a lane of d entries takes d - 1 adds; the entries and lane
-    starts are read once, each base once, each bucket written once."""
+def old_shape(c: int) -> tuple:
+    """(W, 2^c lanes a window, top sub-lanes) of the unsigned digits of
+    kernels 2 and 3 before their redesign."""
+    W = (254 + c - 1) // c
+    return W, 1 << c, (1 << c) >> (254 - (W - 1) * c)
+
+
+def old_lane_work(lanes, c: int) -> tuple:
+    """(entries, nonempty lanes) of the unsigned digits that the design
+    before the redesign gave the same scalars: the signed digits read back
+    from the lanes (point i = id - the least id), recomposed into unsigned
+    c-bit windows."""
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    lane, pts, starts = (t.long() for t in lanes)
+    E = int(starts[-1])
+    W, B, S = dmsm.window_shape(c)
+    lane, pts = lane[:E], pts[:E]
+    pid = pts & (dmsm.SIGN_BIT - 1)
+    i = pid - pid.min()
+    n = int(i.max()) + 1
+    w, j = lane // B, lane % B
+    mag = torch.where(w == W - 1, j // S + 1, j + 1)
+    d = torch.zeros((W, n), dtype=torch.int64, device=lane.device)
+    d[w, i] = torch.where(pts < 0, -mag, mag)
+    _, Bo, So = old_shape(c)
+    idx = torch.arange(n, dtype=torch.int64, device=lane.device)
+    carry, found = 0, []
+    for ww in range(W):
+        v = d[ww] + carry
+        u = torch.remainder(v, Bo)
+        carry = (v - u) >> c
+        ln = ww * Bo + (u * So + idx % So if ww == W - 1 and So > 1 else u)
+        found.append(ln[u != 0])
+    found = torch.cat(found)
+    return found.numel(), int(torch.unique(found).numel())
+
+
+def accumulate_work(lanes, n: int, c: int) -> tuple:
+    """((complete adds, bytes) of the design before the redesign on these
+    scalars: a lane of d entries takes d - 1 adds, 96-byte bases; (32-bit
+    multiplies, bytes) kernel 2 needs now: a mixed add an entry after the
+    first of its lane, 64-byte bases). The entries and lane starts are
+    read once, each base once, each bucket written once."""
     lane, _, starts = lanes
     L = starts.shape[0] - 1
     E = int(starts[L])
     nonempty = int((starts[1:] > starts[:-1]).sum())
-    nbytes = 8 * lane.shape[0] + 4 * (L + 1) + (n + L) * POINT_BYTES
-    return E - nonempty, nbytes
+    E_old, nonempty_old = old_lane_work(lanes, c)
+    W, Bo, _ = old_shape(c)
+    old = (E_old - nonempty_old, 8 * W * n + 4 * (W * Bo + 1)
+           + n * POINT_BYTES + W * Bo * POINT_BYTES)
+    design = ((E - nonempty) * IMADS_PER_MIXED, 8 * lane.shape[0]
+              + 4 * (L + 1) + n * AFFINE_BYTES + L * POINT_BYTES)
+    return old, design
 
 
 def phase_bucket(dev, bases, results,
                  sizes=(1 << 16, 1 << 17, (1 << 18) - 3)) -> dict:
-    """Kernel 2 against its plain version on the digit lanes of 4096
-    scalars at c = 6 with several run lengths, then on those of one MSM of
-    each size in ``sizes`` at the window the device MSM picks for it (c =
-    12 and 14: every window the driven paths use), each timed beside its
-    bound, and at 2^17 points also timed at runs of 8 and 32. Returns
+    """Kernel 2 (affine bases) against its plain version on the signed
+    digit lanes of 4096 scalars at c = 6 with several run lengths, on a
+    lane of the mixed add's edge cases, then on those of one MSM of each
+    size in ``sizes`` at the window the device MSM picks for it (c = 12
+    and 14: every window the driven paths use), each timed beside both
+    bounds, and at 2^17 points also timed at runs of 8 and 32. Returns
     {c: the kernel's bucket sums} of the first MSM at each window."""
     from jolt_atlas_tpu_torch.device import msm as dmsm
     from jolt_atlas_tpu_torch.device.gate import random_scalars
@@ -574,6 +666,19 @@ def phase_bucket(dev, bases, results,
             dmsm.bucket_accumulate_plain(bases, lanes, run)))
         checked(results, "bucket_accumulate",
                 dmsm.accumulate_class(lanes, run))
+    # one lane A, -A (the identity), B, B (a doubling), -B, A, A
+    sign = dmsm.SIGN_BIT
+    edge = (torch.zeros(7, dtype=torch.int32, device=dev),
+            torch.tensor([5, 5 - sign, 7, 7, 7 - sign, 5, 5],
+                         dtype=torch.int32, device=dev),
+            torch.tensor([0, 7], dtype=torch.int32, device=dev))
+    for run in (1, 2, 3, 7):
+        err = max(err, require_equal(
+            f"bucket_accumulate (the mixed add's edges, run={run})",
+            dmsm.bucket_accumulate(bases, edge, run=run),
+            dmsm.bucket_accumulate_plain(bases, edge, run)))
+        checked(results, "bucket_accumulate",
+                dmsm.accumulate_class(edge, run))
     sums, shapes = {}, []
     for i, n in enumerate(sizes):
         c = dmsm._pick_c(n)
@@ -590,10 +695,10 @@ def phase_bucket(dev, bases, results,
             f"bucket_accumulate (n={n}, c={c}, {L} lanes)", got, want))
         checked(results, "bucket_accumulate", dmsm.accumulate_class(lanes))
         sums.setdefault(c, got)
-        adds, nbytes = accumulate_work(lanes, n)
+        (adds, nbytes), design = accumulate_work(lanes, n, c)
         shapes.append(timed(results, "bucket_accumulate",
                             f"n={n} c={c}", ms, adds, nbytes,
-                            call_ms=call_ms)
+                            call_ms=call_ms, design=design)
                       + f", plain {plain_ms:.1f} ms")
         if n == main:
             results["bucket_accumulate"] = {
@@ -608,24 +713,64 @@ def phase_bucket(dev, bases, results,
                 shapes.append(f"run {run}: kernel {rms:.4f} ms")
     results["bucket_accumulate"]["max_abs_err"] = err
     say("bucket", f"bit-equal to the plain version on 4096 scalars at c=6 "
-        f"(runs of 1, 5, {dmsm.ACCUM_RUN} and 64 entries) and at every "
-        f"timed shape, runs of {dmsm.ACCUM_RUN}; " + "; ".join(shapes))
+        f"(runs of 1, 5, {dmsm.ACCUM_RUN} and 64 entries), on the mixed "
+        f"add's edges and at every timed shape, runs of {dmsm.ACCUM_RUN}; "
+        + "; ".join(shapes))
     return sums
 
 
 def combine_work(k: int, c: int) -> tuple:
-    """(complete adds, bytes) kernel 3 needs for k MSMs at window c: a
-    running add per lane of weight >= 1 and a weighted add per weight; the
-    bucket sums read once, the window sums written once."""
-    from jolt_atlas_tpu_torch.device import msm as dmsm
-    W, B, S = dmsm.window_shape(c)
+    """(complete adds, bytes) the design before the redesign needed for k
+    MSMs at window c: 2^c lanes a window, a running add per lane of
+    weight >= 1 and a weighted add per weight; the bucket sums read once,
+    the window sums written once."""
+    W, B, S = old_shape(c)
     adds = k * (2 * (W - 1) * (B - 1) + (B - S) + (B // S - 1))
     return adds, k * W * (B + 1) * POINT_BYTES
 
 
+def _tail_ops(n: int, q: int, S: int) -> tuple:
+    """(adds, doublings) of csrc/combine.cu combine_tail over n threads:
+    the suffix sums, two halving trees, thread 0's doublings and add."""
+    scan = sum(n - d for d in (1 << i for i in range(n.bit_length() - 1)))
+    return scan + 2 * (n - 1) + 1, max(q // S, 1).bit_length() - 1
+
+
+def combine_design(k: int, c: int, G: int) -> tuple:
+    """(32-bit multiplies, bytes) kernel 3 needs now for k MSMs at window
+    c and G blocks a window: 2^(c-1) lanes a window, each thread's walk
+    (a running add a lane and a weighted add a bucket start above its
+    first, the first of each a copy), the blocks' and the groups' tails
+    and the fold's doublings and adds; the bucket sums read once, one
+    point an MSM written."""
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    W, B, s_top = dmsm.window_shape(c)
+    T = dmsm.combine_threads(c)
+    q = dmsm.combine_chunk(c, G)
+    adds = dbls = 0
+    for w in range(W):
+        S = s_top if w == W - 1 else 1
+        for u in range(G * T):
+            lo, hi = min(u * q, B), min(u * q + q, B)
+            if hi > lo:
+                hits = len([j for j in range(lo, hi)
+                            if j % S == 0 and j // S > lo // S])
+                adds += hi - lo - 1 + max(hits - 1, 0)
+        a, d = _tail_ops(T, q, S)
+        adds, dbls = adds + G * a, dbls + G * d
+        if G > 1:
+            a, d = _tail_ops(G, T * q, S)
+            adds, dbls = adds + a + 1, dbls + d
+        else:
+            adds += 1  # P + Z, in the fold
+    adds, dbls = k * (adds + W - 1), k * (dbls + (W - 1) * c)
+    return (adds * IMADS_PER_ADD + dbls * IMADS_PER_DOUBLE,
+            k * W * B * POINT_BYTES + k * POINT_BYTES)
+
+
 def random_bucket_sums(dev, bases, k: int, c: int, seed: int):
-    """(k, W * 2^c, 4) x 3 projective bucket sums: sums of two random bases,
-    a fifth of them the identity (as digit 0 and the top window's spare
+    """(k, W * 2^(c-1), 4) x 3 projective bucket sums: sums of two random
+    bases (``bases`` projective), a fifth of them the identity (as empty
     lanes leave them), and the add's edge cases in windows 0 and 1."""
     from jolt_atlas_tpu_torch.device import curve, msm as dmsm
     W, B, _ = dmsm.window_shape(c)
@@ -647,18 +792,53 @@ def random_bucket_sums(dev, bases, k: int, c: int, seed: int):
     return acc
 
 
+COMBINE_KERNELS = ("bucket_combine_kernel", "bucket_combine_groups",
+                   "bucket_combine_fold")
+
+
+def combine_split_ms(acc, c: int, G: int, reps: int = 3) -> dict:
+    """Device ms of one kernel 3 call by its kernels (the walk, the
+    blocks' combine, the fold), torch.profiler's durations: each kernel's
+    mean over the launches the trace holds (once a call; a trace that
+    missed some is taken again, twice at most)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jolt_atlas_tpu_torch.device import msm as dmsm
+    names = [k for k in COMBINE_KERNELS if G > 1 or "groups" not in k]
+    dmsm.bucket_combine(acc, c, G)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _profiler_pad()
+            for _ in range(reps):
+                dmsm.bucket_combine(acc, c, G)
+            _profiler_pad()
+        hits = {k: [e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and k in e.name]
+                for k in names}
+        if all(len(v) == reps for v in hits.values()):
+            break
+    if not all(hits.values()):
+        raise AssertionError(f"the profiler saw no launch of a kernel of "
+                             f"kernel 3: {hits}")
+    return {k: sum(v) / len(v) / 1e3 for k, v in hits.items()}
+
+
 def phase_combine(dev, bases, results, sums: dict,
                   shapes=((1, 14), (16, 12), (17, 14))) -> None:
-    """Kernel 3 against its plain version, each timed beside its bound, at
-    the blocks per window the card's rule gives: one MSM's real bucket sums
-    at each window of ``sums`` (phase_bucket's: k = 1 at c = 12 and 14),
-    and random sums with identity buckets and the add's edge cases at each
-    (k, c) of ``shapes``: the fold batch's two launches (one MSM at c = 14,
-    16 at c = 12) and 17 MSMs at c = 14, the fold batch at one window."""
+    """Kernel 3 and its fold against its plain version, each timed beside
+    both bounds and split by its kernels, at the blocks per window the
+    card's rule gives: one MSM's real bucket sums at each window of
+    ``sums`` (phase_bucket's: k = 1 at c = 12 and 14), and random sums
+    with identity buckets and the add's edge cases at each (k, c) of
+    ``shapes``: the fold batch's two launches (one MSM at c = 14, 16 at
+    c = 12) and 17 MSMs at c = 14, the fold batch at one window.
+    ``bases`` projective."""
     from jolt_atlas_tpu_torch.device import msm as dmsm
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    err, lines, fold_ms, fold_call, fold_plain, fold_adds, fold_bytes = (
-        0.0, [], 0.0, 0.0, 0.0, 0, 0)
+    err, lines = 0.0, []
+    fold = {"ms": 0.0, "call": 0.0, "plain": 0.0, "adds": 0, "bytes": 0,
+            "imads": 0, "dbytes": 0}
     cases = [(f"k=1 c={cc} real sums", tuple(a.unsqueeze(0) for a in acc),
               cc) for cc, acc in sorted(sums.items())]
     cases += [(f"k={k} c={c}", random_bucket_sums(dev, bases, k, c, 2025 + k),
@@ -674,36 +854,38 @@ def phase_combine(dev, bases, results, sums: dict,
                                      want))
         checked(results, "bucket_combine", (acc[0].shape[1], G))
         adds, nbytes = combine_work(k, c)
+        design = combine_design(k, c, G)
+        split = combine_split_ms(acc, c, G)
         lines.append(timed(results, "bucket_combine", f"{name} G={G}", ms,
-                           adds, nbytes, call_ms=call_ms)
-                     + f", plain {plain_ms:.1f} ms")
+                           adds, nbytes, call_ms=call_ms, design=design)
+                     + f", plain {plain_ms:.1f} ms; by kernel " + ", ".join(
+                         f"{n} {v:.4f}" for n, v in split.items()))
+        results["timed"]["bucket_combine"][-1]["by_kernel_ms"] = split
         if name in ("k=1 c=14", "k=16 c=12"):  # the fold batch's launches
-            fold_ms += ms
-            fold_call += call_ms
-            fold_plain += plain_ms
-            fold_adds += adds
-            fold_bytes += nbytes
+            for key, v in (("ms", ms), ("call", call_ms),
+                           ("plain", plain_ms), ("adds", adds),
+                           ("bytes", nbytes), ("imads", design[0]),
+                           ("dbytes", design[1])):
+                fold[key] += v
         del acc
-    b, by = bound(fold_adds, fold_bytes, results["imad_peak"])
-    mb = bound(fold_adds, fold_bytes, results["imad_peak"],
-               IMADS_PER_ADD_MONTGOMERY)[0]
+    more, text = msm_bound(results, (fold["imads"], fold["dbytes"]),
+                           (fold["adds"], fold["bytes"]), fold["ms"])
     results["bucket_combine"] = {
-        "max_abs_err": err, "ms": fold_ms, "call_ms": fold_call,
-        "plain_ms": fold_plain,
-        "shape": "fold batch: k=1 c=14 + k=16 c=12", "bound_ms": b,
-        "bound_by": by, "share": b / fold_ms, "bound_montgomery_ms": mb,
-        "share_montgomery": mb / fold_ms}
-    say("combine", f"bit-equal to the plain version at every shape "
-        f"({dmsm.COMBINE_MAX_THREADS} threads a block); " + "; ".join(lines)
-        + f"; fold batch in all: kernel {fold_ms:.4f} ms, bound {b:.4f} ms "
-        f"({by}), share {b / fold_ms:.3f}")
+        "max_abs_err": err, "ms": fold["ms"], "call_ms": fold["call"],
+        "plain_ms": fold["plain"],
+        "shape": "fold batch: k=1 c=14 + k=16 c=12", **more}
+    say("combine", f"bit-equal to the plain version at every shape; "
+        + "; ".join(lines) + f"; fold batch in all: kernel "
+        f"{fold['ms']:.4f} ms, " + text)
 
 
 def _msm_stages(engine, raw: bytes, n: int) -> dict:
     """Milliseconds (host clock, synchronised after each stage) of the
-    stages of one device MSM at the adaptive window, and the kernel
-    launches of its combine. The caller keeps the minimum of a few runs:
-    the host-side stages share a busy host."""
+    stages of one device MSM at the adaptive window: the scalars' upload,
+    the signed digit lanes, kernel 2, kernel 3 with its window fold, and
+    the affine conversion on the host; and the kernel launches of its
+    combine. The caller keeps the minimum of a few runs: the host-side
+    stages share a busy host."""
     from jolt_atlas_tpu_torch.device import msm as dmsm, telemetry
     c = dmsm._pick_c(n)
     out = {}
@@ -718,17 +900,17 @@ def _msm_stages(engine, raw: bytes, n: int) -> dict:
 
     sc = dmsm.scalars_tensor(raw, n, engine.device)
     lap("upload")
-    lanes = dmsm.digit_lanes(sc, c)
+    lanes = dmsm.digit_lanes(sc, c, 0, engine.inf)
     lap("digit_lanes")
     acc = dmsm.bucket_accumulate(engine.bases, lanes)
     lap("bucket_accumulate")
     before = telemetry.launches()
     R = dmsm.bucket_combine(tuple(a.unsqueeze(0) for a in acc), c)
-    lap("bucket_combine")
+    lap("bucket_combine_and_fold")
     after = telemetry.launches()
     out["combine_launches"] = sum(after.values()) - sum(before.values())
-    dmsm.window_points(R, c)
-    lap("host_horner")
+    dmsm.affine_points(R)
+    lap("affine")
     return out
 
 
@@ -764,12 +946,16 @@ def phase_msm(dev, srs, n: int = 1 << 17) -> None:
         out.append(f"{name} (c={c or dmsm._pick_c(n)}), median of 3: device "
                    f"{np.median(dev_ms):.3f} ms, host "
                    f"{np.median(host_ms):.3f} ms")
-    runs = [_msm_stages(srs.device_bases(dev, gate.forced("device")), full,
-                        n) for _ in range(3)]
-    stages = {k: min(r[k] for r in runs) for k in runs[0]}
-    out.append("stages (min of 3, ms) " + ", ".join(
-        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
-        for k, v in stages.items()))
+    engine = srs.device_bases(dev, gate.forced("device"))
+    for m in (n, (1 << 18) - 3):
+        raw = full if m == n else pack_scalars(
+            [int.from_bytes(rng.bytes(32), "little") % FR_MODULUS
+             for _ in range(m)])
+        runs = [_msm_stages(engine, raw, m) for _ in range(3)]
+        stages = {k: min(r[k] for r in runs) for k in runs[0]}
+        out.append(f"stages at n={m} (min of 3, ms) " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in stages.items()))
     telemetry.reset()
     srs.device_bases(dev, gate.forced("device")).msm_packed(small, n,
                                                            site="16-bit")
@@ -2843,12 +3029,13 @@ def time_largest(results, largest: dict) -> dict:
         if kernel == "bucket_accumulate":
             bases, lanes = a
             L, E = lanes[2].shape[0] - 1, lanes[0].shape[0]
-            c = next(c for c in range(1, 24)
-                     if dmsm.window_shape(c)[0] << c == L)
+            c = next(c for c in range(3, 24)
+                     if dmsm.window_shape(c)[0] * dmsm.window_shape(c)[1]
+                     == L)
             n = E // dmsm.window_shape(c)[0]
             call = lambda: dmsm.bucket_accumulate(bases, lanes)
             plain = lambda: dmsm.bucket_accumulate_plain(bases, lanes)
-            (adds, nbytes), imads = accumulate_work(lanes, n), IMADS_PER_ADD
+            (adds, nbytes), design = accumulate_work(lanes, n, c)
             shape = f"n={n} c={c}"
         elif kernel == "bucket_combine":
             acc, c = a
@@ -2857,7 +3044,8 @@ def time_largest(results, largest: dict) -> dict:
                 acc[0].device).multi_processor_count)
             call = lambda: dmsm.bucket_combine(acc, c)
             plain = lambda: dmsm.bucket_combine_plain(acc, c, G)
-            (adds, nbytes), imads = combine_work(k, c), IMADS_PER_ADD
+            adds, nbytes = combine_work(k, c)
+            design = combine_design(k, c, G)
             shape = f"k={k} c={c} G={G}"
         elif kernel == "reduction_q0":
             _, tab, lanep, lanes, lg = a
@@ -2888,10 +3076,14 @@ def time_largest(results, largest: dict) -> dict:
         plain_ms, want = cuda_ms(plain, 1, warmup=False)
         pair = (got, want) if isinstance(got, tuple) else ([got], [want])
         require_equal(f"{kernel} ({shape}, timed)", *pair)
-        b, by = bound(adds, nbytes, results["imad_peak"], imads)
         out[kernel] = {"shape": shape, "ms": ms, "call_ms": call_ms,
-                       "bound_ms": b, "bound_by": by, "share": b / ms,
                        "plain_ms": plain_ms}
+        if kernel in MSM:  # kernels 2 and 3: both designs' bounds
+            out[kernel].update(msm_bound(results, design, (adds, nbytes),
+                                         ms)[0])
+        else:
+            b, by = bound(adds, nbytes, results["imad_peak"], imads)
+            out[kernel].update(bound_ms=b, bound_by=by, share=b / ms)
     return out
 
 
@@ -3119,7 +3311,8 @@ FLAGSHIP_VARS = 24
 # kernel 2 is held at the flagship's class (c = 16, level 1 a thread a
 # chunk, a lane far over 32 x the mean) on the 2^20 scalars of the largest
 # fold that hold most of its deepest lane, at runs of 4 (16 windows x 2^20
-# entries: 4 runs a lane), where its plain version takes seconds; kernels
+# entries over 2^19 lanes: 8 runs a lane), where its plain version takes
+# seconds; kernels
 # 3-7 on every class the prove launches
 FLAGSHIP_HOLD_N = 1 << 20
 FLAGSHIP_HOLD_RUN = 4
@@ -3183,14 +3376,16 @@ def lane_depth(lanes) -> dict:
 def time_flagship_msm(dev, results, engine, scal: dict, largest: dict,
                       err: dict, windows=(16, 18)) -> dict:
     """Kernels 2 and 3 at the flagship's largest launches beside their
-    bounds: kernel 2 on the witness's and the largest fold's digit lanes
-    (also its runs and its levels, the join, launched apart), kernel 3 at
-    the largest combine the prove launched; kernels 2 + 3 on the witness
-    at c = 16 and c = 18 (``windows``) in turns; kernel 2 held against its
-    plain version at the class of these launches (FLAGSHIP_HOLD_N). These
-    launches take milliseconds on data of gigabytes (no L2 flush needed);
-    their device time is taken by CUDA events (``cuda_ms``, mean of 3
-    after a warm-up)."""
+    bounds (the design before the redesign's and their own): kernels 2
+    and 3 on the witness's and the largest fold's digit lanes (kernel 2's
+    runs and its levels, the join, also launched apart; kernel 3 on that
+    one MSM's buckets), kernel 3 at the largest combine the prove
+    launched; kernels 2 + 3 on the witness at c = 16 and c = 18
+    (``windows``) in turns; kernel 2 held against its plain version at
+    the class of these launches (FLAGSHIP_HOLD_N). These launches take
+    milliseconds on data of gigabytes (no L2 flush needed); their device
+    time is taken by CUDA events (``cuda_ms``, mean of 3 after a
+    warm-up)."""
     from jolt_atlas_tpu_torch.device import msm as dmsm
     bases = engine.bases
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3198,17 +3393,25 @@ def time_flagship_msm(dev, results, engine, scal: dict, largest: dict,
     for site in ("witness", "fold"):
         raw, n = scal[site]
         c = dmsm._pick_c(n)
-        lanes = dmsm.digit_lanes(dmsm.scalars_tensor(raw, n, dev), c)
+        lanes = dmsm.digit_lanes(dmsm.scalars_tensor(raw, n, dev), c, 0,
+                                 engine.inf)
         ms, want = cuda_ms(lambda: dmsm.bucket_accumulate(bases, lanes), 3)
         runs_ms, join_ms = accumulate_stages_ms(bases, lanes, want)
-        adds, nbytes = accumulate_work(lanes, n)
-        b, by = bound(adds, nbytes, results["imad_peak"])
+        prev, design = accumulate_work(lanes, n, c)
         out[f"bucket_accumulate {site}"] = {
-            "shape": f"n={n} c={c}", "ms": ms, "bound_ms": b,
-            "bound_by": by, "share": b / ms, "runs_ms": runs_ms,
+            "shape": f"n={n} c={c}", "ms": ms, "runs_ms": runs_ms,
             "join_ms": join_ms, "class": dmsm.accumulate_class(lanes),
             "levels": len(dmsm.accumulate_levels(lanes[0].shape[0])) - 1,
-            **lane_depth(lanes)}
+            **msm_bound(results, design, prev, ms)[0], **lane_depth(lanes)}
+        acc = tuple(a.unsqueeze(0) for a in want)
+        ms, _ = cuda_ms(lambda: dmsm.bucket_combine(acc, c), 3)
+        G = dmsm.combine_groups(1, c, sms)
+        out[f"bucket_combine {site}"] = {
+            "shape": f"k=1 c={c} G={G} ({dmsm.combine_threads(c)} "
+                     f"threads)", "ms": ms,
+            **msm_bound(results, combine_design(1, c, G), combine_work(1, c),
+                        ms)[0]}
+        del acc
         if site == "fold":
             # the first of the FLAGSHIP_HOLD_N points that hold the most
             # of the deepest lane's entries
@@ -3237,12 +3440,11 @@ def time_flagship_msm(dev, results, engine, scal: dict, largest: dict,
     size, (acc, c), _ = largest["bucket_combine"]
     k = acc[0].shape[0]
     ms, _ = cuda_ms(lambda: dmsm.bucket_combine(acc, c), 3)
-    adds, nbytes = combine_work(k, c)
-    b, by = bound(adds, nbytes, results["imad_peak"])
+    G = dmsm.combine_groups(k, c, sms)
     out["bucket_combine"] = {
-        "shape": f"k={k} c={c} G={dmsm.combine_groups(k, c, sms)} "
-                 f"({dmsm.combine_threads(c)} threads)",
-        "ms": ms, "bound_ms": b, "bound_by": by, "share": b / ms}
+        "shape": f"k={k} c={c} G={G} ({dmsm.combine_threads(c)} threads)",
+        "ms": ms, **msm_bound(results, combine_design(k, c, G),
+                              combine_work(k, c), ms)[0]}
     del acc
     raw, n = scal["fold"]
     m, run, c = min(n, FLAGSHIP_HOLD_N), FLAGSHIP_HOLD_RUN, dmsm._pick_c(n)
@@ -3268,12 +3470,6 @@ def time_flagship_msm(dev, results, engine, scal: dict, largest: dict,
         "levels": len(dmsm.accumulate_levels(lanes[0].shape[0], run)) - 1,
         **depth}
     return out
-
-
-def curve_points(R) -> list:
-    """Window sums (k, W, 4) x 3 on the card as affine points."""
-    from jolt_atlas_tpu_torch.device import curve
-    return curve.tensors_to_points(tuple(t.reshape(-1, 4).cpu() for t in R))
 
 
 FLAGSHIP_REQUIRED = MSM + REDUCTION
@@ -3493,10 +3689,12 @@ def run_phases() -> int:
         os.environ["JOLT_ATLAS_SRS_CACHE"], "srs_2e21.bin"))
     del flagship
     srs = cached_srs(18)  # the bench prove's SRS size
-    bases = srs.device_bases(dev, gate.forced("device")).bases
-    phase("pp_add", phase_pp_add, dev, bases, results)
-    sums = phase("bucket", phase_bucket, dev, bases, results)
-    phase("combine", phase_combine, dev, bases, results, sums)
+    engine = srs.device_bases(dev, gate.forced("device"))
+    proj = engine.projective()  # the complete add's operands
+    phase("pp_add", phase_pp_add, dev, proj, results)
+    sums = phase("bucket", phase_bucket, dev, engine.bases, results)
+    phase("combine", phase_combine, dev, proj, results, sums)
+    del proj
     del sums  # not to count toward the proves' peak device memory
     phase("msm", phase_msm, dev, srs)
     phase("gate", phase_gate, dev, results)
@@ -3532,11 +3730,15 @@ def run_phases() -> int:
             row["runs_in"] = "reduction_tail (device functions)"
         if name == "pp_add":  # no launch in a prove
             row["runs_in"] = "the MSM gate's calibration (device/gate.py)"
+        if name == "bucket_combine":  # the window fold, on the card
+            row["also_replaces"] = "jolt_atlas_tpu/tpu/msm.py:522"
         if name == "reduction_bind":  # also the rows engine's bind
             row["also_replaces"] = \
                 "jolt_atlas_tpu/parallel/shardedrows.py:130"
             row["rows_layout"] = results["rows_bind"]
         for extra in ("bound_montgomery_ms", "share_montgomery",
+                      "bound_prev_design_ms", "bound_prev_design_by",
+                      "share_prev_design",
                       "bound_latency_ms", "share_latency", "latency",
                       "ms_l2_warm"):
             if extra in r:  # kernels 1-3, 5 and 6: their second bounds

@@ -474,6 +474,63 @@ __device__ __forceinline__ Point pp_add_dev(const Point& P1,
   return r;
 }
 
+// An affine base (x, y), finite: the MSM's bases (kernel 2) are kept so,
+// 64 bytes a base
+struct Affine {
+  Fq x, y;
+};
+
+// RCB15 Algorithm 8 (a = 0, b3 = 9): the complete mixed add P1 + P2 for any
+// projective P1 (the identity and P1 = +-P2 included) and an affine, finite
+// P2. It is Algorithm 7 at Z2 = 1, so its outputs are pp_add_dev's with P2 =
+// (x2 : y2 : 1); the products by Z2 go, and Y1 Z2 + Y2 Z1 and X1 Z2 + X2 Z1
+// become one product and an add each. Five Montgomery products and the
+// three sums of pp_add_dev: 2,496 IMAD an add, not 2,760.
+__device__ __forceinline__ Point pm_add_dev(const Point& P1,
+                                            const Affine& P2) {
+  const Fq &X1 = P1.x, &Y1 = P1.y, &Z1 = P1.z;
+  const Fq &X2 = P2.x, &Y2 = P2.y;
+  Fq t0 = fq_mul(X1, X2);
+  Fq t1 = fq_mul(Y1, Y2);
+  Fq t3 = fq_mul(fq_add(X1, Y1), fq_add(X2, Y2));
+  const Fq t4 = fq_add(fq_mul(Y2, Z1), Y1);  // Y1 + Y2Z1
+  Fq Y3 = fq_add(fq_mul(X2, Z1), X1);        // X1 + X2Z1
+  t3 = fq_sub(t3, fq_add(t0, t1));           // X1Y2 + X2Y1
+  t0 = fq_add(fq_add(t0, t0), t0);           // 3 X1X2
+  const Fq b3z = fq_mul_b3(Z1);              // b3 Z1
+  const Fq Z3 = fq_add(t1, b3z);
+  t1 = fq_sub(t1, b3z);
+  Y3 = fq_mul_b3(Y3);
+  Point r;
+  r.x = mont_mul_sum2<FqField>(t3, t1, mont_neg_raw<FqField>(t4), Y3);
+  r.y = mont_mul_sum2<FqField>(Y3, t0, t1, Z3);
+  r.z = mont_mul_sum2<FqField>(Z3, t4, t0, t3);
+  return r;
+}
+
+// RCB15 Algorithm 9 (a = 0, b3 = 9): the complete doubling 2P, the identity
+// included. Six Montgomery products and one sum of two (Y3 = 8 Y^2 b3 Z^2 +
+// (Y^2 - 3 b3 Z^2)(Y^2 + b3 Z^2)): 1,976 IMAD, not an add's 2,760. Its
+// outputs differ from pp_add_dev(P, P) as projective triples, not as points.
+__device__ __forceinline__ Point pp_double_dev(const Point& P) {
+  const Fq t0 = fq_mul(P.y, P.y);
+  const Fq t1 = fq_mul(P.y, P.z);
+  const Fq zz = fq_mul(P.z, P.z);
+  const Fq xy = fq_mul(P.x, P.y);
+  const Fq t0x2 = fq_add(t0, t0);
+  const Fq t0x4 = fq_add(t0x2, t0x2);
+  const Fq y8 = fq_add(t0x4, t0x4);      // 8 Y^2
+  const Fq t2 = fq_mul_b3(zz);           // b3 Z^2
+  const Fq s = fq_add(t0, t2);           // Y^2 + b3 Z^2
+  const Fq d = fq_sub(t0, fq_add(fq_add(t2, t2), t2));  // Y^2 - 3 b3 Z^2
+  Point r;
+  r.z = fq_mul(t1, y8);
+  r.y = mont_mul_sum2<FqField>(t2, y8, d, s);
+  const Fq x = fq_mul(d, xy);
+  r.x = fq_add(x, x);
+  return r;
+}
+
 // (N, 4) u64 limbs in memory are the same bytes as (N, 8) u32: two 16-byte
 // loads or stores an element (of either field)
 __device__ __forceinline__ U256 load_fq(const u64* base, int64_t i) {
@@ -569,6 +626,35 @@ __device__ __forceinline__ void store_point(u64* x, u64* y, u64* z,
   store_fq(x, i, p.x);
   store_fq(y, i, p.y);
   store_fq(z, i, p.z);
+}
+
+__device__ __forceinline__ Affine load_affine(const u64* x, const u64* y,
+                                              int64_t i) {
+  Affine p;
+  p.x = load_fq(x, i);
+  p.y = load_fq(y, i);
+  return p;
+}
+
+// -a when neg, else a: p - y is canonical, as a finite base's y is never 0
+// (BN254's G1 has odd order)
+__device__ __forceinline__ Affine affine_neg_if(const Affine& a, bool neg) {
+  Affine r;
+  r.x = a.x;
+  const Fq ny = mont_neg_raw<FqField>(a.y);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.y.v[j] = neg ? ny.v[j] : a.y.v[j];
+  return r;
+}
+
+// (x : y : 1)
+__device__ __forceinline__ Point affine_point(const Affine& a) {
+  Point r;
+  r.x = a.x;
+  r.y = a.y;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.z.v[j] = fq_one(j);
+  return r;
 }
 
 }  // namespace jolt

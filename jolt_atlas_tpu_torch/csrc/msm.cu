@@ -1,5 +1,8 @@
 // Kernel 2: Pippenger bucket accumulation over the (lane, point) entries of
-// one MSM, sorted by lane (CSR: lane starts plus point ids in lane order).
+// one MSM, sorted by lane (CSR: lane starts plus signed point ids in lane
+// order; device/msm.py:digit_lanes recodes the scalars into signed digits,
+// so a window has 2^(c-1) lanes, and bit 31 of an entry's id is its digit's
+// sign).
 //
 // Replaces the accumulation loop of jolt_atlas_tpu/tpu/msm.py:_accum_body
 // (a lax.fori_loop that, per row of a (rows, lanes) grid, gathers one base
@@ -9,34 +12,40 @@
 // reference refuses scalars whose deepest lane passes max(64, 32 x the
 // mean). Here each thread takes an equal run of `run` entries instead, so
 // any depth is taken, and adds consecutive entries of one lane in
-// ascending point order, the first entry of a segment loaded as it is (no
-// add to the identity):
+// ascending point order, the first entry of a segment taken as it is, (x :
+// +-y : 1) (no add to the identity):
 //
-//   level 0 (bucket_accumulate_runs): a lane that starts and ends inside
-//     the run is written to its bucket; the run's first lane, when it began
-//     in an earlier run, leaves a head partial, and its last lane, when it
-//     goes on past the run, a tail partial;
+//   level 0 (bucket_accumulate_runs): the bases are affine (x, y), 64
+//     bytes, and each is added with the complete mixed add (csrc/fq.cuh
+//     pm_add_dev), negated on load where the entry's digit is negative; the
+//     next entry's lane, id and base are fetched before the add of the
+//     current one, so the gather is off the thread's dependent chain. A
+//     lane that starts and ends inside the run is written to its bucket;
+//     the run's first lane, when it began in an earlier run, leaves a head
+//     partial, and its last lane, when it goes on past the run, a tail
+//     partial;
 //   level k >= 1 (bucket_accumulate_level): the head partials of level
 //     k - 1 are the positions of level k, taken in chunks of `join`, each
 //     lane's positions in a chunk summed in order by one thread (a thread
 //     a chunk where lanes are long, else a thread a segment), with the
-//     same rule: a lane whose positions lie inside the chunk is finished
-//     there, its bucket being the tail partials of levels 0 .. k - 1 (one
-//     a level, where the lane starts) plus the chunk's sum, in that order;
-//     a lane cut by the chunk leaves a head partial for level k + 1 or a
-//     tail partial of level k. Level 1 also writes the identity to the
-//     empty lanes.
+//     same rule and the complete projective add (pp_add_dev): a lane whose
+//     positions lie inside the chunk is finished there, its bucket being
+//     the tail partials of levels 0 .. k - 1 (one a level, where the lane
+//     starts) plus the chunk's sum, in that order; a lane cut by the chunk
+//     leaves a head partial for level k + 1 or a tail partial of level k.
+//     Level 1 also writes the identity to the empty lanes.
 //
 // A lane of depth d so costs about log_join(d / run) launches of join adds
 // on its path, and no thread adds more than max(run, join) partials a
 // level, whatever the skew of the scalars. The levels are launched while
 // more than one position is left, ceil(log_join(entries / run)) of them.
 //
-// Bound by integer multiply throughput (12 Montgomery products a complete
-// add, csrc/fq.cuh); every thread does ~run adds, whatever the lane depths.
-// The entries are read once and coalesced; the base gathers are random
-// 96-byte reads that the L2 mostly serves. Tensor cores and TMA do not
-// serve this work: 256-bit modular multiplies and gathers by index.
+// Bound by integer multiply throughput (five Montgomery products and three
+// sums of two a mixed add, csrc/fq.cuh); every thread does ~run adds,
+// whatever the lane depths. The entries are read once and coalesced; the
+// base gathers are random 64-byte reads that the L2 mostly serves. Tensor
+// cores and TMA do not serve this work: 256-bit modular multiplies and
+// gathers by index.
 #include <cuda_runtime.h>
 
 #include "fq.cuh"
@@ -45,24 +54,31 @@ namespace jolt {
 
 // The part of lane `l`'s entries in [e0, e1), summed in acc: to its bucket
 // when the lane lies inside the run, else to the run's head or tail slot.
+// s0, s1 = starts[l], starts[l + 1], loaded when the lane began.
 __device__ __forceinline__ void flush_segment(
-    const Point& acc, int l, int64_t e0, int64_t e1, int64_t run_id,
-    const int32_t* __restrict__ starts, u64* hx, u64* hy, u64* hz, u64* tx,
-    u64* ty, u64* tz, u64* ox, u64* oy, u64* oz) {
-  if (starts[l] < e0)
+    const Point& acc, int l, int64_t s0, int64_t s1, int64_t e0, int64_t e1,
+    int64_t run_id, u64* hx, u64* hy, u64* hz, u64* tx, u64* ty, u64* tz,
+    u64* ox, u64* oy, u64* oz) {
+  if (s0 < e0)
     store_point(hx, hy, hz, run_id, acc);
-  else if (starts[l + 1] > e1)
+  else if (s1 > e1)
     store_point(tx, ty, tz, run_id, acc);
   else
     store_point(ox, oy, oz, l, acc);
 }
 
+constexpr int32_t ID_MASK = 0x7fffffff;  // an entry's id without its sign
+// Threads a block of the runs (128 registers a thread on an H100);
+// scripts/msm_kernels_bench.py --plans times 128 and 512 beside it
+// (PERF.md)
+constexpr int ACCUM_THREADS = 256;
+
 __global__ void bucket_accumulate_runs(
     const u64* __restrict__ bx, const u64* __restrict__ by,
-    const u64* __restrict__ bz, const int32_t* __restrict__ pts,
-    const int32_t* __restrict__ lane, const int32_t* __restrict__ starts,
-    int64_t L, int64_t nruns, int run, u64* hx, u64* hy, u64* hz, u64* tx,
-    u64* ty, u64* tz, u64* ox, u64* oy, u64* oz) {
+    const int32_t* __restrict__ pts, const int32_t* __restrict__ lane,
+    const int32_t* __restrict__ starts, int64_t L, int64_t nruns, int run,
+    u64* hx, u64* hy, u64* hz, u64* tx, u64* ty, u64* tz, u64* ox, u64* oy,
+    u64* oz) {
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= nruns) return;
   const int64_t E = starts[L];  // entries with a nonzero digit
@@ -70,20 +86,37 @@ __global__ void bucket_accumulate_runs(
   if (e0 >= E) return;
   const int64_t e1 = e0 + run < E ? e0 + run : E;
   int l = lane[e0];
-  Point acc = load_point(bx, by, bz, pts[e0]);
+  int64_t s0 = starts[l], s1 = starts[l + 1];  // read at the flush
+  int32_t id = pts[e0];
+  Affine nb = load_affine(bx, by, id & ID_MASK);
+  Point acc = affine_point(affine_neg_if(nb, id < 0));
+  // entry e + 1's lane, id and base, fetched before entry e's add
+  int nl = 0;
+  if (e0 + 1 < e1) {
+    nl = lane[e0 + 1];
+    id = pts[e0 + 1];
+    nb = load_affine(bx, by, id & ID_MASK);
+  }
   for (int64_t e = e0 + 1; e < e1; ++e) {
-    const int le = lane[e];
-    const Point B = load_point(bx, by, bz, pts[e]);
+    const int le = nl;
+    const Affine B = affine_neg_if(nb, id < 0);
+    if (e + 1 < e1) {
+      nl = lane[e + 1];
+      id = pts[e + 1];
+      nb = load_affine(bx, by, id & ID_MASK);
+    }
     if (le != l) {
-      flush_segment(acc, l, e0, e1, r, starts, hx, hy, hz, tx, ty, tz, ox,
+      flush_segment(acc, l, s0, s1, e0, e1, r, hx, hy, hz, tx, ty, tz, ox,
                     oy, oz);
       l = le;
-      acc = B;
+      s0 = starts[l];
+      s1 = starts[l + 1];
+      acc = affine_point(B);
     } else {
-      acc = pp_add_dev(acc, B);
+      acc = pm_add_dev(acc, B);
     }
   }
-  flush_segment(acc, l, e0, e1, r, starts, hx, hy, hz, tx, ty, tz, ox, oy,
+  flush_segment(acc, l, s0, s1, e0, e1, r, hx, hy, hz, tx, ty, tz, ox, oy,
                 oz);
 }
 
@@ -212,28 +245,29 @@ __global__ void bucket_accumulate_level(
 
 }  // namespace jolt
 
-// acc[l] = the sum of the bases base[pts[e]] over the entries e of lane l
+// acc[l] = the sum of the bases +-base[pts[e]] over the entries e of lane l
 // (lane[e] == l, e in [starts[l], starts[l + 1])), added in entry order
 // within runs of `run` entries and then level by level in chunks of `join`
-// partials (the header above); the identity for an empty lane. Bases and
-// outputs are (N, 4) / (L, 4) u64 Montgomery limbs; pts and lane hold
-// n_entries int32 (entries from starts[L] on are ignored), starts L + 1
-// int32. The head and tail partials of every level are scratch of
-// P_1 + P_2 + ... + P_{K+1} rows x 4 u64 each (P_1 = ceil(n_entries /
-// run), P_{k+1} = ceil(P_k / join), level K the last with P_K >= 2, or 1),
-// device/msm.py:accumulate_levels. `per_chunk`: level 1 a thread a chunk
-// (else a thread a position; device/msm.py:accumulate_class). `stages`: 1
-// the runs, 2 the levels, 3 both; the levels read the rows of the scratch
-// that the runs (and the levels before) wrote and write other rows, so a
-// levels-only call after one with the runs can be repeated. 1 + K launches
-// on `stream`; allocates nothing, and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a bad shape).
+// partials (the header above); the identity for an empty lane. Bases are
+// (N, 4) u64 Montgomery limbs of affine x and y, every base finite; outputs
+// (L, 4) of projective X, Y, Z. pts and lane hold n_entries int32 (entries
+// from starts[L] on are ignored), an id's bit 31 set where its base is
+// negated; starts L + 1 int32. The head and tail partials of every level
+// are scratch of P_1 + P_2 + ... + P_{K+1} rows x 4 u64 each (P_1 =
+// ceil(n_entries / run), P_{k+1} = ceil(P_k / join), level K the last with
+// P_K >= 2, or 1), device/msm.py:accumulate_levels. `per_chunk`: level 1 a
+// thread a chunk (else a thread a position;
+// device/msm.py:accumulate_class). `stages`: 1 the runs, 2 the levels, 3
+// both; the levels read the rows of the scratch that the runs (and the
+// levels before) wrote and write other rows, so a levels-only call after
+// one with the runs can be repeated. 1 + K launches on `stream`; allocates
+// nothing, and returns cudaGetLastError() (or cudaErrorInvalidValue for a
+// bad shape).
 extern "C" int jolt_bucket_accumulate(
-    const void* bx, const void* by, const void* bz, const void* pts,
-    const void* lane, const void* starts, int64_t n_entries, int64_t L,
-    int run, int join, int per_chunk, int stages, void* hx, void* hy,
-    void* hz, void* tx, void* ty, void* tz, void* ox, void* oy, void* oz,
-    void* stream) {
+    const void* bx, const void* by, const void* pts, const void* lane,
+    const void* starts, int64_t n_entries, int64_t L, int run, int join,
+    int per_chunk, int stages, void* hx, void* hy, void* hz, void* tx,
+    void* ty, void* tz, void* ox, void* oy, void* oz, void* stream) {
   using jolt::u64;
   if (L <= 0) return 0;
   if (run <= 0 || join < 2 || n_entries < 0 || stages < 1 || stages > 3)
@@ -244,10 +278,10 @@ extern "C" int jolt_bucket_accumulate(
   u64 *h[3] = {(u64*)hx, (u64*)hy, (u64*)hz};
   u64 *t[3] = {(u64*)tx, (u64*)ty, (u64*)tz};
   if ((stages & 1) && nruns > 0) {
-    jolt::bucket_accumulate_runs<<<(unsigned)((nruns + threads - 1) /
-                                              threads),
-                                   threads, 0, s>>>(
-        (const u64*)bx, (const u64*)by, (const u64*)bz, (const int32_t*)pts,
+    const int rt = jolt::ACCUM_THREADS;
+    jolt::bucket_accumulate_runs<<<(unsigned)((nruns + rt - 1) / rt), rt, 0,
+                                   s>>>(
+        (const u64*)bx, (const u64*)by, (const int32_t*)pts,
         (const int32_t*)lane, (const int32_t*)starts, L, nruns, run, h[0],
         h[1], h[2], t[0], t[1], t[2], (u64*)ox, (u64*)oy, (u64*)oz);
     const int rc = (int)cudaGetLastError();

@@ -181,10 +181,10 @@ _VP, _I64, _CI = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # int, a cudaError_t)
 SIGNATURES = {
     "jolt_pp_add": [_VP] * 9 + [_I64, _VP],
-    "jolt_bucket_accumulate": [_VP] * 6 + [_I64, _I64] + [_CI] * 4
+    "jolt_bucket_accumulate": [_VP] * 5 + [_I64, _I64] + [_CI] * 4
     + [_VP] * 10,
     "jolt_bucket_combine": [_VP] * 3 + [_I64, _CI, _CI, _I64, _CI, _CI]
-    + [_VP] * 7,
+    + [_VP] * 13,
     "jolt_reduction_bind": [_VP] * 5 + [_I64, _I64, _CI, _VP],
     "jolt_reduction_q0": [_VP] * 6 + [_I64, _CI, _I64, _VP],
     "jolt_reduction_tail": [_VP, _I64, _I64] + [_VP] * 12,

@@ -68,6 +68,61 @@ def pp_add_plain(P, Q):
     return tuple(F.from_planes(c).reshape(shape) for c in (X3, Y3, Z3))
 
 
+def pm_add_plain(P, Q):
+    """RCB15 Algorithm 8 (a = 0, b3 = 9), the complete mixed add of
+    projective P and affine, finite Q = (x, y): csrc/fq.cuh pm_add_dev.
+    Algorithm 7 at Z2 = 1, so equal to pp_add_plain(P, (x : y : 1))."""
+    shape = P[0].shape
+    X1, Y1, Z1 = (F.to_planes(t.reshape(-1, 4)) for t in P)
+    X2, Y2 = (F.to_planes(t.reshape(-1, 4)) for t in Q)
+    m, a, s = F.mul, F.add, F.sub
+    t0 = m(X1, X2)
+    t1 = m(Y1, Y2)
+    t3 = m(a(X2, Y2), a(X1, Y1))
+    t3 = s(t3, a(t0, t1))   # X1Y2 + X2Y1
+    t4 = a(m(Y2, Z1), Y1)   # Y1 + Y2Z1
+    Y3 = a(m(X2, Z1), X1)   # X1 + X2Z1
+    t0 = a(a(t0, t0), t0)   # 3 X1X2
+    t2 = _b3(Z1)
+    Z3 = a(t1, t2)
+    t1 = s(t1, t2)
+    Y3 = _b3(Y3)
+    X3 = s(m(t3, t1), m(t4, Y3))
+    Y3 = a(m(t1, Z3), m(Y3, t0))
+    Z3 = a(m(Z3, t4), m(t0, t3))
+    return tuple(F.from_planes(c).reshape(shape) for c in (X3, Y3, Z3))
+
+
+def pp_double_plain(P):
+    """RCB15 Algorithm 9 (a = 0, b3 = 9), the complete doubling:
+    csrc/fq.cuh pp_double_dev."""
+    shape = P[0].shape
+    X, Y, Z = (F.to_planes(t.reshape(-1, 4)) for t in P)
+    m, a, s = F.mul, F.add, F.sub
+    t0 = m(Y, Y)
+    y2 = a(t0, t0)
+    y8 = a(a(y2, y2), a(y2, y2))   # 8 Y^2
+    t2 = _b3(m(Z, Z))              # b3 Z^2
+    d = s(t0, a(a(t2, t2), t2))    # Y^2 - 3 b3 Z^2
+    Z3 = m(m(Y, Z), y8)
+    Y3 = a(m(t2, y8), m(d, a(t0, t2)))
+    X3 = m(d, m(X, Y))
+    X3 = a(X3, X3)
+    return tuple(F.from_planes(c).reshape(shape) for c in (X3, Y3, Z3))
+
+
+def _b3(x):  # 9x = 8x + x, on planes
+    x2 = F.add(x, x)
+    x4 = F.add(x2, x2)
+    return F.add(F.add(x4, x4), x)
+
+
+def neg_y(y: torch.Tensor) -> torch.Tensor:
+    """(p - y) mod p of (..., 4) limbs: the y of -P."""
+    return F.sub4(torch.zeros_like(y.reshape(-1, 4)),
+                  y.reshape(-1, 4)).reshape(y.shape)
+
+
 def check_points(P, device: torch.device) -> None:
     shape = P[0].shape
     for t in P:
@@ -131,6 +186,16 @@ def points_to_tensors(points, device) -> tuple:
     ys = [F.R_MONT if p.infinity else F.to_mont(p.y) for p in points]
     zs = [0 if p.infinity else F.R_MONT for p in points]
     return tuple(F.ints_to_tensor(v, device) for v in (xs, ys, zs))
+
+
+def points_to_affine(points, device) -> tuple:
+    """list[G1] -> ((x, y) Montgomery limb tensors, the (n,) bool mask of
+    the points at infinity, whose x = y = 0): the MSM's bases."""
+    xs = [0 if p.infinity else F.to_mont(p.x) for p in points]
+    ys = [0 if p.infinity else F.to_mont(p.y) for p in points]
+    inf = torch.tensor([p.infinity for p in points], dtype=torch.bool,
+                       device=device)
+    return tuple(F.ints_to_tensor(v, device) for v in (xs, ys)), inf
 
 
 def edge_case_pairs(device) -> tuple:

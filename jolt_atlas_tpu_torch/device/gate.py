@@ -269,7 +269,7 @@ def measure(device) -> dict:
     cal = {"gpu": torch.cuda.get_device_name(device),
            "ncpu": os.cpu_count(), "ts": time.time(),
            "dev_base_setup_sppt": (time.perf_counter() - t0) / prep.n}
-    cal["pp_add_adds_per_s"] = _measure_pp_adds(engine.bases)
+    cal["pp_add_adds_per_s"] = _measure_pp_adds(engine.projective(1 << 17))
     cal["host_msm_pps"] = _measure_host_msm(prep)
     # a device whose adds are hopeless gets no MSM rate (host only)
     ok = cal["pp_add_adds_per_s"] > 1e6

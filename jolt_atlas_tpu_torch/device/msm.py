@@ -1,25 +1,29 @@
-"""Device Pippenger MSM: digit lanes, bucket accumulation and bucket
-combine on tensors.
+"""Device Pippenger MSM: signed digit lanes, bucket accumulation, and the
+bucket combine with the window fold, on tensors.
 
-Counterpart of jolt_atlas_tpu/tpu/msm.py, with the same structure:
+Counterpart of jolt_atlas_tpu/tpu/msm.py, with its structure redesigned
+for the card:
 
-- Scalars (canonical, 32 bytes little-endian) are cut into W windows of
-  c bits; each (window, bucket) pair is a *lane*. The digit lanes are built
-  on the device: digit 0 is dropped, the top window, which has only
-  254 - (W-1)c bits of entropy, is round-robined over S = 2^c / 2^topbits
-  sub-lanes by local point index, and a stable sort orders the (lane,
-  point) entries by lane, points ascending within a lane (CSR: lane
-  starts plus absolute base indices). The reference scatters the same
-  order into a (rows, W * 2^c) grid; the port hands the sorted entries to
-  the kernel instead.
-- ``bucket_accumulate`` (kernel 2, csrc/msm.cu) adds each lane's bases
-  into its bucket, in equal runs of entries per thread.
+- Scalars (canonical, 32 bytes little-endian) are recoded into W windows
+  of signed c-bit digits, d in [-2^(c-1), 2^(c-1)] (``signed_digits``: a
+  digit above 2^(c-1) is taken as d - 2^c, carrying one into the next
+  window; the top window takes the last carry and stays nonnegative).
+  Each (window, |d|) pair is a *lane*, 2^(c-1) a window: digit 0 and the
+  entries of a base at infinity are dropped, the top window, which has
+  only 254 - (W-1)c bits of entropy, is round-robined over S sub-lanes by
+  local point index, and a stable sort orders the (lane, point) entries
+  by lane, points ascending within a lane (CSR: lane starts plus absolute
+  base indices, bit 31 of an index set where the digit is negative). The
+  reference scatters its unsigned digits into a (rows, W * 2^c) grid
+  instead.
+- ``bucket_accumulate`` (kernel 2, csrc/msm.cu) adds each lane's bases,
+  affine and negated where the digit is, into its bucket with the
+  complete mixed add, in equal runs of entries per thread.
 - ``bucket_combine`` (kernel 3, csrc/combine.cu) folds the top window's
-  sub-lanes and computes sum_b b * S_b per (MSM, window), for all MSMs of
-  one window size in one launch (G blocks per window, then their
-  partials).
-- The window sums come back to the host, where a Horner loop in Python
-  point arithmetic gives the affine result.
+  sub-lanes, computes sum_b b * S_b per (MSM, window) and folds the
+  windows, sum_w 2^(c w) R_w, for all MSMs of one window size in one
+  call: one projective point an MSM.
+- ``affine_points`` brings those points back to the host as affine G1.
 
 Each MSM of a batch takes its own window, ``_pick_c(count)``, unless one
 is forced. The reference's TPU grid refuses scalars whose deepest lane
@@ -39,15 +43,17 @@ import numpy as np
 import torch
 
 from . import curve, field, telemetry
-from .curve import pp_add_plain, pp_identity
+from .curve import (pm_add_plain, pp_add_plain, pp_double_plain,
+                    pp_identity)
 
 
 _NBITS = 254
+SIGN_BIT = 1 << 31  # an entry's point id has it where its digit is negative
 
 
 def _pick_c(n: int) -> int:
-    """Window size by MSM size: total adds ~ n*W + pad; lane count 2^c * W
-    bounds padding waste at small n."""
+    """Window size by MSM size: total adds ~ n*W + pad; lane count
+    2^(c-1) * W bounds padding waste at small n."""
     if n <= (1 << 16):
         return 12
     if n <= (1 << 18):
@@ -56,10 +62,15 @@ def _pick_c(n: int) -> int:
 
 
 def window_shape(c: int) -> tuple[int, int, int]:
-    """(W windows, B = 2^c buckets per window, S top-window sub-lanes)."""
+    """(W windows, B = 2^(c-1) lanes a window, S top-window sub-lanes a
+    bucket). The top window's digit, its 254 - (W-1)c bits plus a carry,
+    reaches 2^topbits, which must fit B: c >= 3."""
     W = (_NBITS + c - 1) // c
-    B = 1 << c
     topbits = _NBITS - (W - 1) * c
+    if c < 3 or topbits >= c:
+        raise ValueError(f"window c={c}: its top digit does not fit "
+                         "2^(c-1) lanes")
+    B = 1 << (c - 1)
     return W, B, B >> topbits
 
 
@@ -69,24 +80,13 @@ def scalars_tensor(raw: bytes, count: int, device) -> torch.Tensor:
     return torch.from_numpy(arr.reshape(count, 4).copy()).to(device)
 
 
-def digit_lanes(sc: torch.Tensor, c: int, offset: int = 0) -> tuple:
-    """(n, 4) int64 canonical scalar limbs -> the MSM's (lane, point)
-    entries sorted by lane, as three int32 tensors on sc's device:
-    ``lane`` (W * n,), ``pts`` (W * n,) the ABSOLUTE point indices
-    offset + i, ascending within a lane, and ``starts`` (L + 1,), lane l's
-    entries being [starts[l], starts[l + 1]). Entries of digit 0 carry
-    lane L and sort last: starts[L] counts the others.
-
-    Same semantics as the reference's host builder (tpu/msm.py:_grid) and
-    device builder (tpu/msm.py:_grid_on_device): digit 0 dropped, the top
-    window round-robined over S sub-lanes by LOCAL index, points in
-    ascending order within each lane. Nothing is read back to the host."""
-    device = sc.device
-    n = sc.shape[0]
-    W, B, S = window_shape(c)
-    L = W * B
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    lanes = []
+def signed_digits(sc: torch.Tensor, c: int) -> torch.Tensor:
+    """(n, 4) int64 canonical scalar limbs -> (W, n) int64 signed digits,
+    sum_w d_w 2^(c w) = the scalar: window w's c bits plus the carry, less
+    2^c (carrying one on) where that passes 2^(c-1); the top window keeps
+    its value, at most 2^topbits."""
+    W, _, _ = window_shape(c)
+    half, carry, out = 1 << (c - 1), None, []
     for w in range(W):
         limb, off = divmod(w * c, 64)
         # int64 shifts are arithmetic: mask right after shifting
@@ -94,12 +94,43 @@ def digit_lanes(sc: torch.Tensor, c: int, offset: int = 0) -> tuple:
         if off + c > 64 and limb + 1 < 4:
             hi = sc[:, limb + 1] & ((1 << (off + c - 64)) - 1)
             d = d | (hi << (64 - off))
-        if w == W - 1 and S > 1:
-            lane = (W - 1) * B + d * S + idx % S
-        else:
-            lane = w * B + d
-        lanes.append(torch.where(d != 0, lane, L))
-    lane_f = torch.cat(lanes)                 # (W*n,) window-major
+        if carry is not None:
+            d = d + carry
+        if w < W - 1:
+            carry = (d > half).to(torch.int64)
+            d = d - (carry << c)
+        out.append(d)
+    return torch.stack(out)
+
+
+def digit_lanes(sc: torch.Tensor, c: int, offset: int = 0,
+                inf: torch.Tensor | None = None) -> tuple:
+    """(n, 4) int64 canonical scalar limbs -> the MSM's (lane, point)
+    entries sorted by lane, as three int32 tensors on sc's device:
+    ``lane`` (W * n,), ``pts`` (W * n,) the ABSOLUTE point indices
+    offset + i, ascending within a lane, with SIGN_BIT set where the digit
+    is negative, and ``starts`` (L + 1,), lane l's entries being
+    [starts[l], starts[l + 1]). Window w's digit d goes to lane w * B + |d|
+    - 1 (``signed_digits``); the top window's to (W - 1) * B + (d - 1) * S
+    + i mod S, round-robined over S sub-lanes by LOCAL index i. Entries of
+    digit 0, and of a base at infinity (``inf``, a bool per base of the
+    set, indexed by absolute point), carry lane L and sort last: starts[L]
+    counts the others. Nothing is read back to the host."""
+    device = sc.device
+    n = sc.shape[0]
+    W, B, S = window_shape(c)
+    L = W * B
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    digits = signed_digits(sc, c)
+    mag = digits.abs()
+    lane = torch.arange(W, dtype=torch.int64, device=device)[:, None] * B \
+        + mag - 1
+    if S > 1:
+        lane[W - 1] = (W - 1) * B + (mag[W - 1] - 1) * S + idx % S
+    keep = digits != 0
+    if inf is not None:
+        keep &= ~inf[offset:offset + n]
+    lane_f = torch.where(keep, lane, L).reshape(-1)  # (W*n,) window-major
     # scatter_add, not bincount: bincount reads its maximum back to the
     # host, a synchronisation
     counts = torch.zeros(L + 1, dtype=torch.int64, device=device)
@@ -107,7 +138,9 @@ def digit_lanes(sc: torch.Tensor, c: int, offset: int = 0) -> tuple:
     starts = torch.zeros(L + 1, dtype=torch.int64, device=device)
     starts[1:] = torch.cumsum(counts[:L], 0)
     lane_s, order = torch.sort(lane_f, stable=True)
-    pts = order % n + offset                  # point of each sorted entry
+    # the point of each sorted entry, SIGN_BIT in int32's sign
+    pts = order % n + offset - (digits.reshape(-1)[order] < 0).to(
+        torch.int64) * SIGN_BIT
     return (lane_s.to(torch.int32), pts.to(torch.int32),
             starts.to(torch.int32))
 
@@ -140,12 +173,21 @@ def _set_points(dst, index, src) -> None:
         d[index] = v
 
 
+def _entry_bases(bases, ids):
+    """The affine bases (x, +-y) of entries with signed point ids (int64,
+    SIGN_BIT in the sign): y negated where the id is negative."""
+    pid = ids & (SIGN_BIT - 1)
+    x, y = (b[pid] for b in bases)
+    return x, torch.where((ids < 0).unsqueeze(-1), curve.neg_y(y), y)
+
+
 def bucket_accumulate_plain(bases, lanes, run: int = ACCUM_RUN,
                             join: int = ACCUM_JOIN):
     """Plain version of kernel 2, with the kernel's partition and order of
     adds, so the two are bit-equal. Level 0: the entries [starts[0],
     starts[L]) are cut into runs of ``run``; within a run, consecutive
-    entries of one lane are added in order, the first one taken as it is; a
+    entries of one lane are added in order by the complete mixed add
+    (``pm_add_plain``), the first one taken as it is, (x : +-y : 1); a
     lane inside the run is finished, the run's first lane leaves a head
     partial when it began earlier, its last lane a tail when it goes on.
     Level k >= 1: level k - 1's head partials, in chunks of ``join``, by
@@ -164,18 +206,21 @@ def bucket_accumulate_plain(bases, lanes, run: int = ACCUM_RUN,
     e1 = torch.clamp(e0 + run, max=E)
     head = pp_identity(nruns, device)
     tail = pp_identity(nruns, device)
+    one = torch.tensor(field.MONT_ONE_64, dtype=torch.int64,
+                       device=device).expand(nruns, 4)
     acc = None
     for i in range(run):                       # level 0: every run at once
         e = e0 + i
         live = e < e1
         ec = torch.where(live, e, 0)
         ln = lane[ec]
-        B = tuple(b[pts[ec]] for b in bases)
+        B = _entry_bases(bases, pts[ec])
+        first = B + (one,)
         if acc is None:
-            acc = B
+            acc = first
         else:
             new = ln != lane[torch.clamp(ec - 1, min=0)]
-            acc = _where(live, _where(new, B, pp_add_plain(acc, B)), acc)
+            acc = _where(live, _where(new, first, pm_add_plain(acc, B)), acc)
         end = live & ((ec == e1 - 1) | (lane[torch.clamp(ec + 1, max=E - 1)]
                                          != ln))
         is_head = end & (starts[ln] < e0)
@@ -244,12 +289,15 @@ def _check_lanes(lanes, device) -> int:
 
 
 def bucket_accumulate(bases, lanes, out=None, run: int = ACCUM_RUN):
-    """(X, Y, Z) bases (N, 4) and an MSM's digit lanes (``digit_lanes``)
-    -> the L bucket sums (L, 4) each, written into ``out`` when given
-    (three contiguous (L, 4) int64 tensors, e.g. one MSM's rows of a
-    batch's stack). CUDA tensors run kernel 2 (the runs, then its levels:
+    """Affine (x, y) bases (N, 4), every base an entry refers to finite,
+    and an MSM's digit lanes (``digit_lanes``) -> the L bucket sums (X, Y,
+    Z) (L, 4) each, written into ``out`` when given (three contiguous (L,
+    4) int64 tensors, e.g. one MSM's rows of a batch's stack). CUDA
+    tensors run kernel 2 (the runs, then its levels:
     ``accumulate_levels``), CPU tensors its plain version."""
     device = lanes[0].device
+    if len(bases) != 2 or bases[0].dim() != 2:
+        raise ValueError("bases must be (x, y), two (N, 4) int64 tensors")
     curve.check_points(bases, device)
     L = _check_lanes(lanes, device)
     if run <= 0:
@@ -278,7 +326,11 @@ def bucket_accumulate(bases, lanes, out=None, run: int = ACCUM_RUN):
     return tuple(outs)
 
 
-ACCUM_CHUNK_RUNS = 4  # runs a lane on average from which level 1 is chunked
+# runs a lane on average from which level 1 is chunked: on an H100 kernel
+# 2 on 2^21 - 3 scalars at c = 16 (just under 4 runs a lane) is ~24%
+# faster chunked than a thread a position; on 2^20 (2 runs) the two are
+# within the noise (scripts/msm_kernels_bench.py --plans, PERF.md)
+ACCUM_CHUNK_RUNS = 3
 
 
 def accumulate_class(lanes, run: int = ACCUM_RUN) -> tuple[int, int]:
@@ -312,13 +364,13 @@ def accumulate_launch(bases, lanes, outs, parts, run: int = ACCUM_RUN,
     L, chunked = accumulate_class(lanes, run)
     if not L:
         return
-    bx, by, bz = (curve._flat(b) for b in bases)
+    bx, by = (curve._flat(b) for b in bases)
     n_entries = lanes[0].shape[0]
     levels = accumulate_levels(n_entries, run)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = build.cuda_library().jolt_bucket_accumulate(
-            bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
+            bx.data_ptr(), by.data_ptr(),
             *(lanes[i].data_ptr() for i in (1, 0, 2)), n_entries, L, run,
             ACCUM_JOIN, chunked, stages,
             *(t.data_ptr() for t in parts), *(t.data_ptr() for t in outs),
@@ -336,59 +388,50 @@ def accumulate_launch(bases, lanes, outs, parts, run: int = ACCUM_RUN,
 # ---------------------------------------------------------------------------
 
 COMBINE_MAX_THREADS = 128
-COMBINE_MIN_CHUNK = 8  # buckets a thread keeps at least, where G > 1
+COMBINE_MIN_CHUNK = 8  # lanes a thread keeps at least, where G > 1
 # From window c = 16 on, kernel 3 runs 64-thread blocks and fills one wave
 # of the card: its resident threads an SM are 384 (3 blocks of 128 at its
-# __launch_bounds__, 168 registers; 6 of 64)
+# __launch_bounds__; 6 of 64)
 COMBINE_WIDE_C = 16
 COMBINE_WIDE_THREADS = 64
 COMBINE_SM_THREADS = 384
 
 
 def combine_threads(c: int) -> int:
-    """Threads per block of kernel 3: a power of two, at most 128, at most
-    half the buckets; 64 from window COMBINE_WIDE_C on."""
+    """Threads per block T of kernel 3: a power of two, at most 128, at
+    most half the lanes of a window; 64 from window COMBINE_WIDE_C on."""
     if c >= COMBINE_WIDE_C:
         return COMBINE_WIDE_THREADS
-    return min(COMBINE_MAX_THREADS, (1 << c) >> 1)
+    return min(COMBINE_MAX_THREADS, window_shape(c)[1] >> 1)
 
 
 def combine_groups(k: int, c: int, sms: int) -> int:
     """Blocks G per (MSM, window) of kernel 3 for k MSMs at window c on a
-    card of ``sms`` SMs. Below COMBINE_WIDE_C: doubled from 1 while the
-    launch has fewer than two blocks per SM and each thread would still
-    keep at least COMBINE_MIN_CHUNK buckets. From it on: as many as one
-    wave of the card holds (COMBINE_SM_THREADS an SM), each thread keeping
-    COMBINE_MIN_CHUNK buckets at least, so the launch ends with no second,
-    partial wave (any G: the kernel splits a window's buckets over G * T
-    threads). G and the thread count fix the partition of the buckets and
-    so the order of the adds, which the plain version follows."""
+    card of ``sms`` SMs, a power of two. Below COMBINE_WIDE_C: doubled from
+    1 while the launch has fewer than two blocks per SM and each thread
+    would still keep at least COMBINE_MIN_CHUNK lanes. From it on: the
+    largest power of two that one wave of the card holds
+    (COMBINE_SM_THREADS an SM), each thread keeping COMBINE_MIN_CHUNK lanes
+    at least. G and the thread count fix the partition of the lanes and so
+    the order of the adds, which the plain version follows."""
     W, B, _ = window_shape(c)
     T = combine_threads(c)
     if c >= COMBINE_WIDE_C:
         G = sms * COMBINE_SM_THREADS // T // (k * W)
-        return max(1, min(G, B // (T * COMBINE_MIN_CHUNK)))
+        G = min(G, B // (T * COMBINE_MIN_CHUNK), COMBINE_MAX_THREADS)
+        return 1 << max(G, 1).bit_length() - 1
     G = 1
     while k * W * G < 2 * sms and B // (2 * G * T) >= COMBINE_MIN_CHUNK:
         G *= 2
     return G
 
 
-def _combine_ranges(c: int, groups: int, device):
-    """Per (window, thread u of the window's G * T): the bucket range
-    [lo, hi) the thread walks, the window's sub-lanes per bucket S (lane j
-    has weight j // S), and the range's lowest weight wlo (0 for an empty
-    range)."""
-    W, B, s_top = window_shape(c)
-    T = combine_threads(c) * groups
-    S = torch.ones((W, 1), dtype=torch.int64, device=device)
-    S[-1] = s_top
-    chunk = (B - S + T - 1) // T
-    t = torch.arange(T, dtype=torch.int64, device=device)
-    hi = torch.clamp(S + (t + 1) * chunk, max=B)
-    lo = torch.minimum(S + t * chunk, hi)
-    wlo = torch.where(lo < hi, lo // S, 0)
-    return lo, hi, S, wlo, int(chunk.max())
+def combine_chunk(c: int, groups: int) -> int:
+    """Lanes a thread of kernel 3 walks: B / (G T), at least 1 (csrc/
+    combine.cu jolt_bucket_combine)."""
+    span = groups * combine_threads(c)
+    B = window_shape(c)[1]
+    return B // span if span < B else 1
 
 
 def _where(mask, P, Q):
@@ -397,64 +440,128 @@ def _where(mask, P, Q):
     return tuple(torch.where(m, p, q) for p, q in zip(P, Q))
 
 
+def _identity_like(P):
+    shape = P[0].shape
+    return tuple(t.reshape(shape) for t in pp_identity(
+        P[0].numel() // 4, P[0].device))
+
+
+def _combine_tail(A, Z, q: int, S: torch.Tensor):
+    """csrc/combine.cu combine_tail over the second-last axis (the n
+    threads of a block) of points (k, W, g, n, 4), S (W,) the sub-lanes of
+    each window: suffix sums Zs of Z by Hillis-Steele, then halving trees
+    of A and of E_t = Zs_t where t >= 1 and t q = 0 mod S, and thread 0's
+    log2 max(1, q / S) doublings of E and add. -> (A, Z) of thread 0, (k,
+    W, g, 4) each."""
+    n = Z[0].shape[-2]
+    device = Z[0].device
+    t = torch.arange(n, dtype=torch.int64, device=device)
+    d = 1
+    while d < n:
+        o = tuple(torch.roll(z, -d, dims=-2) for z in Z)  # o_t = Z_{t+d}
+        Z = _where(t + d < n, pp_add_plain(Z, o), Z)
+        d <<= 1
+    Sw = S.reshape(1, -1, 1, 1)
+    E = _where((t >= 1) & ((t * q) % Sw == 0), Z, _identity_like(Z))
+    s = n >> 1
+    while s:
+        A, E = (tuple(torch.cat([a, p[..., s:, :]], dim=-2)
+                      for a, p in zip(pp_add_plain(
+                          tuple(p[..., :s, :] for p in P),
+                          tuple(p[..., s:2 * s, :] for p in P)), P))
+                for P in (A, E))
+        s >>= 1
+    A, E, Z = (tuple(p[..., 0, :] for p in P) for P in (A, E, Z))
+    steps = torch.tensor([max(q // s, 1).bit_length() - 1
+                          for s in S.tolist()], device=device)
+    steps = steps.reshape(1, -1, 1)
+    for i in range(int(steps.max())):
+        E = _where(steps > i, pp_double_plain(E), E)
+    return pp_add_plain(A, E), Z
+
+
+def _fold(R, c: int):
+    """csrc/combine.cu bucket_combine_fold: window sums (k, W, 4) x 3 ->
+    sum_w 2^(c w) R_w (k, 4) x 3: window w doubled c w times, then a
+    halving tree over the power of two n >= W of them (the identity past
+    W)."""
+    k, W = R[0].shape[:2]
+    n = 1 << (W - 1).bit_length()
+    pad = tuple(t.reshape(k, n - W, 4) for t in pp_identity(
+        k * (n - W), R[0].device))
+    out = tuple(torch.cat([r, p], dim=1) for r, p in zip(R, pad))
+    w = torch.arange(n, dtype=torch.int64, device=R[0].device)
+    for i in range(c * (W - 1)):
+        out = _where((i < c * w) & (w < W), pp_double_plain(out), out)
+    s = n >> 1
+    while s:
+        out = tuple(torch.cat([a, p[:, s:]], dim=1) for a, p in zip(
+            pp_add_plain(tuple(p[:, :s] for p in out),
+                         tuple(p[:, s:2 * s] for p in out)), out))
+        s >>= 1
+    return tuple(p[:, 0] for p in out)
+
+
 def bucket_combine_plain(acc, c: int, groups: int = 1):
     """Plain version of kernel 3, with the kernel's own order of adds, so
-    the two are bit-equal: one (MSM, window) is a row of G * T "threads",
-    each walking its bucket range from high to low with a running sum and
-    a weighted sum, multiplying in its lowest weight by double-and-add;
-    each block's T partials are then added by halving, as the kernel's
-    shared-memory tree does, and the G block partials in block order."""
+    the two are bit-equal: one (MSM, window) is G blocks of T "threads",
+    thread u walking its lanes [u q, u q + q) (q = ``combine_chunk``) from
+    high to low with a running sum and a weighted sum from its lowest
+    bucket, the first of each taken as it is; each block's threads and
+    then each window's blocks combined by ``_combine_tail``, the window
+    sum being P + Z; then the windows folded (``_fold``)."""
     k = acc[0].shape[0]
-    W, B, _ = window_shape(c)
+    W, B, s_top = window_shape(c)
     device = acc[0].device
-    lo, hi, S, wlo, steps = _combine_ranges(c, groups, device)
-    T = lo.shape[1]
+    T, G = combine_threads(c), groups
+    q = combine_chunk(c, G)
+    S = torch.ones(W, dtype=torch.int64, device=device)
+    S[-1] = s_top
+    u = torch.arange(G * T, dtype=torch.int64, device=device)
+    lo = torch.clamp(u * q, max=B)
+    hi = torch.clamp(lo + q, max=B)
+    wlo = lo // S[:, None]                         # (W, G T)
     win = torch.arange(W, dtype=torch.int64, device=device)[:, None] * B
-    shape = (k, W, T, 4)
-
-    def ident():
-        return tuple(t.reshape(shape) for t in pp_identity(k * W * T, device))
-
-    run, wsum = ident(), ident()
-    for i in range(steps):
+    shape = (k, W, G * T, 4)
+    run = wsum = tuple(t.reshape(shape) for t in pp_identity(
+        k * W * G * T, device))
+    has_run = torch.zeros(G * T, dtype=torch.bool, device=device)
+    has_sum = torch.zeros((W, G * T), dtype=torch.bool, device=device)
+    for i in range(q):
         j = hi - 1 - i
         live = j >= lo
         jc = torch.where(live, j, 0)
         lane = (win + jc).reshape(-1)
         P = tuple(a.index_select(1, lane).reshape(shape) for a in acc)
-        run = _where(live, pp_add_plain(run, P), run)
-        hit = live & (jc % S == 0) & (jc // S > lo // S)
-        wsum = _where(hit, pp_add_plain(wsum, run), wsum)
-    R = ident()
-    started = torch.zeros_like(wlo, dtype=torch.bool)
-    for bit in reversed(range(c)):
-        R = _where(started, pp_add_plain(R, R), R)
-        b = ((wlo >> bit) & 1) == 1
-        R = _where(b & started, pp_add_plain(R, run), _where(b, run, R))
-        started = started | b
-    P = _where(started, pp_add_plain(wsum, R), wsum)
-    Tb = T // groups
-    P = tuple(p.reshape(k, W, groups, Tb, 4) for p in P)
-    s = Tb >> 1
-    while s:
-        top = pp_add_plain(tuple(p[:, :, :, :s] for p in P),
-                           tuple(p[:, :, :, s:2 * s] for p in P))
-        P = tuple(torch.cat([a, p[:, :, :, s:]], dim=3)
-                  for a, p in zip(top, P))
-        s >>= 1
-    out = tuple(p[:, :, 0, 0] for p in P)
-    for g in range(1, groups):
-        out = pp_add_plain(out, tuple(p[:, :, g, 0] for p in P))
-    return tuple(o.contiguous() for o in out)
+        run = _where(live, _where(has_run, pp_add_plain(run, P), P), run)
+        has_run = has_run | live
+        hit = live & (jc % S[:, None] == 0) & (jc // S[:, None] > wlo)
+        wsum = _where(hit, _where(has_sum, pp_add_plain(wsum, run), run),
+                      wsum)
+        has_sum = has_sum | hit
+    blocks = (k, W, G, T, 4)
+    P, Z = _combine_tail(tuple(a.reshape(blocks) for a in wsum),
+                         tuple(r.reshape(blocks) for r in run), q, S)
+    if G > 1:
+        P, Z = _combine_tail(tuple(p.unsqueeze(2) for p in P),
+                             tuple(z.unsqueeze(2) for z in Z), T * q, S)
+        P, Z = (tuple(p[:, :, 0] for p in X) for X in (P, Z))
+    else:
+        P, Z = (tuple(p[:, :, 0] for p in X) for X in (P, Z))
+    # the fold's chain of c (W - 1) dependent doublings of a few points
+    # runs on the CPU, where a small tensor op costs less than a launch on
+    # the card (the same canonical limbs either way)
+    R = tuple(r.cpu() for r in pp_add_plain(P, Z))
+    return tuple(o.to(device).contiguous() for o in _fold(R, c))
 
 
 def bucket_combine(acc, c: int, groups: int = 0):
-    """Bucket sums (k, W * 2^c, 4) x 3, the top window still spread over
-    its sub-lanes, as ``bucket_accumulate`` leaves them -> window sums
-    (k, W, 4) x 3, sum_b b * S_b per (MSM, window); digit 0 is dropped.
-    ``groups``: blocks per (MSM, window), 0 for ``combine_groups`` on a
-    card (1 on the CPU). CUDA tensors run kernel 3 (one launch for the
-    batch, a second to add the G block partials when G > 1), CPU tensors
+    """Bucket sums (k, W * 2^(c-1), 4) x 3, the top window still spread
+    over its sub-lanes, as ``bucket_accumulate`` leaves them -> each MSM's
+    sum_w 2^(c w) sum_b b S_{w, b}, (k, 4) x 3 projective. ``groups``:
+    blocks per (MSM, window), 0 for ``combine_groups`` on a card (1 on the
+    CPU). CUDA tensors run kernel 3 (the walk, the blocks' combine when G
+    > 1, and the fold: two or three launches for the batch), CPU tensors
     its plain version."""
     device = acc[0].device
     curve.check_points(acc, device)
@@ -462,6 +569,9 @@ def bucket_combine(acc, c: int, groups: int = 0):
     if acc[0].dim() != 3 or acc[0].shape[1] != W * B:
         raise ValueError(f"bucket sums must be (k, {W * B}, 4) for c={c}; "
                          f"got {tuple(acc[0].shape)}")
+    if groups & (groups - 1) or groups > COMBINE_MAX_THREADS:
+        raise ValueError(f"groups must be a power of two <= "
+                         f"{COMBINE_MAX_THREADS}; got {groups}")
     k = acc[0].shape[0]
     if device.type == "cpu":
         return bucket_combine_plain(acc, c, groups or 1)
@@ -471,41 +581,33 @@ def bucket_combine(acc, c: int, groups: int = 0):
     G = groups or combine_groups(
         k, c, torch.cuda.get_device_properties(device).multi_processor_count)
     ins = [curve._flat(a) for a in acc]
-    outs = [torch.empty((k, W, 4), dtype=torch.int64, device=device)
+    outs = [torch.empty((k, 4), dtype=torch.int64, device=device)
             for _ in range(3)]
-    parts = [torch.empty((k * W * G if G > 1 else 1, 4), dtype=torch.int64,
-                         device=device) for _ in range(3)]
+    parts = [torch.empty((max(k * W * G, 1), 4), dtype=torch.int64,
+                         device=device) for _ in range(6)]
+    sums = [torch.empty((k * W if G > 1 else 1, 4), dtype=torch.int64,
+                        device=device) for _ in range(3)]
     if k:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = build.cuda_library().jolt_bucket_combine(
                 *(t.data_ptr() for t in ins), k, c, W, s_top,
                 combine_threads(c), G, *(t.data_ptr() for t in parts),
+                *(t.data_ptr() for t in sums),
                 *(t.data_ptr() for t in outs), stream)
         if rc != 0:
             raise RuntimeError("bucket_combine kernel launch failed: "
                                f"CUDA error {rc}")
-        for _ in range(2 if G > 1 else 1):
+        for _ in range(3 if G > 1 else 2):
             telemetry.launch("bucket_combine", (W * B, G))
     return tuple(outs)
 
 
-def window_points(R, c: int) -> list:
-    """Window sums (k, W, 4) x 3 of one combine at window c -> the k MSMs'
-    affine G1 (waits for the device): a host Horner loop over each MSM's
-    window sums, lowest window first."""
-    from ..curve.points import (jacobian_add_affine, jacobian_double,
-                                jacobian_to_affine, JINF)
-    host = tuple(t.cpu() for t in R)
-    out = []
-    for j in range(host[0].shape[0]):
-        total = JINF
-        for p in reversed(curve.tensors_to_points(tuple(t[j] for t in host))):
-            for _ in range(c):
-                total = jacobian_double(total)
-            total = jacobian_add_affine(total, p)
-        out.append(jacobian_to_affine(total))
-    return out
+def affine_points(R) -> list:
+    """Each MSM's projective sum (k, 4) x 3, as ``bucket_combine`` leaves
+    it -> the k MSMs' affine G1 (waits for the device): one inversion an
+    MSM, on the host."""
+    return curve.tensors_to_points(tuple(t.cpu() for t in R))
 
 
 # ---------------------------------------------------------------------------
@@ -517,8 +619,10 @@ class DeviceBases:
 
     Built from the host engine's prepared buffer (csrc/msm.cpp
     msm_prep_points: interleaved Montgomery affine x, y as u64 x 4; x = y = 0
-    encodes infinity, uploaded as (0 : 1 : 0)), so the Montgomery conversion
-    is never repeated. The full base set stays resident; an MSM over
+    encodes infinity), so the Montgomery conversion is never repeated. The
+    bases stay affine on the device, ``bases`` = (x, y), 64 bytes a base,
+    beside ``inf``, the mask of the bases at infinity, whose entries
+    ``digit_lanes`` drops. The full base set stays resident; an MSM over
     bases [offset, offset + count) references it by absolute index.
 
     ``c`` forces the window size for every MSM (0: each MSM at its own
@@ -527,6 +631,8 @@ class DeviceBases:
     """
 
     def __init__(self, prep_raw: bytes, n: int, device, c: int = 0):
+        if n >= SIGN_BIT:
+            raise ValueError(f"{n} bases: a point id must leave bit 31 free")
         self.device = torch.device(device)
         self.n = n
         self.c = c
@@ -534,13 +640,20 @@ class DeviceBases:
                               count=n * 8).reshape(n, 8)
         inf = torch.from_numpy((limbs == 0).all(axis=1))
         xy = torch.from_numpy(limbs.view(np.int64).copy())
-        X = xy[:, :4].contiguous()
-        Y = xy[:, 4:].contiguous()
-        Z = torch.zeros_like(X)
-        one = torch.tensor(field.MONT_ONE_64, dtype=torch.int64)
-        Z[~inf] = one
-        Y[inf] = one
-        self.bases = tuple(t.to(self.device) for t in (X, Y, Z))
+        self.bases = tuple(t.contiguous().to(self.device)
+                           for t in (xy[:, :4], xy[:, 4:]))
+        self.inf = inf.to(self.device)
+
+    def projective(self, n: int | None = None) -> tuple:
+        """The first n bases (all by default) as projective (X, Y, Z), Z =
+        1 and the identity (0 : 1 : 0) at infinity: the operands of the
+        complete add's own tests and calibration (kernel 1)."""
+        x, y = (b[:n] for b in self.bases)
+        inf = self.inf[:n].unsqueeze(-1)
+        one = torch.tensor(field.MONT_ONE_64, dtype=torch.int64,
+                           device=self.device).expand_as(x)
+        return (x.clone(), torch.where(inf, one, y),
+                torch.where(inf, torch.zeros_like(x), one))
 
     def _check(self, packed: list[bytes], counts: list[int],
                offsets: list[int]) -> None:
@@ -572,7 +685,7 @@ class DeviceBases:
             acc = tuple(torch.empty((len(idx), W * B, 4), dtype=torch.int64,
                                     device=self.device) for _ in range(3))
             for j, i in enumerate(idx):
-                lanes = digit_lanes(scalars[i], c, offsets[i])
+                lanes = digit_lanes(scalars[i], c, offsets[i], self.inf)
                 starts = lanes[2]
                 depth.append((counts[i], W * B, torch.stack([
                     (starts[1:] - starts[:-1]).max(), starts[-1]])))
@@ -596,12 +709,12 @@ class DeviceBases:
 
     def finish(self, handle) -> list:
         """Collect a ``start()`` batch (waits for the device): list of
-        affine G1 (``window_points``). Records each MSM's deepest lane
+        affine G1 (``affine_points``). Records each MSM's deepest lane
         (entries) beside the mean over its lanes (``telemetry.lane_depth``)."""
         parts, k, site, depth = handle
         out: list = [None] * k
-        for R, idx, c in parts:
-            for i, pt in zip(idx, window_points(R, c)):
+        for R, idx, _ in parts:
+            for i, pt in zip(idx, affine_points(R)):
                 out[i] = pt
         if depth:
             got = torch.stack([d for _, _, d in depth]).tolist()

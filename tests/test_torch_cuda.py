@@ -46,7 +46,7 @@ def _equal(got, want):
 
 
 def test_pp_add_kernel_matches_plain(gpu, srs):
-    bases = srs.device_bases(gpu, gate.forced("device")).bases
+    bases = srs.device_bases(gpu, gate.forced("device")).projective()
     rng = np.random.default_rng(11)
     i1, i2 = (torch.from_numpy(rng.integers(0, N, size=4096)).to(gpu)
               for _ in range(2))
@@ -92,7 +92,7 @@ def test_bucket_kernel_deep_lane_matches_plain(gpu, srs, depth, run, L):
     """Kernel 2 against its plain version on a lane of depth >= 2^16 (far
     over 32 x the mean, which the reference's grid refuses) among L - 1
     lanes of a few entries and empty ones: its runs joined through several
-    levels, level 1 a thread a chunk (64 lanes: 4 runs a lane or more on
+    levels, level 1 a thread a chunk (64 lanes: 3 runs a lane or more on
     average) or a thread a position (2^16 lanes)."""
     bases = srs.device_bases(gpu, gate.forced("device")).bases
     rng = np.random.default_rng(depth + run)
@@ -103,7 +103,9 @@ def test_bucket_kernel_deep_lane_matches_plain(gpu, srs, depth, run, L):
     E = int(starts[-1])
     lane = torch.repeat_interleave(torch.arange(L), torch.from_numpy(
         counts))
-    pts = torch.from_numpy(rng.integers(0, N, size=E))
+    # a point id with SIGN_BIT in int32's sign: a negative digit
+    pts = torch.from_numpy(rng.integers(0, N, size=E) - dmsm.SIGN_BIT * (
+        rng.random(E) < 0.5))
     lanes = tuple(t.to(torch.int32).to(gpu) for t in (lane, pts, starts))
     levels = dmsm.accumulate_levels(E, run)
     assert len(levels) >= 4  # the deep lane's heads reach level 3
@@ -157,19 +159,20 @@ def test_device_msm_matches_host_on_gpu(gpu, srs, kind):
     W = dmsm.window_shape(cc)[0]
     for k, n in (("bucket_accumulate",
                   len(dmsm.accumulate_levels(W * N))),
-                 ("bucket_combine", 2 if G > 1 else 1)):
+                 ("bucket_combine", 3 if G > 1 else 2)):
         assert telemetry.launches()[k] - before.get(k, 0) == n
 
 
 @pytest.mark.parametrize("k,c", [(3, 6), (1, 12), (2, 14), (1, 14),
                                  (16, 12), (1, 16), (5, 16)])
 def test_combine_kernel_matches_plain(gpu, srs, k, c):
-    """Kernel 3 against its plain version at the blocks per window the
-    card's rule gives (G = 16 for one MSM at c = 14; from c = 16, 64-thread
-    blocks filling one wave: G = 49 for one MSM, 9 for five): projective bucket
-    sums, a fifth of them the identity, and the add's edge cases (doubling,
-    P + (-P), coordinates near p) in the first lanes of every MSM."""
-    bases = srs.device_bases(gpu, gate.forced("device")).bases
+    """Kernel 3 and its fold against its plain version at the blocks per
+    window the card's rule gives (G = 8 for one MSM at c = 14; from c = 16,
+    64-thread blocks filling one wave: G = 32 for one MSM, 8 for five):
+    projective bucket sums, a fifth of them the identity, and the add's
+    edge cases (doubling, P + (-P), coordinates near p) in the first lanes
+    of every MSM."""
+    bases = srs.device_bases(gpu, gate.forced("device")).projective()
     W, B, _ = dmsm.window_shape(c)
     L = W * B
     rng = np.random.default_rng(14)
@@ -190,10 +193,66 @@ def test_combine_kernel_matches_plain(gpu, srs, k, c):
     before = telemetry.launches().get("bucket_combine", 0)
     got = dmsm.bucket_combine(acc, c)
     assert telemetry.launches()["bucket_combine"] - before == (
-        2 if G > 1 else 1)
+        3 if G > 1 else 2)
     assert (L, G) in telemetry.snapshot()["lanes"]["bucket_combine"]
-    assert got[0].shape == (k, W, 4)
+    assert got[0].shape == (k, 4)
     assert _equal(got, dmsm.bucket_combine_plain(acc, c, G))
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4, 8, 32])
+def test_combine_kernel_partitions_match_plain(gpu, srs, groups):
+    """Kernel 3 at forced blocks a window, past the card's rule: at c = 6
+    (32 lanes, 16 threads a block) G = 2 leaves one lane a thread and G
+    >= 4 threads with none; the top window's 8 sub-lanes a bucket then
+    span several threads (chunk < S) or a thread several buckets."""
+    c, k = 6, 3
+    W, B, _ = dmsm.window_shape(c)
+    rng = np.random.default_rng(groups)
+    P = srs.device_bases(gpu, gate.forced("device")).projective()
+    i1, i2 = (torch.from_numpy(rng.integers(0, N, size=k * W * B)).to(gpu)
+              for _ in range(2))
+    acc = tuple(t.reshape(k, W * B, 4) for t in curve.pp_add(
+        tuple(b[i1] for b in P), tuple(b[i2] for b in P)))
+    got = dmsm.bucket_combine(acc, c, groups)
+    assert _equal(got, dmsm.bucket_combine_plain(acc, c, groups))
+
+
+def test_bucket_kernel_mixed_add_edges(gpu, srs):
+    """Kernel 2's mixed add at its edges, against its plain version and
+    big-int points: one lane of A, -A (the sum then the identity), B, B
+    (a doubling), -B, A, A at runs of 1 to 7 entries; and bases of raw
+    coordinates near p (field elements, not curve points) with both
+    signs, for the carries and the final reductions."""
+    engine = srs.device_bases(gpu, gate.forced("device"))
+    sign = dmsm.SIGN_BIT
+    ids = [5, 5 - sign, 7, 7, 7 - sign, 5, 5]
+    lanes = (torch.zeros(7, dtype=torch.int32, device=gpu),
+             torch.tensor(ids, dtype=torch.int32, device=gpu),
+             torch.tensor([0, 7], dtype=torch.int32, device=gpu))
+    a, b = (curve.tensors_to_points(tuple(t[i:i + 1].cpu() for t in
+                                          engine.projective()))[0]
+            for i in (5, 7))
+    for run in (1, 2, 3, 7):
+        got = dmsm.bucket_accumulate(engine.bases, lanes, run=run)
+        assert _equal(got, dmsm.bucket_accumulate_plain(engine.bases, lanes,
+                                                        run))
+        assert curve.tensors_to_points(tuple(t.cpu() for t in got)) == [
+            a + a + b]
+    from jolt_atlas_tpu_torch.device import field as dfield
+    near = [dfield.P - 1, dfield.P - 2, dfield.P - (1 << 64),
+            (1 << 255) % dfield.P, 1, 3]
+    raw = tuple(dfield.ints_to_tensor(near[i:] + near[:i], gpu)
+                for i in (0, 2))
+    E = 24
+    rng = np.random.default_rng(7)
+    pts = torch.from_numpy(rng.integers(0, 6, size=E) - sign * (
+        rng.random(E) < 0.5)).to(torch.int32).to(gpu)
+    lane = torch.from_numpy(np.repeat(np.arange(4), 6)).to(torch.int32)
+    lanes = (lane.to(gpu), pts,
+             torch.tensor([0, 6, 12, 18, 24], dtype=torch.int32, device=gpu))
+    for run in (1, 4, 16):
+        assert _equal(dmsm.bucket_accumulate(raw, lanes, run=run),
+                      dmsm.bucket_accumulate_plain(raw, lanes, run))
 
 
 def test_device_msm_takes_skewed_batch_on_gpu(gpu):
@@ -508,7 +567,7 @@ def test_pp_add_kernel_lazy_sums_edges_and_full_width(gpu, srs):
     """Kernel 1's lazy sums where t4 = 0 (identity + identity: p itself
     as a factor), with an affine point and its inverse beside it, and at
     the gate's 2^17 lanes of projective inputs."""
-    bases = srs.device_bases(gpu, gate.forced("device")).bases
+    bases = srs.device_bases(gpu, gate.forced("device")).projective()
     ident = curve.pp_identity(64, gpu)
     P = tuple(torch.cat([a, b[:64]]) for a, b in zip(ident, bases))
     Q = tuple(torch.cat([a, b[:64]]) for a, b in zip(ident, bases))

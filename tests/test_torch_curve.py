@@ -225,3 +225,80 @@ def test_lazy_complete_add_model(pairs):
                            "fq.cuh")).read()
     assert "mont_mul_sum2<FqField>(t3, t1, mont_neg_raw<FqField>(t4), Y3)" \
         in fq
+
+
+def _mont_ints(t):
+    return F.tensor_to_ints(t)
+
+
+def _affine_of(points):
+    """Finite points -> (x, y) Montgomery limb tensors."""
+    (xy, inf) = curve.points_to_affine(points, "cpu")
+    assert not inf.any()
+    return xy
+
+
+class TestMixedAddAndDoubling:
+    """Kernels 2 and 3's mixed add (RCB15 Algorithm 8) and doubling
+    (Algorithm 9), csrc/fq.cuh pm_add_dev and pp_double_dev, as their plain
+    versions. Tolerance: exact, limb for limb and point for point."""
+
+    def _cases(self, pairs):
+        """(P1 projective, P2 affine finite, big-int P1, big-int P2): random
+        pairs with P1 projective (a sum, Z != 1), then P1 the identity, P1 =
+        P2, P1 = -P2 and P2 a negated base."""
+        A, B = pairs[0][:256], pairs[1][:256]
+        S = curve.pp_add_plain(_to_tensors(A), _to_tensors(A[1:] + A[:1]))
+        want1 = [a + b for a, b in zip(A, A[1:] + A[:1])]
+        g = ref_points.g1_generator()
+        p, q = g * 11, g * 13
+        edge1 = [ref_points.G1.identity(), p, p, q]
+        edge2 = [p, p, -p, q]
+        P1 = tuple(torch.cat([s, e]) for s, e in
+                   zip(S, _to_tensors(edge1)))
+        x2, y2 = _affine_of(B + edge2)
+        neg = torch.zeros(len(B) + 4, dtype=torch.bool)
+        neg[::3] = True  # every third base negated, as a negative digit
+        y2 = torch.where(neg.unsqueeze(-1), curve.neg_y(y2), y2)
+        Q = [(-b if m else b) for b, m in zip(B + edge2, neg.tolist())]
+        return P1, (x2, y2), want1 + edge1, Q
+
+    def test_mixed_add_matches_bigint_and_projective_add(self, pairs):
+        P1, Q, Pref, Qref = self._cases(pairs)
+        got = curve.pm_add_plain(P1, Q)
+        assert _to_ref(got) == [a + b for a, b in zip(Pref, Qref)]
+        one = torch.tensor(F.MONT_ONE_64, dtype=torch.int64).expand_as(Q[0])
+        # Algorithm 7 at Z2 = 1: the same projective triples
+        for g, w in zip(got, curve.pp_add_plain(P1, Q + (one,))):
+            assert torch.equal(g, w)
+
+    def test_mixed_add_near_p(self):
+        """Raw coordinates near p (field elements, not curve points): the
+        same triples as the projective add at Z2 = 1."""
+        Pe, Qe = curve.edge_case_pairs("cpu")
+        Q = (Qe[0], Qe[1])
+        one = torch.tensor(F.MONT_ONE_64, dtype=torch.int64).expand_as(Q[0])
+        for g, w in zip(curve.pm_add_plain(Pe, Q),
+                        curve.pp_add_plain(Pe, Q + (one,))):
+            assert torch.equal(g, w)
+
+    def test_doubling_matches_bigint_and_model(self, pairs):
+        """2P of projective sums, affine points and the identity as
+        big-int points; near p, limb for limb the big-int model of
+        Algorithm 9."""
+        A = pairs[0][:128] + [ref_points.G1.identity()]
+        S = curve.pp_add_plain(_to_tensors(A), _to_tensors(A[1:] + A[:1]))
+        sums = [a + b for a, b in zip(A, A[1:] + A[:1])]
+        assert _to_ref(curve.pp_double_plain(S)) == [s + s for s in sums]
+        assert _to_ref(curve.pp_double_plain(_to_tensors(A))) == \
+            [a + a for a in A]
+        Pe, _ = curve.edge_case_pairs("cpu")
+        rinv = pow(1 << 256, -1, P)
+        mul = lambda a, b: a * b * rinv % P
+        got = list(zip(*(_mont_ints(t) for t in curve.pp_double_plain(Pe))))
+        for (x, y, z), g in zip(zip(*(_mont_ints(t) for t in Pe)), got):
+            t0, t2 = mul(y, y), 9 * mul(z, z) % P
+            d = (t0 - 3 * t2) % P
+            assert g == (2 * mul(d, mul(x, y)) % P,
+                         (mul(t2, 8 * t0 % P) + mul(d, t0 + t2)) % P,
+                         mul(mul(y, z), 8 * t0 % P))

@@ -22,7 +22,7 @@ from jolt_atlas_tpu.commitment.kzg import KZGSRS as RefSRS
 from jolt_atlas_tpu.curve import native as ref_native
 from jolt_atlas_tpu.curve.msm import msm as python_msm
 from jolt_atlas_tpu.curve.native import pack_scalars
-from jolt_atlas_tpu.field.constants import FR_MODULUS
+from jolt_atlas_tpu.field.constants import FQ_MODULUS as F_P, FR_MODULUS
 from jolt_atlas_tpu.tpu import msm as tmsm
 from jolt_atlas_tpu_torch.device import curve, gate, msm as dmsm, split
 from jolt_atlas_tpu_torch.device import telemetry
@@ -215,43 +215,125 @@ def test_base_range_is_checked(setup):
         dev.msm_packed(packed, 9)
 
 
-def _grid_from_lanes(lanes, rows):
-    """The reference's (rows, L) grid layout of digit lanes: entry e of
-    lane l in row e - starts[l], -1 for an empty slot."""
-    lane, pts, starts = (t.numpy().astype(np.int64) for t in lanes)
-    L = len(starts) - 1
-    E = starts[L]
-    grid = np.full((rows, L), -1, dtype=np.int32)
-    grid[np.arange(E) - starts[lane[:E]], lane[:E]] = pts[:E]
-    assert (lane[E:] == L).all()  # the dropped digit-0 entries sort last
-    return grid
+def _np_signed(digits: np.ndarray, c: int) -> np.ndarray:
+    """The reference's unsigned (W, n) window digits (tpu/msm.py:_digits)
+    recoded into signed ones in numpy: a digit above 2^(c-1), with the
+    carry, becomes d - 2^c and carries one into the next window; the top
+    window takes the last carry."""
+    out = digits.astype(np.int64)
+    carry = np.zeros(out.shape[1], dtype=np.int64)
+    for w in range(out.shape[0]):
+        out[w] += carry
+        if w < out.shape[0] - 1:
+            carry = (out[w] > 1 << (c - 1)).astype(np.int64)
+            out[w] -= carry << c
+    return out
+
+
+def _np_lanes(packed: bytes, n: int, c: int, offset: int = 0, inf=None):
+    """digit_lanes in numpy from the reference's digits: window w's digit d
+    to lane w B + |d| - 1, the top window's to (W - 1) B + (d - 1) S + i mod
+    S; digit 0 and infinity bases dropped to lane L; a stable sort by lane;
+    point ids offset + i with bit 31 set for a negative digit."""
+    sc = np.frombuffer(packed, dtype=np.uint64).reshape(-1, 4)[:n]
+    d = _np_signed(tmsm._digits(sc, c), c)
+    W, B, S = dmsm.window_shape(c)
+    L = W * B
+    lane = np.arange(W)[:, None] * B + np.abs(d) - 1
+    if S > 1:
+        lane[W - 1] = (W - 1) * B + (d[W - 1] - 1) * S + np.arange(n) % S
+    keep = d != 0
+    if inf is not None:
+        keep &= ~np.asarray(inf)[offset:offset + n]
+    lane = np.where(keep, lane, L).ravel()
+    order = np.argsort(lane, kind="stable")
+    pts = order % n + offset + np.where(d.ravel()[order] < 0, 1 << 31, 0)
+    starts = np.zeros(L + 1, dtype=np.int64)
+    np.cumsum(np.bincount(lane, minlength=L + 1)[:L], out=starts[1:])
+    return lane[order], pts.astype(np.uint32).view(np.int32), starts
+
+
+CARRY_ALL = "carry_all"  # every window below the top carries into it
+
+
+def _digit_case(kind, c):
+    """Scalars of a recoding case: the module's cases, 0, and scalars whose
+    every window carries into the next up to the top one: each window
+    below it 2^c - 1 (digits 0 after the first, carrying on), with the top
+    window 0 and at the largest that keeps the scalar below r, and each
+    2^(c-1) + 1 (every digit negative)."""
+    if kind == "zero":
+        return [0, 0, 0]
+    if kind == CARRY_ALL:
+        W = dmsm.window_shape(c)[0]
+        k = (W - 1) * c
+        low = (1 << k) - 1
+        top = ((FR_MODULUS - 1) >> k) - 1
+        half = sum(((1 << (c - 1)) + 1) << (c * w) for w in range(W - 1))
+        return [low, low | (top << k), half]
+    return _case(kind)
+
+
+@pytest.mark.parametrize("c", [6, 12, 14, 16])
+@pytest.mark.parametrize("kind", ["random254", "bits16", "zero",
+                                  "r_minus_1", CARRY_ALL])
+def test_signed_digits_recode_scalars(c, kind):
+    """sum_w d_w 2^(c w) is the scalar, every digit in [-2^(c-1),
+    2^(c-1)], the top one in [0, 2^topbits]; a carry into the top window
+    where every window below it carries."""
+    scalars = _digit_case(kind, c)
+    packed = pack_scalars(scalars)
+    d = dmsm.signed_digits(dmsm.scalars_tensor(packed, len(scalars), "cpu"),
+                           c)
+    W, B, S = dmsm.window_shape(c)
+    assert d.shape == (W, len(scalars))
+    assert int(d.abs().max()) <= B and int(d[W - 1].min()) >= 0
+    assert int(d[W - 1].max()) <= B // S
+    for i, x in enumerate(scalars):
+        assert sum(int(d[w, i]) << (c * w) for w in range(W)) == x
+    if kind == CARRY_ALL:
+        assert int(d[0, 0]) == -1 and not d[1:W - 1, 0].any()
+        assert (d[:W - 1, 2] < 0).all()
+        assert d[W - 1].tolist() == [1, ((FR_MODULUS - 1) >> (
+            (W - 1) * c)), 1]
+    assert np.array_equal(d.numpy(), _np_signed(tmsm._digits(
+        np.frombuffer(packed, dtype=np.uint64).reshape(-1, 4), c), c))
 
 
 @pytest.mark.parametrize("c", [4, 6, 12])
 @pytest.mark.parametrize("kind", ["random254", "bits16"])
 def test_digit_grid_matches_reference(c, kind):
+    """The device's signed digit lanes equal a numpy recoding of the
+    reference's digits (tpu/msm.py:_digits), entry for entry, at a zero
+    and a nonzero base offset and with bases at infinity dropped."""
     scalars = _case(kind)
+    n = len(scalars)
     packed = pack_scalars(scalars)
-    sc = np.frombuffer(packed, dtype=np.uint64).reshape(-1, 4)
-    want = tmsm._grid(tmsm._digits(sc, c), c)
-    sct = dmsm.scalars_tensor(packed, len(scalars), "cpu")
-    got = _grid_from_lanes(dmsm.digit_lanes(sct, c), want.shape[0])
-    assert np.array_equal(got, want)
-    shifted = _grid_from_lanes(dmsm.digit_lanes(sct, c, offset=7),
-                               want.shape[0])
-    assert np.array_equal(shifted, np.where(want >= 0, want + 7, -1))
+    sct = dmsm.scalars_tensor(packed, n, "cpu")
+    inf = np.zeros(n + 7, dtype=bool)
+    inf[[3, 40, 41, n + 6]] = True
+    for offset, mask in ((0, None), (7, None), (7, inf)):
+        got = dmsm.digit_lanes(
+            sct, c, offset, None if mask is None else torch.from_numpy(mask))
+        want = _np_lanes(packed, n, c, offset, mask)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            assert np.array_equal(g.numpy().astype(np.int64),
+                                  w.astype(np.int64))
+    assert (got[1] < 0).any()  # negative digits carry bit 31
 
 
 def _accum_bases(kind):
-    """The bases of an accumulate case: the SRS's own, or 64 points with
-    repeats (doublings inside a lane) and the point at infinity."""
+    """The bases of an accumulate case, affine, with their infinity mask:
+    the SRS's own, or 64 points with repeats (doublings inside a lane) and
+    two points at infinity."""
     from jolt_atlas_tpu_torch.curve.points import G1, g1_generator
     if kind != "dups":
         return None
     g = g1_generator()
     pts = [g * (1 + i % 5) for i in range(64)]
     pts[3] = pts[10] = G1.identity()
-    return curve.points_to_tensors(pts, "cpu")
+    return curve.points_to_affine(pts, "cpu")
 
 
 def _accum_scalars(kind, n):
@@ -269,36 +351,35 @@ def _accum_scalars(kind, n):
             for _ in range(n)]
 
 
-def _grid_oracle(bases, packed, n):
-    """The bucket sums of the reference's host grid (tpu/msm.py:_grid) at
-    window C, in big-int points; for scalars its grid refuses as skewed,
-    its digits (tpu/msm.py:_digits) summed into their lanes by the same
-    rule (the top window round-robined over S sub-lanes)."""
+def _base_points(bases, inf=None) -> list:
+    """Affine (x, y) Montgomery limb tensors -> list[G1] (infinity where
+    ``inf``)."""
     from jolt_atlas_tpu_torch.curve.points import G1
-    base_pts = _affine(bases)
-    sc = np.frombuffer(packed, dtype=np.uint64).reshape(-1, 4)
-    digits = tmsm._digits(sc, C)
-    W, B, S = dmsm.window_shape(C)
-    try:
-        cols = [col[col >= 0] for col in tmsm._grid(digits, C).T]
-    except tmsm._GridSkewError:
-        cols = [[] for _ in range(W * B)]
-        for w in range(W):
-            for i, d in enumerate(digits[w]):
-                if d:
-                    top = w == W - 1 and S > 1
-                    cols[w * B + (d * S + i % S if top else d)].append(i)
-    want = []
-    for col in cols:
-        total = G1.identity()
-        for i in col:
-            total = total + base_pts[i]
-        want.append(total)
+    rinv = pow(1 << 256, -1, F_P)
+    xs, ys = (curve.F.tensor_to_ints(b) for b in bases)
+    mask = [False] * len(xs) if inf is None else inf.tolist()
+    return [G1.identity() if m else G1(x * rinv % F_P, y * rinv % F_P)
+            for x, y, m in zip(xs, ys, mask)]
+
+
+def _grid_oracle(bases, packed, n, inf=None):
+    """The bucket sums of the signed digit lanes at window C in big-int
+    points: each entry of the numpy recoding of the reference's digits
+    (``_np_lanes``) adds its base to its lane, negated for a negative
+    digit."""
+    from jolt_atlas_tpu_torch.curve.points import G1
+    base_pts = _base_points(bases, inf)
+    lane, pts, starts = _np_lanes(packed, n, C, 0, inf)
+    L = len(starts) - 1
+    want = [G1.identity() for _ in range(L)]
+    for ln, p in zip(lane[:starts[L]], pts[:starts[L]]):
+        pt = base_pts[int(p) & 0x7fffffff]
+        want[ln] = want[ln] + (-pt if p < 0 else pt)
     return want
 
 
 @pytest.mark.parametrize("kind,n,run", [("random254", 200, 5),
-                                        ("deep", 160, 4),
+                                        ("deep", 160, 3),
                                         ("zeros", 64, 16),
                                         ("dups", 64, 3),
                                         ("random254", 100, 1),
@@ -306,15 +387,17 @@ def _grid_oracle(bases, packed, n):
                                         ("skew", 480, 2)])
 def test_accumulate_plain_matches_grid_oracle(setup, kind, n, run):
     """Kernel 2's plain version at a run length against the bucket sums of
-    the reference's host grid (tpu/msm.py:_grid) in big-int points: lanes
-    cut by runs (a deep lane across many), a run length that does not
-    divide the entry count, empty lanes, all-zero scalars, repeated bases,
-    the point at infinity, and a lane over 32 x the mean (which the
-    reference's grid refuses) cut across runs and two levels of joins."""
+    the signed digits in big-int points: lanes cut by runs (a deep lane
+    across many), a run length that does not divide the entry count, empty
+    lanes, all-zero scalars, negative digits (negated bases), repeated
+    bases, bases at infinity (dropped), and a lane over 32 x the mean
+    (which the reference's grid refuses) cut across runs and two levels of
+    joins."""
     _, _, dev = setup
-    bases = _accum_bases(kind) or dev.bases
+    bases, inf = _accum_bases(kind) or (dev.bases, None)
     packed = pack_scalars(_accum_scalars(kind, n))
-    lanes = dmsm.digit_lanes(dmsm.scalars_tensor(packed, n, "cpu"), C)
+    lanes = dmsm.digit_lanes(dmsm.scalars_tensor(packed, n, "cpu"), C, 0,
+                             inf)
     E = int(lanes[2][-1])
     depth = int((lanes[2][1:] - lanes[2][:-1]).max())
     if kind == "deep":
@@ -322,8 +405,13 @@ def test_accumulate_plain_matches_grid_oracle(setup, kind, n, run):
     if kind == "skew":
         assert depth > 32 * E / (lanes[2].shape[0] - 1)
         assert depth > run * dmsm.ACCUM_JOIN  # its heads reach level 2
+    if kind in ("random254", "dups"):
+        assert (lanes[1][:E] < 0).any()  # negative digits
+    if kind == "dups":
+        assert E < int((dmsm.signed_digits(dmsm.scalars_tensor(
+            packed, n, "cpu"), C) != 0).sum())  # infinity entries dropped
     got = _affine(dmsm.bucket_accumulate_plain(bases, lanes, run))
-    assert got == _grid_oracle(bases, packed, n)
+    assert got == _grid_oracle(bases, packed, n, inf)
     assert got == _affine(dmsm.bucket_accumulate(bases, lanes, run=run))
 
 
@@ -357,12 +445,15 @@ def test_accumulate_levels_plan():
     ((1 << 24) - 3, 16, 1),    # the flagship's witness
     (1 << 23, 16, 1),          # its largest fold
     (1 << 20, 4, 1),           # chip_smoke.py's hold of that class
-    (1 << 21, 16, 0),          # the GPT-2-style slice's witness
-    ((1 << 22) - 1, 16, 0)])   # just under 4 runs a lane
+    ((1 << 21) - 3, 16, 1),    # the GPT-2-style slice's witness
+    (1 << 20, 16, 0),          # its largest fold, 2 runs a lane
+    (3 << 19, 16, 1),          # 3 runs a lane
+    ((3 << 19) - 1, 16, 0)])   # just under 3 runs a lane
 def test_accumulate_class_follows_level1_rule(n, run, chunked):
     """Kernel 2's launch class, as telemetry records it: (L, 1) where the
-    lanes average 4 runs or more, so level 1 takes a thread a chunk; the
-    entries are W x n whatever the scalars (digit 0 included)."""
+    lanes (2^(c-1) a window) average 3 runs or more, so level 1 takes a
+    thread a chunk; the entries are W x n whatever the scalars (digit 0
+    included)."""
     c = dmsm._pick_c(n)
     W, B, _ = dmsm.window_shape(c)
     one = torch.zeros(1, dtype=torch.int32)
@@ -376,8 +467,10 @@ def test_window_and_budget_rules_match_reference():
         assert dmsm._pick_c(n) == tmsm._pick_c(n)
     for c in (4, 6, 12, 14, 16):
         W, B, S = dmsm.window_shape(c)
-        assert (W, B) == ((tmsm._NBITS + c - 1) // c, 1 << c)
+        assert (W, B) == ((tmsm._NBITS + c - 1) // c, 1 << (c - 1))
         assert S == B >> (tmsm._NBITS - (W - 1) * c)
+    with pytest.raises(ValueError):  # its top digit would reach 2^c
+        dmsm.window_shape(2)
 
 
 # ---------------------------------------------------------------------------
@@ -386,10 +479,11 @@ def test_window_and_budget_rules_match_reference():
 # ---------------------------------------------------------------------------
 
 def _loop_combine(acc, c):
-    """The combine of the port's first slice, kept as a reference: fold
-    the top window's sub-lanes by halving adds, then sum_b b * S_b as
-    Gl * sum_h h * U_h + sum_l l * V_l (b = h * Gl + l) by loops of adds,
-    the order of tpu/msm.py:_combine_kernel."""
+    """The combine of the port's first slice, kept as a reference, on the
+    signed digits' lanes: fold the top window's sub-lanes by halving adds,
+    then sum_b (b + 1) S_b as Gl * sum_h h * U_h + sum_l l * V_l + sum_b
+    S_b (b = h * Gl + l) by loops of adds, the order of
+    tpu/msm.py:_combine_kernel. -> window sums (k, W, 4) x 3."""
     add = curve.pp_add_plain
     k = acc[0].shape[0]
     W, B, S = dmsm.window_shape(c)
@@ -421,8 +515,9 @@ def _loop_combine(acc, c):
             wsum = add(wsum, run)
         return wsum
 
-    ch = c // 2
-    Gh, Gl = 1 << (c - ch), 1 << ch
+    cb = c - 1  # log2 of the lanes a window
+    ch = cb // 2
+    Gh, Gl = 1 << (cb - ch), 1 << ch
     Sp = tuple(p.reshape(k, W, Gh, Gl, 4) for p in acc)
     U = reduce0(tuple(p.movedim(3, 0) for p in Sp))
     V = reduce0(tuple(p.movedim(2, 0) for p in Sp))
@@ -430,7 +525,27 @@ def _loop_combine(acc, c):
     Wl = weighted(tuple(p.movedim(2, 0) for p in V))
     for _ in range(ch):
         Wh = add(Wh, Wh)
-    return add(Wh, Wl)
+    return add(add(Wh, Wl), reduce0(tuple(p.movedim(2, 0) for p in U)))
+
+
+def _horner(windows, c):
+    """The host Horner that kernel 3's fold replaces (the port's
+    window_points before it): window sums (k, W, 4) x 3 -> each MSM's
+    affine G1 by Jacobian doublings and adds in Python, lowest window
+    first."""
+    from jolt_atlas_tpu_torch.curve.points import (
+        jacobian_add_affine, jacobian_double, jacobian_to_affine, JINF)
+    k = windows[0].shape[0]
+    out = []
+    for j in range(k):
+        total = JINF
+        for p in reversed(curve.tensors_to_points(
+                tuple(t[j] for t in windows))):
+            for _ in range(c):
+                total = jacobian_double(total)
+            total = jacobian_add_affine(total, p)
+        out.append(jacobian_to_affine(total))
+    return out
 
 
 def _affine(P):
@@ -446,7 +561,8 @@ def _bucket_sums(dev, k, c, seed):
     L = W * B
     rng = np.random.default_rng(seed)
     idx = [torch.from_numpy(rng.integers(0, N, size=k * L)) for _ in range(2)]
-    acc = curve.pp_add_plain(*(tuple(b[i] for b in dev.bases) for i in idx))
+    proj = dev.projective()
+    acc = curve.pp_add_plain(*(tuple(b[i] for b in proj) for i in idx))
     acc = tuple(t.reshape(k, L, 4).clone() for t in acc)
     ident = torch.from_numpy(rng.random((k, L)) < 0.2)
     one = curve.pp_identity(1, "cpu")
@@ -461,39 +577,54 @@ def _bucket_sums(dev, k, c, seed):
     return acc
 
 
-def _oracle(acc, c):
-    """sum_b b * S_b per (MSM, window) in big-int point arithmetic, the top
-    window's sub-lanes summed into their bucket."""
+def _window_oracle(acc, c, lanes=None):
+    """sum_j weight(j) S_j per (MSM, window) in big-int point arithmetic,
+    weight(j) = j / S + 1 (S the window's sub-lanes a bucket); ``lanes``:
+    the only lanes that are not the identity. -> [[G1] * W] * k."""
     from jolt_atlas_tpu_torch.curve.points import G1
     k = acc[0].shape[0]
     W, B, S = dmsm.window_shape(c)
-    pts = _affine(acc)
+    lanes = list(range(W * B)) if lanes is None else list(lanes)
     out = []
     for m in range(k):
-        for w in range(W):
-            s = S if w == W - 1 else 1
-            total = G1.identity()
-            for j in range(s, B):
-                total = total + pts[(m * W + w) * B + j] * (j // s)
-            out.append(total)
+        pts = _affine(tuple(a[m, lanes] for a in acc))
+        win = [G1.identity()] * W
+        for lane, pt in zip(lanes, pts):
+            w, j = divmod(lane, B)
+            win[w] = win[w] + pt * (j // (S if w == W - 1 else 1) + 1)
+        out.append(win)
+    return out
+
+
+def _oracle(acc, c, lanes=None):
+    """Each MSM's sum_w 2^(c w) (its window's sum), big-int points."""
+    from jolt_atlas_tpu_torch.curve.points import G1
+    out = []
+    for win in _window_oracle(acc, c, lanes):
+        total = G1.identity()
+        for w, pt in enumerate(win):
+            total = total + pt * (1 << (c * w))
+        out.append(total)
     return out
 
 
 @pytest.mark.parametrize("k,c", [(1, 4), (3, 5), (17, 4)])
 def test_bucket_combine_plain_matches_oracle_and_loop(setup, k, c):
+    """Kernel 3's plain version with its fold: one point an MSM, equal to
+    the first slice's loop combine followed by the host Horner it
+    replaces, and to the big-int oracle."""
     _, _, dev = setup
     acc = _bucket_sums(dev, k, c, seed=k * 100 + c)
     got = dmsm.bucket_combine_plain(acc, c)
-    W, _, _ = dmsm.window_shape(c)
-    assert got[0].shape == (k, W, 4)  # no padding of the batch
+    assert got[0].shape == (k, 4)  # no padding of the batch
     pts = _affine(got)
-    assert pts == _affine(_loop_combine(acc, c))
+    assert pts == _horner(_loop_combine(acc, c), c)
     assert pts == _oracle(acc, c)
 
 
 @pytest.fixture(scope="module")
 def group_case(setup):
-    """One MSM's bucket sums at c = 6 and their oracle window sums."""
+    """One MSM's bucket sums at c = 6 and their oracle point."""
     c = 6
     acc = _bucket_sums(setup[2], 1, c, seed=606)
     return c, acc, _oracle(acc, c)
@@ -502,22 +633,43 @@ def group_case(setup):
 @pytest.mark.parametrize("groups", [1, 2, 4, 8])
 def test_bucket_combine_plain_groups_match(group_case, groups):
     """Kernel 3's plain version with each (MSM, window) split over G
-    blocks (at G = 8 most threads get an empty range): the oracle's window
-    sums as affine points, for every G, so every G equals G = 1."""
+    blocks (at G = 8 most threads get an empty range): the oracle's point
+    for every G, so every G equals G = 1."""
     c, acc, want = group_case
     assert _affine(dmsm.bucket_combine_plain(acc, c, groups)) == want
 
 
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_combine_fold_matches_horner_and_host_msm(setup, groups):
+    """Real bucket sums (kernel 2's plain version on an MSM's signed digit
+    lanes) through kernel 3's plain version and its fold at G blocks a
+    window: the host csrc MSM's point, and the point of the host Horner
+    over the window sums the fold replaces."""
+    _, prep, dev = setup
+    c, n = 6, 300
+    packed = pack_scalars(_case("random254")[:n])
+    lanes = dmsm.digit_lanes(dmsm.scalars_tensor(packed, n, "cpu"), c)
+    acc = tuple(a.unsqueeze(0) for a in dmsm.bucket_accumulate_plain(
+        dev.bases, lanes))
+    [got] = _affine(dmsm.bucket_combine_plain(acc, c, groups))
+    want = prep.msm_packed(packed, n)
+    assert (got.x, got.y) == (want.x, want.y)
+    from jolt_atlas_tpu_torch.curve.points import G1
+    windows = curve.points_to_tensors(_window_oracle(acc, c)[0], "cpu")
+    [horner] = _horner(tuple(t.unsqueeze(0) for t in windows), c)
+    assert isinstance(horner, G1) and (horner.x, horner.y) == (got.x, got.y)
+
+
 def test_combine_groups_rule():
-    """Blocks per window on a 132-SM card at the prove's combine shapes:
-    one MSM at c = 14 fills 16 blocks a window (8 buckets a thread), at
-    c = 12 4 (8 a thread); a batch of 16 or 17 MSMs needs no split. From
-    c = 16 on, 64-thread blocks fill one wave of the card (384 threads an
-    SM): one MSM at c = 16 49 blocks a window (more than the 32 of the
-    doubling rule), the flagship's 5 folds at c = 16 9, one MSM at c = 18
-    52."""
-    assert dmsm.combine_groups(1, 14, 132) == 16
-    assert dmsm.combine_groups(1, 12, 132) == 4
+    """Blocks per window on a 132-SM card at the prove's combine shapes,
+    powers of two: one MSM at c = 14 fills 8 blocks a window, at c = 12 2
+    (8 lanes a thread either way); a batch of 16 or 17 MSMs needs no
+    split. From c = 16 on, 64-thread blocks fill one
+    wave of the card (384 threads an SM), down to a power of two: one MSM
+    at c = 16 32 blocks a window, the flagship's 5 folds at c = 16 8, one
+    MSM at c = 18 32."""
+    assert dmsm.combine_groups(1, 14, 132) == 8
+    assert dmsm.combine_groups(1, 12, 132) == 2
     assert dmsm.combine_groups(16, 12, 132) == 1
     assert dmsm.combine_groups(17, 14, 132) == 1
     for k, c in ((1, 14), (1, 12), (3, 14), (1, 4)):
@@ -525,14 +677,17 @@ def test_combine_groups_rule():
         _, B, _ = dmsm.window_shape(c)
         assert G == 1 or B // (G * dmsm.combine_threads(c)) >= 8
     assert dmsm.combine_threads(16) == dmsm.combine_threads(18) == 64
-    assert dmsm.combine_groups(1, 16, 132) == 49
-    assert dmsm.combine_groups(5, 16, 132) == 9
-    assert dmsm.combine_groups(1, 18, 132) == 52
-    for k, c in ((1, 16), (5, 16), (2, 16), (1, 18), (40, 16)):
+    assert dmsm.combine_groups(1, 16, 132) == 32
+    assert dmsm.combine_groups(5, 16, 132) == 8
+    assert dmsm.combine_groups(1, 18, 132) == 32
+    for k, c in ((1, 16), (5, 16), (2, 16), (1, 18), (40, 16), (1, 12),
+                 (16, 12), (1, 5)):
         W, B, _ = dmsm.window_shape(c)
         G, T = dmsm.combine_groups(k, c, 132), dmsm.combine_threads(c)
+        assert G & (G - 1) == 0 and T & (T - 1) == 0
         assert G == 1 or k * W * G * T <= 132 * dmsm.COMBINE_SM_THREADS
-        assert B // (G * T) >= dmsm.COMBINE_MIN_CHUNK
+        assert G == 1 or B // (G * T) >= dmsm.COMBINE_MIN_CHUNK
+        assert dmsm.combine_chunk(c, G) * G * T >= B
 
 
 def _sparse_bucket_sums(dev, k, c, seed):
@@ -550,8 +705,8 @@ def _sparse_bucket_sums(dev, k, c, seed):
         [1, 2, 3, 4]]))
     idx = [torch.from_numpy(rng.integers(0, N, size=(k, len(hot))))
            for _ in range(2)]
-    vals = curve.pp_add_plain(*(tuple(b[i] for b in dev.bases)
-                                for i in idx))
+    proj = dev.projective()
+    vals = curve.pp_add_plain(*(tuple(b[i] for b in proj) for i in idx))
     for a, v in zip(acc, vals):
         a[:, hot] = v
     Pe, Qe = curve.edge_case_pairs("cpu")  # Pe[0] = A, Qe[1] = -A
@@ -565,25 +720,14 @@ def _sparse_bucket_sums(dev, k, c, seed):
 @pytest.mark.parametrize("k,c", [(1, 16)])
 def test_bucket_combine_plain_wide_window_matches_oracle(setup, k, c):
     """Kernel 3's plain version at the card's plan for c >= 16 (64 threads
-    a block, the one-wave G: 49 blocks a window) against sum_b b * S_b in
-    big-int points, on sparse bucket sums (the oracle walks only the lanes
-    that are not the identity). ~1 min: the plain version adds all 2^20
-    lanes."""
-    from jolt_atlas_tpu_torch.curve.points import G1
+    a block, the one-wave G: 32 blocks a window) against each MSM's sum_w
+    2^(c w) sum_b b S_b in big-int points, on sparse bucket sums (the
+    oracle walks only the lanes that are not the identity)."""
     _, _, dev = setup
     acc, hot = _sparse_bucket_sums(dev, k, c, seed=16 * k + c)
     G = dmsm.combine_groups(k, c, 132)
     got = _affine(dmsm.bucket_combine_plain(acc, c, G))
-    W, B, S = dmsm.window_shape(c)
-    want = []
-    for m in range(k):
-        pts = _affine(tuple(a[m, hot] for a in acc))
-        win = [G1.identity()] * W
-        for lane, pt in zip(hot.tolist(), pts):
-            w, j = divmod(lane, B)
-            win[w] = win[w] + pt * (j // (S if w == W - 1 else 1))
-        want += win
-    assert got == want
+    assert got == _oracle(acc, c, hot.tolist())
 
 
 def test_batch_runs_each_msm_at_its_window(setup, monkeypatch):
@@ -613,16 +757,20 @@ def test_batch_runs_each_msm_at_its_window(setup, monkeypatch):
 
 def test_bucket_combine_wrapper_and_identity(setup):
     """On CPU tensors the wrapper is the plain version, launches nothing,
-    and checks the shape; all-identity buckets give identity windows."""
+    and checks the shape and the blocks a window (a power of two);
+    all-identity buckets give identity points, one an MSM."""
     W, B, _ = dmsm.window_shape(C)
     ident = tuple(t.reshape(2, W * B, 4)
                   for t in curve.pp_identity(2 * W * B, "cpu"))
     telemetry.reset()
     got = dmsm.bucket_combine(ident, C)
+    assert got[0].shape == (2, 4)
     assert all(p.infinity for p in _affine(got))
     assert telemetry.launches() == {}
     with pytest.raises(ValueError):
         dmsm.bucket_combine(tuple(t[:, :-1] for t in ident), C)
+    with pytest.raises(ValueError):
+        dmsm.bucket_combine(ident, C, groups=3)
 
 
 def test_telemetry_keeps_launch_lanes():
@@ -637,3 +785,31 @@ def test_telemetry_keeps_launch_lanes():
                              "pp_add": [1 << 17]}
     telemetry.reset()
     assert telemetry.snapshot()["lanes"] == {}
+
+
+def test_engine_drops_bases_at_infinity(setup):
+    """A device engine (plain versions on CPU tensors) over bases some of
+    which are the point at infinity (x = y = 0 in the prepared buffer): its
+    digit lanes drop their entries, and its points equal the host engine's
+    with those scalars set to 0, in one batch with a base offset."""
+    _, prep, _ = setup
+    raw = bytearray(prep.buf.raw[:64 * N])
+    zeroed = [0, 5, 17, 200, N - 1]
+    for i in zeroed:
+        raw[64 * i:64 * i + 64] = bytes(64)
+    engine = dmsm.DeviceBases(bytes(raw), N, "cpu", c=C)
+    assert engine.inf.nonzero().flatten().tolist() == zeroed
+    assert engine.bases[0].shape == (N, 4) and len(engine.bases) == 2
+    sc = _case("random254")
+    got = engine.msm_batch_packed([pack_scalars(sc[:300]),
+                                   pack_scalars(sc[300:400])],
+                                  [300, 100], offsets=[0, 150])
+    a = [0 if i in zeroed else x for i, x in enumerate(sc[:300])]
+    b = [0 if i + 150 in zeroed else x for i, x in enumerate(sc[300:400])]
+    want = [prep.msm_packed(pack_scalars(a), 300),
+            prep.msm_packed_at(150, pack_scalars(b), 100)]
+    assert [(g.x, g.y) for g in got] == [(w.x, w.y) for w in want]
+    P = engine.projective(8)
+    assert curve.tensors_to_points(P)[0].infinity
+    assert curve.tensors_to_points(P)[1:] == _base_points(
+        tuple(t[1:8] for t in engine.bases), engine.inf[1:8])
