@@ -1,0 +1,6 @@
+"""commit_s: seconds a proof in the program's ``commit`` span
+(utils/profiling.py), the mean over the window's proofs."""
+
+
+def read(r):
+    return r["phases"].get("commit")
