@@ -588,7 +588,9 @@ class DeviceGruen:
     an FrArray or a vector of small integers, as the host engine takes
     them. ``stats`` (the active IopScope) counts its device rounds. The
     steps are profiling spans (rows_upload, rows_points, rows_bind,
-    rows_handoff)."""
+    rows_handoff); each bind counts the row elements it binds (P x n) in
+    telemetry, as ``iop_rows_bound_card`` or, once handed to the host,
+    ``iop_rows_bound_host``."""
 
     def __init__(self, rows, terms, degree: int, device, head_rounds: int,
                  stats=None):
@@ -633,12 +635,14 @@ class DeviceGruen:
 
     def bind(self, r) -> None:
         if self._host is not None:
+            telemetry.tally("iop_rows_bound_host", self.P * self._host.n)
             self._host.bind(r)
             return
         with span("rows_bind"):
             c = torch.from_numpy(mont_rows([r])).to(self.device)
             self.x = bind_rows(self.x, c, self.n, self._init_off)
             telemetry.count("iop_rows")
+        telemetry.tally("iop_rows_bound_card", self.P * self.n)
         self.n //= 2
         self._rounds_left -= 1
         if self.n <= 1 or self._rounds_left <= 0:

@@ -12,7 +12,11 @@ plan), so a run can check that each one was held against the plain
 version. The plain PyTorch versions count nothing. ``lane_depth`` keeps
 each device MSM's deepest digit lane beside its mean, the skew that kernel
 2 carries (the reference's TPU grid refuses a lane deeper than max(64, 32
-x the mean)).
+x the mean)). ``tally`` counts the host's side of the work beside the
+dispatches: the calls into the host field engine (``host_field_calls``,
+field/frvec.py), the IOP's batched sumcheck rounds, the row elements the
+IOP's Gruen instances bind on the card and on the host; utils/profiling
+keeps each counter's change across a proof.
 """
 
 from __future__ import annotations
@@ -22,11 +26,31 @@ _DECISIONS: dict[str, str] = {}
 _LAUNCHES: dict[str, int] = {}
 _LANES: dict[str, set] = {}
 _DEPTHS: dict[str, list] = {}
+_COUNTERS: dict[str, int] = {}
 
 
 def count(engine: str, n: int = 1) -> None:
     """Record n device dispatches issued by an engine."""
     _COUNTS[engine] = _COUNTS.get(engine, 0) + n
+
+
+def tally(counter: str, n: int = 1) -> None:
+    """Add n to one of the host's work counters."""
+    _COUNTERS[counter] = _COUNTERS.get(counter, 0) + n
+
+
+def counted(counter: str, fn):
+    """``fn``, each call adding one to ``counter``."""
+    counts = _COUNTERS  # reset() clears it in place
+
+    def call(*args):
+        counts[counter] = counts.get(counter, 0) + 1
+        return fn(*args)
+    return call
+
+
+def counters() -> dict[str, int]:
+    return dict(_COUNTERS)
 
 
 def decide(engine: str, decision: str) -> None:
@@ -55,18 +79,21 @@ def launches() -> dict[str, int]:
 def snapshot() -> dict:
     """{"dispatches": {engine: n}, "decisions": {engine: reason},
     "launches": {kernel: n}, "lanes": {kernel: sorted launch shapes},
-    "msm_depth": {site: [[points, deepest lane, mean lane], ...]}}."""
+    "msm_depth": {site: [[points, deepest lane, mean lane], ...]},
+    "counters": {counter: n}}."""
     return {"dispatches": dict(_COUNTS), "decisions": dict(_DECISIONS),
             "launches": dict(_LAUNCHES),
             "lanes": {k: sorted(v) for k, v in _LANES.items()},
             "msm_depth": {k: [list(r) for r in v]
-                          for k, v in _DEPTHS.items()}}
+                          for k, v in _DEPTHS.items()},
+            "counters": dict(_COUNTERS)}
 
 
 def reset() -> None:
-    """Zero the dispatch and launch counts and forget the decisions, the
-    launch widths and the MSMs' lane depths."""
+    """Zero the dispatch, launch and work counts and forget the decisions,
+    the launch widths and the MSMs' lane depths."""
     _COUNTS.clear()
+    _COUNTERS.clear()
     _DEPTHS.clear()
     _LAUNCHES.clear()
     _LANES.clear()

@@ -47,7 +47,8 @@ def parser() -> argparse.ArgumentParser:
 def add_common(ap: argparse.ArgumentParser) -> None:
     """The flags every driver takes: --trace and --device."""
     ap.add_argument("--trace", action="store_true",
-                    help="print every profiling span of the prove")
+                    help="print the prove's spans as a tree: calls, wall, "
+                         "self and CPU seconds, cores")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default: the card) or cpu (the host "
                          "path)")
@@ -81,9 +82,10 @@ def prove_model(model, inputs: list, args, **prover) -> dict:
     under ``args.zk``) and verify the deserialized proof; prints the
     setup (the SRS apart from the bases' upload to the card), prove and
     verify lines, each engine's decision and the prove's phase spans
-    (every span under ``args.trace``). ``prover``: keyword
-    arguments of AtlasProver (gates, transcript_factory); the verifier
-    takes the same transcript. Raises if the verifier rejects the proof.
+    (under ``args.trace`` the tree of every span, profiling.report).
+    ``prover``: keyword arguments of AtlasProver (gates,
+    transcript_factory); the verifier takes the same transcript. Raises
+    if the verifier rejects the proof.
     Returns the preprocessing, proof, io, serialized bytes, seconds and
     the prove's telemetry."""
     from ..device import telemetry
@@ -121,6 +123,7 @@ def prove_model(model, inputs: list, args, **prover) -> dict:
     prove_s = time.time() - t0
     tele = telemetry.snapshot()
     events = profiling.events()
+    tree = profiling.report()
     profiling.enable(was)
     blob = serialize_proof(proof)
     print(f"  prove: {prove_s:.1f}s, proof {len(blob) / 1024:.1f} KB")
@@ -143,7 +146,7 @@ def prove_model(model, inputs: list, args, **prover) -> dict:
     for engine, why in sorted(tele["decisions"].items()):
         print(f"  {engine}: {why}")
     if args.trace:
-        print("\n".join(f"  {name:<48} {w:9.3f}" for name, w, _ in events))
+        print(tree)
     if not ok:
         raise AssertionError("the verifier rejected the proof")
     return {"pp": pp, "proof": proof, "io": io, "blob": blob,

@@ -15,9 +15,11 @@ from __future__ import annotations
 
 import ctypes
 import os
+from types import SimpleNamespace
 
 import numpy as np
 
+from ..device.telemetry import counted
 from .constants import FR_MODULUS
 from .scalar import Fr
 
@@ -53,6 +55,8 @@ def _tune_malloc() -> None:
 
 
 def _load():
+    """The library, each function's calls counted in telemetry as
+    ``host_field_calls``, or None when it does not load."""
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
@@ -68,6 +72,7 @@ def _load():
     try:
         lib = ctypes.CDLL(so)
         vp = ctypes.c_void_p
+        names = []
         # hot kernels take raw pointers (arr.ctypes.data ints): ndpointer's
         # per-call from_param validation was a measured ~3 s/prove
         for name, args in [
@@ -105,6 +110,7 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = None
+            names.append(name)
         pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64))
         ppi = ctypes.POINTER(ctypes.POINTER(ctypes.c_int64))
         for name, args in [
@@ -162,7 +168,10 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = None
-        _LIB = lib
+            names.append(name)
+        _LIB = SimpleNamespace(**{
+            name: counted("host_field_calls", getattr(lib, name))
+            for name in names})
     except (OSError, AttributeError):
         _LIB = None
     return _LIB

@@ -28,6 +28,7 @@ from ..ids import CommittedPoly, OpeningId, VirtualPoly
 from .eq import eq_evals, eq_eval_scalar
 from .mlpoly import BindingOrder, MLPoly
 from .unipoly import UniPoly
+from ..utils import profiling
 from ..subprotocols.sumcheck import (
     BatchedSumcheck,
     RowsInstance,
@@ -72,6 +73,8 @@ class _GroupReductionProver(RowsInstance, SumcheckInstanceProver):
     eq_r) — the dominant cost of the old design was building, multiplying
     and binding a 2^n-entry eq table per group (1.5 GB live at bench
     scale); the split weight needs O(sqrt n) table entries total."""
+
+    BOUND_COUNTER = None  # its rows are the reduction's, not the IOP's
 
     def __init__(self, members, gamma_powers: list[Fr]):
         self.members = members            # [(global_idx, _PendingOpening)]
@@ -251,8 +254,9 @@ class ProverOpeningAccumulator:
         gamma_powers = transcript.challenge_scalar_powers(len(pending))
         instances = [_GroupReductionProver(m, gamma_powers)
                      for m in _group_by_point(pending)]
-        for inst in instances:
-            inst.prepare(poly_map)
+        with profiling.span("reduction_prepare"):  # the groups' RLCs
+            for inst in instances:
+                inst.prepare(poly_map)
         # zk mode keeps the host path: the device engines produce cleartext
         # round messages; BatchedSumcheck.prove dispatches to the
         # Pedersen-committed zk variant itself. Otherwise the mesh-sharded
@@ -262,35 +266,38 @@ class ProverOpeningAccumulator:
         from ..parallel import shardedreduction
         from ..subprotocols.sumcheck import zk_mode
         res = None
-        if zk_mode.gens() is None:
-            if shardedreduction.active_mesh() is not None:
-                res = shardedreduction.try_prove(instances, self, transcript)
+        with profiling.span("reduction_rounds"):
+            if zk_mode.gens() is None:
+                if shardedreduction.active_mesh() is not None:
+                    res = shardedreduction.try_prove(instances, self,
+                                                     transcript)
+                if res is None:
+                    res = reduction.try_prove(instances, self, transcript,
+                                              device, gate)
+            else:
+                telemetry.decide("reduction", "zk")
             if res is None:
-                res = reduction.try_prove(instances, self, transcript, device,
-                                          gate)
-        else:
-            telemetry.decide("reduction", "zk")
-        if res is None:
-            for inst in instances:
-                inst.setup_sumcheck()
-            res = BatchedSumcheck.prove(instances, self, transcript)
+                for inst in instances:
+                    inst.setup_sumcheck()
+                res = BatchedSumcheck.prove(instances, self, transcript)
         proof, r_sumcheck = res
         group_claims = [inst.final_poly_claim() for inst in instances]
         transcript.append_scalars(group_claims)
         delta_powers = transcript.challenge_scalar_powers(len(group_claims))
         from ..field.frvec import FrArray
         max_len = 1 << len(r_sumcheck)
-        joint = vec.zeros(max_len)
-        for delta, inst in zip(delta_powers, instances):
-            if isinstance(joint, FrArray) and isinstance(inst.rlc_fvec,
-                                                         FrArray):
-                joint.axpy_inplace(delta, inst.rlc_fvec)
-                continue
-            contrib = vec.vscale(inst.rlc_fvec, delta)
-            n = len(contrib)
-            joint[:n] = vec.vadd(joint[:n], contrib)
-        if not isinstance(joint, FrArray):
-            joint = vec.to_fr(joint)
+        with profiling.span("reduction_prepare"):  # the joint vector
+            joint = vec.zeros(max_len)
+            for delta, inst in zip(delta_powers, instances):
+                if isinstance(joint, FrArray) and isinstance(inst.rlc_fvec,
+                                                             FrArray):
+                    joint.axpy_inplace(delta, inst.rlc_fvec)
+                    continue
+                contrib = vec.vscale(inst.rlc_fvec, delta)
+                n = len(contrib)
+                joint[:n] = vec.vadd(joint[:n], contrib)
+            if not isinstance(joint, FrArray):
+                joint = vec.to_fr(joint)
         return proof, r_sumcheck, group_claims, joint
 
     def prove_batch_opening_zk(self, poly_map, transcript, gens, srs,
@@ -310,12 +317,15 @@ class ProverOpeningAccumulator:
         gamma_powers = transcript.challenge_scalar_powers(len(pending))
         instances = [_GroupReductionProver(m, gamma_powers)
                      for m in _group_by_point(pending)]
-        for inst in instances:
-            inst.prepare(poly_map)
-            inst.setup_sumcheck()
+        with profiling.span("reduction_prepare"):  # the groups' RLCs
+            for inst in instances:
+                inst.prepare(poly_map)
         mu_fn = lambda inst, r_slice: eq_eval_scalar(inst.point, r_slice)
-        proof, r_sumcheck, hidden = ZkBatchedSumcheck.prove(
-            instances, gens, self, transcript, hidden_final=mu_fn)
+        with profiling.span("reduction_rounds"):
+            for inst in instances:
+                inst.setup_sumcheck()
+            proof, r_sumcheck, hidden = ZkBatchedSumcheck.prove(
+                instances, gens, self, transcript, hidden_final=mu_fn)
         g_vals, g_blinds, e_g = hidden
         delta_powers = transcript.challenge_scalar_powers(len(instances))
         from ..field.frvec import FrArray
@@ -323,21 +333,22 @@ class ProverOpeningAccumulator:
         max_len = 1 << max_rounds
         one = Fr.one()
         nus = []
-        joint = vec.zeros(max_len)
-        for delta, inst in zip(delta_powers, instances):
-            prefix = one
-            for r in r_sumcheck[: max_rounds - inst.num_rounds()]:
-                prefix = prefix * (one - r)
-            nus.append(delta * prefix)
-            if isinstance(joint, FrArray) and isinstance(inst.rlc_fvec,
-                                                         FrArray):
-                joint.axpy_inplace(delta, inst.rlc_fvec)
-                continue
-            contrib = vec.vscale(inst.rlc_fvec, delta)
-            nn = len(contrib)
-            joint[:nn] = vec.vadd(joint[:nn], contrib)
-        if not isinstance(joint, FrArray):
-            joint = vec.to_fr(joint)
+        with profiling.span("reduction_prepare"):  # the joint vector
+            joint = vec.zeros(max_len)
+            for delta, inst in zip(delta_powers, instances):
+                prefix = one
+                for r in r_sumcheck[: max_rounds - inst.num_rounds()]:
+                    prefix = prefix * (one - r)
+                nus.append(delta * prefix)
+                if isinstance(joint, FrArray) and isinstance(inst.rlc_fvec,
+                                                             FrArray):
+                    joint.axpy_inplace(delta, inst.rlc_fvec)
+                    continue
+                contrib = vec.vscale(inst.rlc_fvec, delta)
+                nn = len(contrib)
+                joint[:nn] = vec.vadd(joint[:nn], contrib)
+            if not isinstance(joint, FrArray):
+                joint = vec.to_fr(joint)
         zk_open = ZkJointOpening.open(srs, gens, joint, list(r_sumcheck),
                                       nus, g_vals, g_blinds, e_g,
                                       transcript, dev, gate)

@@ -18,14 +18,17 @@ Instances implement the SumcheckInstanceProver/Verifier interfaces
 
 from __future__ import annotations
 
+import functools
 from abc import ABC, abstractmethod
 
+from ..device import telemetry
 from ..field import frvec, vec
 from ..field.scalar import Fr
 from ..poly.mlpoly import BindingOrder
 from ..poly.spliteq import inv_cached
 from ..poly.unipoly import (CompressedUniPoly, UniPoly,
                             interpolate_at_nodes, vinv_limbs)
+from ..utils import profiling
 
 
 class SumcheckError(Exception):
@@ -76,7 +79,13 @@ class RowsInstance:
     ReadRaf/RaVirtualization/Eq-LtPair/CycleExecution/contraction
     instances — the per-instance classes keep only their claim logic and
     opening bookkeeping.
+
+    ``BOUND_COUNTER``: the telemetry counter of the row elements (P x n a
+    round) that a host split-eq engine binds, None for a class outside
+    the IOP; the card's engine counts its own (device/rows.py).
     """
+
+    BOUND_COUNTER = "iop_rows_bound_host"
 
     def setup_rows(self, mlpolys: list, terms, degree: int,
                    eq_r: list[Fr] | None = None, eq_pre: int = 0,
@@ -238,7 +247,10 @@ class RowsInstance:
 
     def rows_bind(self, r: Fr) -> None:
         if self._gruen is not None:
-            self._gruen.bind(r)
+            g = self._gruen
+            if self.BOUND_COUNTER and type(g) is frvec.GruenInstance:
+                telemetry.tally(self.BOUND_COUNTER, g.P * g.n)
+            g.bind(r)
             self._se.note_challenge(r, self._rows_round)
             self._rows_round += 1
             return
@@ -477,8 +489,23 @@ class zk_mode:
         return zk_mode._gens
 
 
+def _spanned(prove):
+    """``prove`` (its first argument an instance or a list of them) in a
+    ``sumcheck:<kind>`` span, the kind being the instances' classes."""
+    @functools.wraps(prove)
+    def call(instances, *args, **kwargs):
+        if not profiling.enabled():
+            return prove(instances, *args, **kwargs)
+        kinds = sorted({type(i).__name__ for i in (
+            instances if isinstance(instances, list) else [instances])})
+        with profiling.span("sumcheck:" + "+".join(kinds)):
+            return prove(instances, *args, **kwargs)
+    return call
+
+
 class Sumcheck:
     @staticmethod
+    @_spanned
     def prove(instance: SumcheckInstanceProver, accumulator, transcript):
         gens = zk_mode.gens()
         if gens is not None:
@@ -532,6 +559,7 @@ class Sumcheck:
 
 class BatchedSumcheck:
     @staticmethod
+    @_spanned
     def prove(instances: list[SumcheckInstanceProver], accumulator, transcript):
         gens = zk_mode.gens()
         if gens is not None:
@@ -548,6 +576,7 @@ class BatchedSumcheck:
             for inst in instances
         ]
 
+        telemetry.tally("sumcheck_batched_rounds", max_rounds)
         r_sumcheck: list[Fr] = []
         compressed: list[CompressedUniPoly] = []
         for rnd in range(max_rounds):
@@ -587,6 +616,7 @@ class BatchedSumcheck:
         return SumcheckInstanceProof(compressed), r_sumcheck
 
     @staticmethod
+    @_spanned
     def prove_tail(instances, claims, coeffs, individual_claims, compressed,
                    r_sumcheck, accumulator, transcript, start_round: int,
                    max_rounds: int):
@@ -599,6 +629,7 @@ class BatchedSumcheck:
         `start_round`. Instances still mid-flight must have been resumed
         (resume_from_device) or freshly set up; proof bytes are identical to
         a full BatchedSumcheck.prove run."""
+        telemetry.tally("sumcheck_batched_rounds", max_rounds - start_round)
         for rnd in range(start_round, max_rounds):
             remaining = max_rounds - rnd
             _gruen_fleet(instances, remaining)

@@ -64,12 +64,12 @@ def sweep(dev, dims=(65, 64, 64, 4, 4)) -> dict:
     AtlasProver(pp, device="cpu").prove([toks])  # warm-up
     cap: list = []
     profiling.enable()
-    profiling._EVENTS.clear()
+    profiling.reset()
     t0 = time.perf_counter()
     with cs.capture_rows(cap):
         AtlasProver(pp, device="cpu").prove([toks])
     report = {"host_prove_s": time.perf_counter() - t0,
-              "host_iop_s": next(w for name, w, _ in profiling._EVENTS
+              "host_iop_s": next(w for name, w, _ in profiling.events()
                                  if name == "iop")}
     default = drows.RowsGate()
 
