@@ -91,6 +91,18 @@ script exits non-zero when any phase fails:
               conversion, upload, device rounds, handoff fetch and host
               rounds; kernel 7 held against its plain version at every
               shape class those instances launch it at.
+ 12b. onehot  the read-check engine's kernels (onehot_prepare,
+              onehot_buckets, onehot_round; csrc/onehot.cu) against their
+              plain versions on the card, launch by launch, on a random
+              batch of each of ONEHOT_CLASSES (the cell's largest class, D
+              16 and T 16,384, its T = 64 LayerNorm class, Gather's K 128,
+              int32 indices at K 512, and K 1024 at T = 2), the workspace
+              copied before each launch and the plain version run on the
+              copy;
+              the bench prove once more with every class it launches held
+              on its own inputs, its bytes phase 9's; each kernel timed at
+              the largest class beside its bound (onehot_work) and its
+              plain version's ms.
  13. mesh     the bench prove under mesh_scope over 8 shards of the card
               (parallel/), in one process and over a 1-rank NCCL group:
               bytes equal the gate path's, the verifier accepts, the mesh
@@ -136,7 +148,8 @@ script exits non-zero when any phase fails:
               model with pcs="dory", the reduction and rows engines forced;
               the bench nanoGPT under KeccakTranscript with the default
               gates (the reduction declines: "transcript not BLAKE2b").
-              Kernels 2-7 are held bit-equal to their plain versions at
+              Kernels 2-7 and the read-check engine's are held bit-equal
+              to their plain versions at
               the first launch of every shape class and MSM size these
               paths make (hold_kernels): the GPT-2-style slice in a run
               before its counted one, the other paths in their counted
@@ -148,8 +161,10 @@ script exits non-zero when any phase fails:
               of 2^24 points made before phase 3 into a temporary
               directory out of the checkout: proved on the card with the
               default gates through nanogpt_style.run, counted, kernels
-              3-7 held after it at every class it launched (the first
-              launch of each copied); verified,
+              3-7 and the read-check engine's held after it at every
+              class it launched (the first launch of each copied; its
+              Gather, vocab 50257 > GATHER_SMALL_MAX, checks 4-bit chunks:
+              no int32 class); verified,
               a flipped commitment and a flipped byte rejected, the
               reduction ENGAGED, hyperkzg_open's fold batch and witness on
               the card; the largest fold's and the witness's MSMs on the
@@ -188,10 +203,12 @@ prove's, phase 15's (``launches_models``) and phase 16's
 (``launches_flagship``). Each phase prints its seconds. Every shape a
 path launched a kernel at (its lane count; for kernel 2 also its level
 1's mapping; for kernel 3 also its blocks per window; for kernels 4 and 5
-their branch class; for kernel 7 its rows,
+their branch class; for the read-check engine's buckets whether its
+indices are int32, for its round that and the round's branch class; for
+kernel 7 its rows,
 points, terms, weight layout and launch plan; for kernel 9 its mode and
-whether it is batched) must be one that phases 3-5 and 11-16 held against
-the plain version, or the run fails. The
+whether it is batched) must be one that phases 3-5 and 11-16 held
+against the plain version, or the run fails. The
 second line from the end is that JSON, the last line {"ok": true,
 "device": {...}}. Imports nothing of JAX or jolt_atlas_tpu.
 """
@@ -1164,6 +1181,8 @@ def trace_split(dev, srs, n: int = (1 << 18) - 3,
 
 REDUCTION = ("reduction_bind", "reduction_q0", "reduction_tail")
 ROWS = ("rows_points", "rows_from_i64")
+# the read-check engine's kernels (device/onehot.py, csrc/onehot.cu)
+ONEHOT = ("onehot_prepare", "onehot_buckets", "onehot_round")
 
 
 @contextlib.contextmanager
@@ -1236,7 +1255,7 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
     out, blobs, cap, rows_cap = {}, {}, {}, []
     for name, how in paths:
         need = ("bucket_accumulate", "bucket_combine") + ROWS \
-            + REDUCTION if name != "host" else ()
+            + REDUCTION + ONEHOT if name != "host" else ()
         with (capture_reduction(cap) if name == "host"
               else contextlib.nullcontext()), (
                 capture_rows(rows_cap) if name == "host"
@@ -1281,8 +1300,8 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
         "bytes_equal_all_paths": True, "tamper_rejected": True,
         "paths": out}))
     trace, tele = counted(
-        results, ("bucket_accumulate", "bucket_combine") + ROWS + REDUCTION,
-        lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
+        results, ("bucket_accumulate", "bucket_combine") + ROWS + REDUCTION
+        + ONEHOT, lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
     results["launches_per_prove"] = tele["launches"]
     # what phase 13 proves again on the mesh, and the gate path beside it
     results["bench"] = {"pp": pp, "toks": toks, "blob": blob,
@@ -2211,12 +2230,184 @@ def phase_rows(dev, results, rows_cap,
 
 
 # ---------------------------------------------------------------------------
+# phase 12b: the read-check engine's kernels
+# ---------------------------------------------------------------------------
+
+# (K, D, T, read checks) held launch by launch: the benchmark cell's
+# largest class (timed), its LayerNorm class at T = 64, Gather's at the
+# bench (K 128), int32 indices (K 512), and K 1024 at a T of 2 (the close
+# gathers)
+ONEHOT_CLASSES = ((16, 16, 16384, 44), (16, 26, 64, 61), (128, 1, 64, 1),
+                  (512, 2, 64, 3), (1024, 1, 2, 1))
+
+
+def onehot_work(lay) -> tuple:
+    """(Montgomery products, bytes) each of the read-check engine's kernels
+    needs at least, for a batch of layout ``lay``: {kernel: (products,
+    bytes)}. prepare: each eq table built by doubling, a product an entry
+    (eq(r_cycle), the E_s and A_l tables), and the scalars into Montgomery
+    form; its scalars read, the tables, U and es written. buckets: field
+    sums only (no product); the chunk indices and the two eq tables read
+    once, GB and H written. The rounds: five products a (row, value) of an address
+    round (H by A, by U twice, the two gammas) and U's update; five a (row,
+    pair) of a cycle round (the weight, two squares, two by the weight)
+    and one a bound value after the first; the read checks' two a pair
+    (p(0), p(2)) and the binds of their tables and G rows; the inputs
+    (indices, H, GB, the tables, E) read once."""
+    D, T, K, N, S = lay.D, lay.T, lay.K, lay.N, lay.S
+    idx_bytes = D * T * (4 if lay.wide else 1)
+    prep = (T + (2 * T - 1) + (K - 1) + lay.ns,
+            (lay.ns + 1 + T + (2 * T - 1) + (K - 1) + lay.ns + lay.M + K
+             + 1) * FR_BYTES)
+    buck = (0, idx_bytes + (2 * T + 2 * D * K) * FR_BYTES)
+    rounds = (5 * D * K * lay.logK + K * lay.logK + 6 * D * (T - 1)
+              + 2 * N * (K - 1) + (S + D) * (K - 1),
+              idx_bytes + (2 * D * K + S * K + 2 * T) * FR_BYTES)
+    return {"onehot_prepare": prep, "onehot_buckets": buck,
+            "onehot_round": rounds}
+
+
+def onehot_rounds(b, rs, fetch: bool = True) -> list:
+    """Every round launch of a batch at the challenges rs (rs[0] None),
+    the close included; the fetched rows of each."""
+    from jolt_atlas_tpu_torch.device import onehot as donehot
+    M, D = b.lay.M, b.lay.D
+    return [donehot.round_(b, rnd, rs[rnd], 4 if rnd < M else 2 * D, fetch)
+            for rnd in range(M + 1)]
+
+
+def phase_onehot(dev, results) -> None:
+    """The read-check engine's three kernels (onehot_prepare,
+    onehot_buckets, onehot_round) against their plain versions on the card:
+    every launch of a random batch of each of ONEHOT_CLASSES, the workspace
+    copied before the launch and the plain version run on the copy
+    (onehot_state and the fetched rows compared), then every class the
+    bench prove launches, held on its own inputs (hold_kernels; the bytes
+    equal phase 9's). Each kernel timed at the cell's largest class
+    (device ms from the profiler; the round's over one batch's M + 1
+    launches) beside its plain version's ms on the card and its bound
+    (onehot_work)."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.device import onehot as donehot
+    from jolt_atlas_tpu_torch.field.constants import FR_MODULUS
+    from jolt_atlas_tpu_torch.field.scalar import Fr
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    err: dict = {}
+    batches = {}
+    for K, D, T, N in ONEHOT_CLASSES:
+        gen = np.random.default_rng(K + D + T)
+        b = donehot.random_batch(K, D, T, N, gen, dev)
+        lay = b.lay
+        rs = [None] + [Fr(int.from_bytes(gen.bytes(32), "little")
+                          % FR_MODULUS) for _ in range(lay.M)]
+        steps = [("onehot_prepare", 0, lambda: donehot.prepare(b),
+                  lambda ws: donehot.prepare_plain(ws, lay)),
+                 ("onehot_buckets", lay.wide, lambda: donehot.buckets(b),
+                  lambda ws: donehot.buckets_plain(ws, lay, b.idx))]
+        for rnd in range(lay.M + 1):
+            nout = 4 if rnd < lay.M else 2 * D
+            steps.append((
+                "onehot_round", (lay.wide, donehot.round_case(lay, rnd)),
+                lambda rnd=rnd, nout=nout: donehot.round_(b, rnd, rs[rnd],
+                                                          nout),
+                lambda ws, rnd=rnd: donehot.round_plain(
+                    ws, lay, b.idx, rnd, challenge_words(rs[rnd]))))
+        for kernel, case, launch, plain in steps:
+            pre = b.ws.clone()
+            got = launch()
+            plain(pre)
+            what = f"{kernel} (K {K}, D {D}, T {T}, class {case})"
+            err[kernel] = max(err.get(kernel, 0.0), require_equal(
+                what, [onehot_state(b.ws, lay)], [onehot_state(pre, lay)]))
+            if got is not None and not np.array_equal(
+                    got, pre[lay.out:lay.out + len(got)].cpu().numpy()):
+                raise AssertionError(f"{what}: the fetched rows differ")
+            checked(results, kernel, case)
+        batches[(K, D, T, N)] = (b, rs)
+    # the bench prove's own launches
+    bench = results["bench"]
+    with hold_kernels(results, err, "bench prove", ONEHOT) as seen:
+        (proof, _), tele = counted(
+            results, ONEHOT,
+            lambda: AtlasProver(bench["pp"]).prove([bench["toks"]]))
+    if serde.serialize_proof(proof) != bench["blob"]:
+        raise AssertionError("onehot: the held prove's bytes differ")
+    if not tele["decisions"].get("rachecks", "").startswith("ENGAGED"):
+        raise AssertionError(f"onehot: the engine did not engage: "
+                             f"{tele['decisions']}")
+    # timed at the cell's largest class
+    b, rs = batches[ONEHOT_CLASSES[0]]
+    lay = b.lay
+    donehot.prepare(b)
+    donehot.buckets(b)
+    start = b.ws.clone()
+    work = onehot_work(lay)
+
+    def rounds():
+        b.ws.copy_(start)
+        onehot_rounds(b, rs, fetch=False)
+
+    def plain_rounds(ws):
+        for rnd in range(lay.M + 1):
+            donehot.round_plain(ws, lay, b.idx, rnd, challenge_words(rs[rnd]))
+
+    calls = {"onehot_prepare": (lambda: donehot.prepare(b),
+                                lambda ws: donehot.prepare_plain(ws, lay)),
+             "onehot_buckets": (lambda: donehot.buckets(b),
+                                lambda ws: donehot.buckets_plain(ws, lay,
+                                                                 b.idx)),
+             "onehot_round": (rounds, plain_rounds)}
+    K, D, T, N = ONEHOT_CLASSES[0]
+    shape = f"K {K}, D {D}, T {T}, {N} read checks, {lay.S} tables"
+    lines = []
+    for kernel, (call, plain) in calls.items():
+        ms, call_ms, _ = device_ms(call, 5, kernel)
+        ws = start.clone()
+        plain_ms, _ = cuda_ms(lambda: plain(ws), 1, warmup=False)
+        products, nbytes = work[kernel]
+        bnd, by = bound(products, nbytes, results["imad_peak"],
+                        IMADS_PER_MUL)
+        what = shape + (f": one batch's {lay.M + 1} launches"
+                        if kernel == "onehot_round" else "")
+        results[kernel] = {"shape": what, "ms": ms, "call_ms": call_ms,
+                           "plain_ms": plain_ms, "bound_ms": bnd,
+                           "bound_by": by, "share": bnd / ms,
+                           "products": products, "bytes": nbytes,
+                           "max_abs_err": err.get(kernel, 0.0)}
+        lines.append(f"{kernel} ({what}): {ms:.4f} ms on the device (a "
+                     f"call {call_ms:.4f} ms), plain {plain_ms:.2f} ms, "
+                     f"bound {bnd:.4f} ms ({by}), share {bnd / ms:.4f}")
+    say("onehot", "; ".join(lines))
+    say("onehot", json.dumps({
+        "classes": [list(c) for c in ONEHOT_CLASSES],
+        "bench_prove_classes_held": sorted(f"{k} {c}" for k, c in seen),
+        "bench_prove_launches": {k: tele["launches"].get(k, 0)
+                                 for k in ONEHOT},
+        "decision": tele["decisions"]["rachecks"],
+        "max_abs_err": err}))
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the multi-device proving step on the card
 # ---------------------------------------------------------------------------
 
 # the kernels hold_kernels can hold at a path's launches
 HELD = ("bucket_accumulate", "bucket_combine", "reduction_bind",
-        "reduction_q0", "reduction_tail", "rows_points")
+        "reduction_q0", "reduction_tail", "rows_points") + ONEHOT
+
+
+def onehot_state(ws, lay):
+    """The read-check engine's workspace without the round kernel's
+    per-block partials (scratch whose partition the plain version does not
+    follow)."""
+    return torch.cat([ws[:lay.partials], ws[lay.out:]])
+
+
+def challenge_words(r) -> list:
+    """A round's challenge as the round kernel takes it: four canonical
+    64-bit words, least significant first (0 before round 1)."""
+    v = 0 if r is None else r.v
+    return [(v >> (64 * i)) & ((1 << 64) - 1) for i in range(4)]
 
 
 def _clone(obj):
@@ -2234,40 +2425,53 @@ def _clone(obj):
 def hold_kernels(results, err: dict, label: str, kernels=HELD,
                  largest: dict | None = None, note=dict, seen=None,
                  defer: list | None = None):
-    """While entered, each of ``kernels`` (kernels 2-7) is held bit-equal
+    """While entered, each of ``kernels`` (kernels 2-7 and the read-check
+    engine's three) is held bit-equal
     to its plain version (on the card, on the launch's own inputs) at the
     first launch of every shape class the path makes, which is then
     checked: its launch shape as its wrapper records it in telemetry, and
     for kernels 2 and 3 also the MSM's entries and the batch's MSMs, so
-    that each new MSM size is held once. Yields ``seen``, the set of
+    that each new MSM size is held once. The read-check engine's kernels
+    work in place: its workspace is copied before a launch of a new class,
+    and the plain version runs on the copy (onehot_state compared). Yields
+    ``seen``, the set of
     (kernel, class) held (a set given in is added to). ``largest`` keeps
     each kernel's largest launch: its size, its arguments and ``note()``.
     ``defer``: the launch's inputs and result are copied into this list
     instead, to be held after the path (``check_deferred``), so that the
     plain versions stay out of the path's time."""
     from jolt_atlas_tpu_torch.device import msm as dmsm
+    from jolt_atlas_tpu_torch.device import onehot as donehot
     from jolt_atlas_tpu_torch.device import reduction as dred
     from jolt_atlas_tpu_torch.device import rows as drows
     real = {"bucket_accumulate": dmsm.bucket_accumulate,
             "bucket_combine": dmsm.bucket_combine,
             "reduction_bind": dred.bind, "reduction_q0": dred.q0,
-            "reduction_tail": dred.tail, "rows_points": drows.points}
+            "reduction_tail": dred.tail, "rows_points": drows.points,
+            "onehot_prepare": donehot.prepare,
+            "onehot_buckets": donehot.buckets,
+            "onehot_round": donehot.round_}
     seen = set() if seen is None else seen
+
+    def hold(kernel, key, case, got, plain_of, args, fresh=False):
+        # fresh: got and args are copies already, which the path does not
+        # write again
+        if (kernel, key) in seen:
+            return
+        seen.add((kernel, key))
+        held = (kernel, key, case, got, plain_of, args)
+        if defer is not None:
+            defer.append(held if fresh else _clone(held))
+        else:
+            hold_one(results, err, label, *held)
 
     def first(kernel, key, case, got, plain_of, args, size,
               plain_args=None):
         if largest is not None and (kernel not in largest
                                     or size > largest[kernel][0]):
             largest[kernel] = (size, args, note())
-        if (kernel, key) in seen:
-            return
-        seen.add((kernel, key))
-        held = (kernel, key, case, got, plain_of,
-                args if plain_args is None else plain_args)
-        if defer is not None:
-            defer.append(_clone(held))
-        else:
-            hold_one(results, err, label, *held)
+        hold(kernel, key, case, got, plain_of,
+             args if plain_args is None else plain_args)
 
     def accumulate(bases, lanes, out=None, run=dmsm.ACCUM_RUN):
         got = real["bucket_accumulate"](bases, lanes, out, run)
@@ -2325,6 +2529,38 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
               lambda b: [drows.points_plain(*b)], a, x.shape[0] * nevals)
         return got
 
+    def in_place(kernel, case, b, launch, plain):
+        # the read-check engine: plain(workspace copy, lay, idx) against
+        # the launch's workspace after it
+        new = (kernel, case) not in seen
+        pre = b.ws.clone() if new else None
+        got = launch()
+        if new:
+            def plain_state(a):
+                plain(*a)
+                return [onehot_state(a[0], a[1])]
+            hold(kernel, case, case, [onehot_state(b.ws, b.lay)],
+                 plain_state, (pre, b.lay, b.idx.clone()), fresh=True)
+        return got
+
+    def prepare(b):
+        return in_place("onehot_prepare", 0, b,
+                        lambda: real["onehot_prepare"](b),
+                        lambda ws, lay, idx: donehot.prepare_plain(ws, lay))
+
+    def buckets(b):
+        return in_place("onehot_buckets", b.lay.wide, b,
+                        lambda: real["onehot_buckets"](b),
+                        donehot.buckets_plain)
+
+    def round_(b, rnd, r, nout, fetch=True):
+        words = challenge_words(r)
+        return in_place(
+            "onehot_round", (b.lay.wide, donehot.round_case(b.lay, rnd)), b,
+            lambda: real["onehot_round"](b, rnd, r, nout, fetch),
+            lambda ws, lay, idx: donehot.round_plain(ws, lay, idx, rnd,
+                                                     words))
+
     # (module, name) of each wrapper where its callers find it: the rows
     # engine binds with kernel 4 through its own import
     wrap = {"bucket_accumulate": ([(dmsm, "bucket_accumulate")], accumulate),
@@ -2332,7 +2568,10 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
             "reduction_bind": ([(dred, "bind"), (drows, "bind")], bind),
             "reduction_q0": ([(dred, "q0")], q0),
             "reduction_tail": ([(dred, "tail")], tail),
-            "rows_points": ([(drows, "points")], points)}
+            "rows_points": ([(drows, "points")], points),
+            "onehot_prepare": ([(donehot, "prepare")], prepare),
+            "onehot_buckets": ([(donehot, "buckets")], buckets),
+            "onehot_round": ([(donehot, "round_")], round_)}
     for k in kernels:
         for mod, attr in wrap[k][0]:
             setattr(mod, attr, wrap[k][1])
@@ -3317,7 +3556,7 @@ FLAGSHIP_VARS = 24
 FLAGSHIP_HOLD_N = 1 << 20
 FLAGSHIP_HOLD_RUN = 4
 FLAGSHIP_HELD = ("bucket_combine", "reduction_bind", "reduction_q0",
-                 "reduction_tail", "rows_points")
+                 "reduction_tail", "rows_points") + ONEHOT
 
 
 @contextlib.contextmanager
@@ -3472,13 +3711,14 @@ def time_flagship_msm(dev, results, engine, scal: dict, largest: dict,
     return out
 
 
-FLAGSHIP_REQUIRED = MSM + REDUCTION
+FLAGSHIP_REQUIRED = MSM + REDUCTION + ONEHOT
 
 
 def phase_flagship(dev, results, windows=(16, 18)) -> None:
     """GPT-2 at the reference's padded 125M shape (FLAGSHIP_ARGV) through
     nanogpt_style.run on the card with the default gates, counted and
-    timed; the first launch of every class of kernels 3-7 is copied and
+    timed; the first launch of every class of kernels 3-7 and of the
+    read-check engine's is copied and
     held against its plain version after the prove (hold_kernels(defer=)),
     kernel 2 at the class of its launches (time_flagship_msm). Requires
     the verifier's acceptance, a flipped commitment and a flipped byte
@@ -3645,6 +3885,16 @@ KERNELS = (
     # the exact forward's products (torchexec.py; no prove launches it)
     ("exact_matmul", "jolt_atlas_tpu_torch/csrc/exact.cu",
      "jolt_atlas_tpu/jaxexec.py:34"),
+    # the read-check engine (device/onehot.py): its set-up (the Booleanity's
+    # and the read checks' eq tables), its bucket sums (compute_G, the
+    # sparse address rounds' buckets) and its round (every instance's
+    # message and bind, the batched polynomial)
+    ("onehot_prepare", "jolt_atlas_tpu_torch/csrc/onehot.cu",
+     "jolt_atlas_tpu/subprotocols/onehot.py:275"),
+    ("onehot_buckets", "jolt_atlas_tpu_torch/csrc/onehot.cu",
+     "jolt_atlas_tpu/subprotocols/onehot.py:138"),
+    ("onehot_round", "jolt_atlas_tpu_torch/csrc/onehot.cu",
+     "jolt_atlas_tpu/subprotocols/onehot.py:383"),
 )
 
 
@@ -3703,6 +3953,7 @@ def run_phases() -> int:
     phase("reduction", phase_reduction, dev, results, cap)
     del cap
     phase("rows", phase_rows, dev, results, rows_cap)
+    phase("onehot", phase_onehot, dev, results)
     phase("mesh", phase_mesh, dev, results)
     phase("exact", phase_exact, dev, results)
     phase("models", phase_models, dev, results)
@@ -3759,6 +4010,12 @@ def run_phases() -> int:
             row["flagship_largest_launch"] = {
                 k: v for k, v in results["flagship_timed"].items()
                 if k.startswith(name)}
+        if name in ONEHOT:
+            row.update({k: r[k] for k in ("share", "products", "bytes")})
+        if name == "onehot_buckets":
+            row["also_replaces"] = "jolt_atlas_tpu/subprotocols/onehot.py:336"
+        if name == "onehot_round":
+            row["also_replaces"] = "jolt_atlas_tpu/subprotocols/onehot.py:189"
         if name == "exact_matmul":
             row["runs_in"] = "the quantized forward (entry(), torchexec.py)"
             for extra in ("bound_imad_ms", "share", "share_imad",

@@ -5,7 +5,7 @@ Two kinds of shared library, both loaded with ctypes:
 - the host C++ engines from the repo's ``csrc/`` (``msm.cpp``,
   ``frvec.cpp``), compiled with g++ for the CPU this process runs on;
 - the port's CUDA kernels, ``jolt_atlas_tpu_torch/csrc/*.cu`` (curve,
-  msm, combine, reduction, rows, exact), compiled
+  msm, combine, reduction, rows, exact, onehot), compiled
   with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
   started together, and linked into one library with a plain C interface.
   ptxas reports each kernel's registers, spills and shared memory
@@ -176,6 +176,7 @@ def ptxas_report() -> str:
 
 
 _VP, _I64, _CI = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_U64 = ctypes.c_uint64
 
 # The C signature of every kernel entry point of csrc/*.cu (each returns
 # int, a cudaError_t)
@@ -195,6 +196,10 @@ SIGNATURES = {
     + [_VP] * 4,
     "jolt_rows_from_i64": [_VP, _I64, _VP, _VP],
     "jolt_exact_matmul": [_VP] * 4 + [_I64] * 10 + [_CI] * 4 + [_I64, _VP],
+    "jolt_onehot_prepare": [_VP] * 3,
+    "jolt_onehot_buckets": [_VP] * 4,
+    "jolt_onehot_round": [_VP] * 3 + [_I64] + [_U64] * 4 + [_VP, _VP, _I64,
+                                                            _VP],
 }
 
 _CUDA = None

@@ -25,6 +25,7 @@ from .subprotocols.eval_reduction import prove_eval_reduction
 from .subprotocols.sumcheck import zk_mode
 from .transcripts import Blake2bTranscript
 from .commitment.hyperkzg import HyperKZG
+from .device import onehot as donehot
 from .device import rows as drows
 from .commitment.kzg import kzg_commit
 from .curve.msm import msm
@@ -114,6 +115,10 @@ class AtlasProver:
         # (rows.work), 2 rounds.
         # rows.forced(head_rounds=, min_n=) runs them on any device (a CPU
         # device: the plain versions).
+        # Each node's one-hot read checks (a Booleanity and its address read
+        # checks, one batched sumcheck) run on the card's read-check engine
+        # (device/onehot.py) on a CUDA device, and wherever iop_gate is
+        # forced (a CPU device: the plain versions).
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AtlasProver: no CUDA device; pass "
@@ -275,7 +280,11 @@ class AtlasProver:
             scope = None
         else:
             scope = drows.iop_scope(self.device, self.iop_gate)
-        with span("iop"), scope or contextlib.nullcontext():
+        # the read-check engine's scope (device/onehot.py), or None
+        rachecks = donehot.scope(
+            self.device, self.iop_gate is not None and self.iop_gate.forced)
+        with span("iop"), scope or contextlib.nullcontext(), \
+                rachecks or contextlib.nullcontext():
             for node in reversed(model.graph.sorted_nodes()):
                 claims = collect_node_claims(accumulator, node.idx)
                 if isinstance(node.operator, (FOPS.Input, FOPS.Constant)):

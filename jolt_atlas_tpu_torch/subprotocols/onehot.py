@@ -155,26 +155,77 @@ def compute_G(chunks_d: np.ndarray, eq_cycle, K: int = K_CHUNK) -> np.ndarray:
 # AddressReadCheck sumcheck (degree 2, LOG_K_CHUNK rounds)
 # ---------------------------------------------------------------------------
 
-class AddressReadCheckProver(RowsInstance, SumcheckInstanceProver):
-    """Proves claim = sum_k g(k) * ra_d(k, r_cycle).
+class CycleReads:
+    """The cycle-bound chunk rows of a batch's read checks: over D chunk-index
+    rows (``idx``, the Booleanity's) and one cycle point ``r_cycle``,
+    G_d[k] = sum_{j: idx[d][j] = k} eq(r_cycle)[j] (``compute_G``), built at
+    the first ``G(d)`` and shared by the read checks of row d. ``G`` may
+    seed rows already built ({d: G_d})."""
+
+    def __init__(self, idx: list, r_cycle: list[Fr], K: int = K_CHUNK,
+                 G: dict | None = None):
+        self.idx = idx
+        self.r_cycle = r_cycle
+        self.K = K
+        self._eq = None
+        self._G = dict(G or {})
+
+    def G(self, d: int):
+        if d not in self._G:
+            if self._eq is None:
+                self._eq = eq_evals(self.r_cycle)
+            self._G[d] = compute_G(self.idx[d], self._eq, self.K)
+        return self._G[d]
+
+
+class _HostOnDemand:
+    """A prover whose host engine (``_build_host``: the rows, split-eq and
+    tables that RowsInstance reads) is built by ``ensure_host``, which the
+    host path calls before its first message (BatchedSumcheck.prove). The
+    card's read-check engine (device/onehot.py) reads only the inputs and
+    never builds it; it hands the final row values over in ``_finals``."""
+
+    _finals = None
+    _host_built = False
+
+    def ensure_host(self) -> None:
+        if not self._host_built:
+            self._host_built = True
+            self._build_host()
+
+    def row_final(self, i: int) -> Fr:
+        if self._finals is not None:
+            return self._finals[i]
+        return super().row_final(i)
+
+
+class AddressReadCheckProver(_HostOnDemand, RowsInstance,
+                             SumcheckInstanceProver):
+    """Proves claim = sum_k g(k) * ra_d(k, r_cycle), ra_d(k, r_cycle) being
+    ``reads.G(d)``.
 
     Final: the bound value ra_d((r_addr, r_cycle)) is appended as a committed
     opening (only when `appends_opening` — one designated instance per chunk).
     """
 
     def __init__(self, poly_id: CommittedPoly, sumcheck_id: SumcheckId,
-                 table_spec, G: np.ndarray, r_cycle: list[Fr], claim: Fr,
+                 table_spec, reads: CycleReads, d: int, claim: Fr,
                  appends_opening: bool):
         self.poly_id = poly_id
         self.sumcheck_id = sumcheck_id
-        table = MLPoly(ints=table_vec(table_spec))
-        self.r_cycle = r_cycle
+        self.table_spec = table_spec
+        self.reads = reads
+        self.d = d
+        self.r_cycle = reads.r_cycle
         self.claim = claim
         self.appends_opening = appends_opening
-        self._rounds = table.num_vars
+        self._rounds = len(table_vec(table_spec)).bit_length() - 1
+
+    def _build_host(self) -> None:
         # G is shared across this chunk's read-check instances; safe without
         # a copy — the fused engine copies-on-first-bind
-        self.setup_rows([table, MLPoly(fvec=G)],
+        self.setup_rows([MLPoly(ints=table_vec(self.table_spec)),
+                         MLPoly(fvec=self.reads.G(self.d))],
                         [(Fr.one(), [0, 1])], 2)
 
     def num_rounds(self) -> int:
@@ -272,7 +323,8 @@ class AddressReadCheckVerifier(SumcheckInstanceVerifier):
 # Booleanity sumcheck (degree 3, LOG_K_CHUNK + log T rounds)
 # ---------------------------------------------------------------------------
 
-class BooleanityProver(RowsInstance, SumcheckInstanceProver):
+class BooleanityProver(_HostOnDemand, RowsInstance,
+                       SumcheckInstanceProver):
     """0 = sum_{k,j} eq(r_b, (k,j)) * sum_d gamma_d * (ra_d^2 - ra_d).
 
     Sparse two-phase schedule (byte-identical messages to binding the dense
@@ -292,12 +344,13 @@ class BooleanityProver(RowsInstance, SumcheckInstanceProver):
     GruenInstance engine.
 
     The dense K*T rows are never materialized: callers pass the chunk-value
-    index arrays. Falls back to dense rows without the native library.
+    index arrays. Falls back to dense rows without the native library. The
+    host engine is built by ``ensure_host`` (``_HostOnDemand``), counting
+    the batch's D x T one-hot elements as ``iop_rachecks_host``.
     """
 
     def __init__(self, poly_ids: list[CommittedPoly], index_arrays: list,
                  K: int, r_b: list[Fr], gammas: list[Fr]):
-        from ..field import vec
         self.poly_ids = poly_ids
         self.r_b = r_b
         self.gammas = gammas
@@ -308,22 +361,27 @@ class BooleanityProver(RowsInstance, SumcheckInstanceProver):
         self.idx = [np.ascontiguousarray(a, dtype=np.int64)
                     for a in index_arrays]
         self.T = 1 << (len(r_b) - self.logK)
+
+    def _build_host(self) -> None:
+        from ..device import telemetry
+        from ..field import vec
+        telemetry.tally("iop_rachecks_host", len(self.idx) * self.T)
         terms = []
-        for d, gamma in enumerate(gammas):
+        for d, gamma in enumerate(self.gammas):
             terms.append((gamma, [d, d]))
             terms.append((Fr.zero() - gamma, [d]))
         self._terms = terms
         if not vec.native_available():
             # object-int fallback: materialize dense rows (tests / no .so)
-            ras = [one_hot_poly(a, K=K) for a in self.idx]
-            self.setup_rows(ras, terms, 3, eq_r=r_b)
+            ras = [one_hot_poly(a, K=self.K) for a in self.idx]
+            self.setup_rows(ras, terms, 3, eq_r=self.r_b)
             self._sparse = False
             return
         self._sparse = True
         from ..poly.spliteq import SplitEq
         from ..field.frvec import FrArray
-        self._se = SplitEq(r_b)
-        self._U = FrArray.full(K, Fr.one())   # bound prefix weight per value
+        self._se = SplitEq(self.r_b)
+        self._U = FrArray.full(self.K, Fr.one())  # bound prefix weight
         self._rows_round = 0
         self._rows_deg = 3
         self._rows_fused = None

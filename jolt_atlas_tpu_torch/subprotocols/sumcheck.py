@@ -21,6 +21,7 @@ from __future__ import annotations
 import functools
 from abc import ABC, abstractmethod
 
+from ..device import onehot as donehot
 from ..device import telemetry
 from ..field import frvec, vec
 from ..field.scalar import Fr
@@ -50,6 +51,10 @@ class SumcheckInstanceProver(ABC):
 
     @abstractmethod
     def ingest_challenge(self, r: Fr, round: int) -> None: ...
+
+    def ensure_host(self) -> None:
+        """Build what the host path's messages read, where the instance
+        builds it only on demand (the one-hot read checks); else nothing."""
 
     def finalize(self) -> None:
         pass
@@ -561,6 +566,14 @@ class BatchedSumcheck:
     @staticmethod
     @_spanned
     def prove(instances: list[SumcheckInstanceProver], accumulator, transcript):
+        # a node's one-hot read checks go to the card's engine while its
+        # scope is active (device/onehot.py), which declines what it does
+        # not take: zk mode, a mesh scope, other instances
+        got = donehot.try_prove(instances, accumulator, transcript)
+        if got is not None:
+            return got
+        for inst in instances:
+            inst.ensure_host()
         gens = zk_mode.gens()
         if gens is not None:
             from .zk_sumcheck import ZkBatchedSumcheck

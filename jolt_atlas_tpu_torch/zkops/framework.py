@@ -40,7 +40,7 @@ from ..config import LOG_K_CHUNK
 from ..field import vec
 from ..field.scalar import Fr
 from ..ids import CommittedPoly, OpeningId, SumcheckId, VirtualPoly
-from ..poly.eq import eq_evals, eq_eval_scalar
+from ..poly.eq import eq_eval_scalar
 from ..poly.mlpoly import BindingOrder, MLPoly
 from ..poly.unipoly import UniPoly
 from ..subprotocols.sumcheck import (
@@ -272,23 +272,23 @@ def build_ra_checks_provers(node_idx: int, families: list[tuple[ChunkFamily, dic
     r_b = transcript.challenge_vector_optimized(LOG_K_CHUNK + log_t)
     instances = [onehot.BooleanityProver(all_ids, all_idx, onehot.K_CHUNK,
                                          r_b, gammas)]
-
-    eq_cycle = eq_evals(r_cycle)
+    # the read checks of chunk row g read G_g, built at first use
+    reads = onehot.CycleReads(instances[0].idx, r_cycle)
+    g0 = 0
     for fam, spec in families:
-        G = [onehot.compute_G(fam.chunks[d], eq_cycle)
-             for d in range(fam.num_chunks)]
         # hamming weight (claim 1) — designated opening appender per chunk
         for d in range(fam.num_chunks):
             instances.append(onehot.AddressReadCheckProver(
-                fam.poly_id_fn(d), SumcheckId.make("Raf"), "one", G[d],
-                r_cycle, Fr.one(), appends_opening=True))
+                fam.poly_id_fn(d), SumcheckId.make("Raf"), "one", reads,
+                g0 + d, Fr.one(), appends_opening=True))
         # derived-value read checks
         for name in sorted(spec):
             d, table = spec[name]
             claim = accumulator.get_opening(derived_claim_id(node_idx, name))[1]
             instances.append(onehot.AddressReadCheckProver(
-                fam.poly_id_fn(d), SumcheckId.make("Raf"), table, G[d],
-                r_cycle, claim, appends_opening=False))
+                fam.poly_id_fn(d), SumcheckId.make("Raf"), table, reads,
+                g0 + d, claim, appends_opening=False))
+        g0 += fam.num_chunks
     return instances
 
 

@@ -1366,10 +1366,12 @@ def _prove_gather(node, ctx, r, out_claim):
     log_vn = (V.bit_length() - 1) + (len(idx64).bit_length() - 1)
     r_b = ctx.transcript.challenge_vector_optimized(log_vn)
     pid = CommittedPoly.make("GatherRa", node.idx)
-    instances = [onehot.BooleanityProver([pid], [idx64], V, r_b, gammas),
+    booleanity = onehot.BooleanityProver([pid], [idx64], V, r_b, gammas)
+    reads = onehot.CycleReads(booleanity.idx, r_i, V, G={0: G})
+    instances = [booleanity,
                  onehot.AddressReadCheckProver(
                      pid, SumcheckId.make("HammingWeight"), ("onesN", V),
-                     G, r_i, Fr.one(), appends_opening=True)]
+                     reads, 0, Fr.one(), appends_opening=True)]
     ra_proof, _ = BatchedSumcheck.prove(instances, ctx.accumulator,
                                         ctx.transcript)
     ctx.proofs[(node.idx, "RaChecks")] = ra_proof

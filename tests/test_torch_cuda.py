@@ -844,3 +844,68 @@ def test_qwen_driver_on_gpu_matches_host(gpu):
     blobs = {device: qwen_style.run(qwen_style.parser().parse_args(
         ["--device", device]))["blob"] for device in ("cuda", "cpu")}
     assert blobs["cuda"] == blobs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the read-check engine (device/onehot.py, csrc/onehot.cu)
+# ---------------------------------------------------------------------------
+
+def _onehot_state(b):
+    """The workspace without the round kernel's per-block partials (scratch
+    whose partition the plain version does not follow)."""
+    lay, ws = b.lay, b.ws.cpu()
+    return torch.cat([ws[:lay.partials], ws[lay.out:]])
+
+
+# (K, D, T, read checks): the cell's largest class (D 16, T 16,384), its
+# LayerNorm class at T = 64 (D 26, 61 read checks), Gather's (128, 1), and
+# int32 indices (K 512)
+@pytest.mark.parametrize("K,D,T,N", [(16, 16, 16384, 40), (16, 26, 64, 61),
+                                     (128, 1, 64, 1), (512, 2, 64, 3)])
+def test_onehot_kernels_match_plain(gpu, K, D, T, N):
+    """The prepare, buckets and round kernels against their plain versions
+    on a CPU twin of the same workspace, launch by launch: every round's
+    state and fetched rows, the close's included."""
+    import copy
+    from jolt_atlas_tpu_torch.device import onehot as O
+    from jolt_atlas_tpu_torch.field.scalar import Fr
+    gen = np.random.default_rng(K + D + T)
+    b = O.random_batch(K, D, T, N, gen, gpu)
+    twin = copy.copy(b)
+    twin.ws, twin.idx = b.ws.cpu().clone(), b.idx.cpu().clone()
+    twin.device = torch.device("cpu")
+    before = telemetry.launches()
+    for step in (O.prepare, O.buckets):
+        step(b)
+        step(twin)
+        assert torch.equal(_onehot_state(b), _onehot_state(twin)), step
+    r = None
+    for rnd in range(b.lay.M + 1):
+        nout = 4 if rnd < b.lay.M else 2 * D
+        got = O.round_(b, rnd, r, nout)
+        want = O.round_(twin, rnd, r, nout)
+        assert np.array_equal(got, want), rnd
+        assert torch.equal(_onehot_state(b), _onehot_state(twin)), rnd
+        r = Fr(int.from_bytes(gen.bytes(32), "little") % FR_MODULUS)
+    after = telemetry.launches()
+    assert after["onehot_round"] - before.get("onehot_round", 0) == \
+        b.lay.M + 1
+    for k in ("onehot_prepare", "onehot_buckets"):
+        assert after[k] - before.get(k, 0) == 1
+
+
+def test_onehot_engine_on_gpu_matches_host(gpu):
+    """BENCH_SMALL's nanoGPT on the card under the default gates: every
+    read-check batch but Rsqrt-style mixed ones on the engine, the host
+    path's bytes."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    pp, toks = _bench_small_pp()
+    want, _ = AtlasProver(pp, device="cpu").prove([toks])
+    telemetry.reset()
+    got, _ = AtlasProver(pp, device=gpu).prove([toks])
+    tele = telemetry.snapshot()
+    assert tele["decisions"]["rachecks"].startswith("ENGAGED")
+    assert tele["launches"]["onehot_round"] > 0
+    assert tele["counters"]["iop_rachecks_card"] > 0
+    assert serde.serialize_proof(got) == serde.serialize_proof(want)

@@ -143,7 +143,8 @@ def test_cuda_signatures_match_sources():
     import ctypes
     from jolt_atlas_tpu_torch.device import build
     ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-             "int64_t": ctypes.c_int64, "int": ctypes.c_int}
+             "int64_t": ctypes.c_int64, "int": ctypes.c_int,
+             "unsigned long long": ctypes.c_uint64}
     found = {}
     for f in sorted(os.listdir(CSRC)):
         if f.endswith(".cu"):

@@ -276,7 +276,8 @@ READING = {
         "batch_opening_reduction/reduction_rounds/sumcheck:_G": [1.0, 2.0,
                                                                  1]},
     "counters": {"host_field_calls": 60000.0, "iop_rows_bound_card": 3e6,
-                 "iop_rows_bound_host": 9e6}}
+                 "iop_rows_bound_host": 9e6, "iop_rachecks_card": 1.2e7,
+                 "iop_rachecks_host": 4e5}}
 
 
 def _read(name: str, reading: dict):
@@ -294,7 +295,8 @@ def test_every_reader_on_a_synthetic_reading():
         "device_idle_share": 98.0,
         "iop_sumcheck_s": 6.0, "iop_eval_reduction_s": 0.5,
         "iop_rows_s": 0.75, "iop_rows_share": 25.0, "iop_host_cores": 4.0,
-        "host_field_calls": 60000.0, "reduction_prepare_s": 1.5}
+        "host_field_calls": 60000.0, "reduction_prepare_s": 1.5,
+        "iop_rachecks_share": 100 * 1.2e7 / 1.24e7}
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         names = [m["name"] for m in json.load(f)["per_layer"]]
     assert sorted(names) == sorted(expected)
@@ -304,7 +306,7 @@ def test_every_reader_on_a_synthetic_reading():
 
 NEW = ["iop_sumcheck_s", "iop_eval_reduction_s", "iop_rows_s",
        "iop_rows_share", "iop_host_cores", "host_field_calls",
-       "reduction_prepare_s"]
+       "reduction_prepare_s", "iop_rachecks_share"]
 
 
 @pytest.mark.parametrize("name", NEW)
