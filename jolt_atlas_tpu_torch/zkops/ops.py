@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..device import telemetry
 from ..field import vec
 from ..field.scalar import Fr
 from ..frontend import ops as FOPS
@@ -32,6 +33,7 @@ from ..subprotocols.sumcheck import (
     SumcheckInstanceProver,
     SumcheckInstanceVerifier,
 )
+from ..utils import profiling
 from . import framework as FW
 from .framework import (
     ADD_SAT_CHUNKS,
@@ -881,8 +883,12 @@ def _prove_einsum(node, ctx, r, out_claim):
     layout = EinsumLayout(op.equation, in_dims, tuple(node.output_dims))
     out_groups = layout.split_out_point(list(r_sc))
     acc_claim = ctx.accumulator.get_opening(acc_opening_id(node.idx))[1]
-    bounds = [layout.bound_operand(ctx.trace.node_outputs[i], term, out_groups)
-              for i, term in zip(node.inputs, layout.terms)]
+    bounds = []
+    for i, term in zip(node.inputs, layout.terms):
+        arr = ctx.trace.node_outputs[i]
+        with profiling.span("einsum_bind"):
+            bounds.append(layout.bound_operand(arr, term, out_groups))
+        telemetry.tally("einsum_bind_elements", arr.size)
     cinst = EinsumContractionProver(node, layout, bounds, acc_claim,
                                     out_groups, list(node.inputs))
     cproof, _ = Sumcheck.prove(cinst, ctx.accumulator, ctx.transcript)

@@ -45,7 +45,8 @@ def _spans_off_after():
 @pytest.fixture(scope="module")
 def proved():
     """A tiny nanoGPT-shaped model proved twice on the host, the spans off
-    then on: (serialized proof off, on, the kept proof)."""
+    then on: (serialized proof off, on, the kept proof, its events, the
+    model)."""
     split.set_host_threads(2)
     rng = np.random.default_rng(1234)
     model = models.build_nanogpt(32, 8, 16, 1, 8, rng, heads=1)
@@ -60,11 +61,11 @@ def proved():
     profiling.enable(False)
     assert len(profiling.proofs()) == min(kept + 1, profiling.KEEP)
     split.set_host_threads(None)
-    return off, on, profiling.proofs()[-1], profiling.events()
+    return off, on, profiling.proofs()[-1], profiling.events(), model
 
 
 def test_a_proofs_records_nest_and_share_its_number(proved):
-    off, on, proof, events = proved
+    off, on, proof, events, _ = proved
     assert off == on
     recs = proof.records
     by_id = {r.id: r for r in recs}
@@ -93,6 +94,24 @@ def test_a_proofs_counters_are_its_own(proved):
     c = proved[2].counters
     assert c["host_field_calls"] > 0 and c["sumcheck_batched_rounds"] > 0
     assert c["iop_rows_bound_host"] > 0 and "iop_rows_bound_card" not in c
+
+
+def test_each_einsum_operand_bind_is_a_span_and_counts_its_elements(proved):
+    """Two ``einsum_bind`` spans an Einsum node, under the node's span in
+    ``iop``, and ``einsum_bind_elements`` the sum of its operands' sizes."""
+    proof, model = proved[2], proved[4]
+    einsums = [n for n in model.graph.nodes.values()
+               if type(n.operator).__name__ == "Einsum"]
+    want = sum(int(np.prod(model.graph.nodes[i].output_dims))
+               for n in einsums for i in n.inputs)
+    assert einsums and want > 0
+    assert proof.counters["einsum_bind_elements"] == want
+    by_id = {r.id: r for r in proof.records}
+    binds = [r for r in proof.records if r.name == "einsum_bind"]
+    assert len(binds) == 2 * len(einsums)
+    assert all(by_id[r.parent].name.endswith("] Einsum")
+               and by_id[by_id[r.parent].parent].name == "iop"
+               for r in binds)
 
 
 def test_the_tree_shows_self_time_calls_and_cores(proved):
@@ -268,6 +287,7 @@ READING = {
         "iop/Einsum/sumcheck:EinsumProver": [4.0, 16.0, 24],
         "iop/Einsum/sumcheck:EinsumProver/rows_points": [0.5, 0.6, 40],
         "iop/Einsum/rows_upload": [0.25, 0.3, 20],
+        "iop/Einsum/einsum_bind": [0.75, 0.75, 48],
         "iop/Mul/sumcheck:A+B": [2.0, 8.0, 4],
         "iop/eval_reduction": [0.5, 1.0, 30],
         "batch_opening_reduction": [3.0, 9.0, 1],
@@ -277,7 +297,7 @@ READING = {
                                                                  1]},
     "counters": {"host_field_calls": 60000.0, "iop_rows_bound_card": 3e6,
                  "iop_rows_bound_host": 9e6, "iop_rachecks_card": 1.2e7,
-                 "iop_rachecks_host": 4e5}}
+                 "iop_rachecks_host": 4e5, "einsum_bind_elements": 2.1e7}}
 
 
 def _read(name: str, reading: dict):
@@ -296,7 +316,8 @@ def test_every_reader_on_a_synthetic_reading():
         "iop_sumcheck_s": 6.0, "iop_eval_reduction_s": 0.5,
         "iop_rows_s": 0.75, "iop_rows_share": 25.0, "iop_host_cores": 4.0,
         "host_field_calls": 60000.0, "reduction_prepare_s": 1.5,
-        "iop_rachecks_share": 100 * 1.2e7 / 1.24e7}
+        "iop_rachecks_share": 100 * 1.2e7 / 1.24e7,
+        "iop_einsum_bind_s": 0.75, "einsum_bind_elements": 2.1e7}
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         names = [m["name"] for m in json.load(f)["per_layer"]]
     assert sorted(names) == sorted(expected)
@@ -306,7 +327,8 @@ def test_every_reader_on_a_synthetic_reading():
 
 NEW = ["iop_sumcheck_s", "iop_eval_reduction_s", "iop_rows_s",
        "iop_rows_share", "iop_host_cores", "host_field_calls",
-       "reduction_prepare_s", "iop_rachecks_share"]
+       "reduction_prepare_s", "iop_rachecks_share", "iop_einsum_bind_s",
+       "einsum_bind_elements"]
 
 
 @pytest.mark.parametrize("name", NEW)
