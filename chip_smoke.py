@@ -103,6 +103,16 @@ script exits non-zero when any phase fails:
               on its own inputs, its bytes phase 9's; each kernel timed at
               the largest class beside its bound (onehot_work) and its
               plain version's ms.
+ 12c. bind    the einsum bind kernel (einsum_bind; csrc/bind.cu) against
+              its plain version on the card at gpt2-1l's shapes (its
+              weights 1,024 x 4,096 and 4,096 x 1,024, the tied head's
+              1,024 x 8,192, their activations, attention's 16 x 16 x 64
+              with the exclusive axis in the middle, laid out by the
+              engine), at int32 and int64 extremes and at E = 1; the bench
+              prove once more with every class it launches held, its bytes
+              phase 9's; each weight shape timed after an L2 flush beside
+              its bound (its bytes, or 16 IMADs an element) and its plain
+              version's ms.
  13. mesh     the bench prove under mesh_scope over 8 shards of the card
               (parallel/), in one process and over a 1-rank NCCL group:
               bytes equal the gate path's, the verifier accepts, the mesh
@@ -1183,6 +1193,8 @@ REDUCTION = ("reduction_bind", "reduction_q0", "reduction_tail")
 ROWS = ("rows_points", "rows_from_i64")
 # the read-check engine's kernels (device/onehot.py, csrc/onehot.cu)
 ONEHOT = ("onehot_prepare", "onehot_buckets", "onehot_round")
+# the einsum bind engine's kernel (device/bind.py, csrc/bind.cu)
+BIND = ("einsum_bind",)
 
 
 @contextlib.contextmanager
@@ -1255,7 +1267,7 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
     out, blobs, cap, rows_cap = {}, {}, {}, []
     for name, how in paths:
         need = ("bucket_accumulate", "bucket_combine") + ROWS \
-            + REDUCTION + ONEHOT if name != "host" else ()
+            + REDUCTION + ONEHOT + BIND if name != "host" else ()
         with (capture_reduction(cap) if name == "host"
               else contextlib.nullcontext()), (
                 capture_rows(rows_cap) if name == "host"
@@ -1301,7 +1313,8 @@ def phase_prove(dev, srs, results, dims=(65, 64, 64, 4, 4)) -> tuple:
         "paths": out}))
     trace, tele = counted(
         results, ("bucket_accumulate", "bucket_combine") + ROWS + REDUCTION
-        + ONEHOT, lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
+        + ONEHOT + BIND,
+        lambda: trace_prove(lambda: AtlasProver(pp).prove([toks])))
     results["launches_per_prove"] = tele["launches"]
     # what phase 13 proves again on the mesh, and the gate path beside it
     results["bench"] = {"pp": pp, "toks": toks, "blob": blob,
@@ -2388,12 +2401,133 @@ def phase_onehot(dev, results) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 12c: the einsum bind kernel
+# ---------------------------------------------------------------------------
+
+# (K, E) of gpt2-1l's binds that are weights (timed): fc, proj, the tied
+# head; then their activations (16 tokens) and attention's second operand
+BIND_WEIGHTS = ((1024, 4096), (4096, 1024), (1024, 8192))
+BIND_SHAPES = BIND_WEIGHTS + ((1024, 16), (4096, 16), (256, 64), (64, 1))
+
+
+def bind_case(A) -> tuple:
+    """The einsum bind's launch class: the operand's bytes an element and
+    the lanes a row (device/bind.py group)."""
+    from jolt_atlas_tpu_torch.device import bind as dbind
+    return A.element_size(), dbind.group(A.shape[1])
+
+
+def bind_inputs(K: int, E: int, dtype, gen, dev) -> tuple:
+    """A (K, E) operand of random values of dtype with its extremes (and 0,
+    -1) at the first entries, and an eq table of E random field elements
+    (their Montgomery forms), on dev."""
+    from jolt_atlas_tpu_torch.field.constants import FR_MODULUS
+    info = np.iinfo(dtype)
+    A = gen.integers(info.min, info.max, size=(K, E), dtype=np.int64,
+                     endpoint=True).astype(dtype)
+    A.flat[:4] = (info.min, info.max, 0, -1)[:A.size]
+    raw = b"".join((int.from_bytes(gen.bytes(32), "little") % FR_MODULUS)
+                   .to_bytes(32, "little") for _ in range(E))
+    eq = np.frombuffer(raw, dtype=np.int64).reshape(E, 4)
+    return (torch.from_numpy(A).to(dev), torch.from_numpy(eq.copy()).to(dev))
+
+
+def bind_work(K: int, E: int, width: int) -> tuple:
+    """(IMADs, bytes) a bind of a (K, E) operand of ``width`` bytes an
+    element needs at least: one 8-limb row of products an element (two for
+    int64: 16 IMADs a 32-bit word); the operand and the eq table read once,
+    the K results written."""
+    return 16 * (width // 4) * K * E, K * E * width + (E + K) * FR_BYTES
+
+
+def phase_bind(dev, results) -> None:
+    """The einsum bind kernel against its plain version on the card at
+    BIND_SHAPES (int32 and int64, the extremes of each), attention's
+    middle-axis operand through the engine against the host's bind, the
+    bench prove with every class it launches held (its bytes phase 9's),
+    and each of BIND_WEIGHTS timed (device ms after an L2 flush) beside its
+    bound and its plain version's ms."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.device import bind as dbind
+    from jolt_atlas_tpu_torch.field import vec
+    from jolt_atlas_tpu_torch.field.constants import FR_MODULUS
+    from jolt_atlas_tpu_torch.field.scalar import Fr
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    from jolt_atlas_tpu_torch.zkops.ops import EinsumLayout
+    err: dict = {}
+    gen = np.random.default_rng(2100)
+    inputs = {}
+    for K, E in BIND_SHAPES:
+        for dtype in (np.int32, np.int64):
+            A, eq = bind_inputs(K, E, dtype, gen, dev)
+            got = dbind.bind(A, eq)
+            err["einsum_bind"] = max(err.get("einsum_bind", 0.0),
+                                     require_equal(
+                f"einsum_bind ({K} x {E}, {dtype.__name__})",
+                [torch.from_numpy(got)], [dbind.bind_plain(A, eq).cpu()]))
+            checked(results, "einsum_bind", bind_case(A))
+            inputs[(K, E, dtype)] = (A, eq)
+    # attention's first operand, its exclusive axis in the middle
+    lay = EinsumLayout("hmk,hnk->hmn", [(16, 16, 64)] * 2, (16, 16, 16))
+    point = [Fr(int.from_bytes(gen.bytes(32), "little") % FR_MODULUS)
+             for _ in range(12)]
+    groups = lay.split_out_point(point)
+    arr = gen.integers(-2 ** 31, 2 ** 31, size=(16, 16, 64)).astype(np.int32)
+    with dbind.Scope(dev) as sc:
+        got = dbind.try_bind(lay, arr, "hmk", groups)
+    want = lay.bound_operand(arr, "hmk", groups)
+    if sc.engaged != 1 or list(vec.as_object(got.fvec)) != list(
+            vec.as_object(want.fvec)):
+        raise AssertionError("einsum_bind: attention's hmk bind differs "
+                             "from the host's")
+    # the bench prove's own launches
+    bench = results["bench"]
+    with hold_kernels(results, err, "bench prove", BIND) as seen:
+        (proof, _), tele = counted(
+            results, BIND,
+            lambda: AtlasProver(bench["pp"]).prove([bench["toks"]]))
+    if serde.serialize_proof(proof) != bench["blob"]:
+        raise AssertionError("einsum_bind: the held prove's bytes differ")
+    if not tele["decisions"].get("einsum_bind", "").startswith("ENGAGED"):
+        raise AssertionError(f"einsum_bind: the engine did not engage: "
+                             f"{tele['decisions']}")
+    timed = {}
+    for K, E in BIND_WEIGHTS:
+        A, eq = inputs[(K, E, np.int32)]
+        ms, call_ms, _ = device_ms(lambda: dbind.bind(A, eq), 5,
+                                   "einsum_bind", cold=True)
+        plain_ms, _ = cuda_ms(lambda: dbind.bind_plain(A, eq), 1,
+                              warmup=False)
+        imads, nbytes = bind_work(K, E, 4)
+        bnd, by = bound(imads, nbytes, results["imad_peak"], 1)
+        timed[f"{K} x {E}"] = {"ms": ms, "call_ms": call_ms,
+                               "plain_ms": plain_ms, "bound_ms": bnd,
+                               "bound_by": by, "share": bnd / ms,
+                               "imads": imads, "bytes": nbytes}
+    head = timed["1024 x 8192"]
+    results["einsum_bind"] = dict(
+        head, shape="1024 x 8192 int32 (the tied head), L2 flushed",
+        timed=timed, max_abs_err=err.get("einsum_bind", 0.0))
+    say("bind", "; ".join(
+        f"einsum_bind ({shape} int32): {t['ms']:.4f} ms on the device (a "
+        f"call {t['call_ms']:.4f} ms), plain {t['plain_ms']:.2f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['share']:.4f}"
+        for shape, t in timed.items()))
+    say("bind", json.dumps({
+        "shapes": [list(s) for s in BIND_SHAPES],
+        "bench_prove_classes_held": sorted(f"{k} {c}" for k, c in seen),
+        "bench_prove_launches": tele["launches"].get("einsum_bind", 0),
+        "decision": tele["decisions"]["einsum_bind"],
+        "max_abs_err": err}))
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the multi-device proving step on the card
 # ---------------------------------------------------------------------------
 
 # the kernels hold_kernels can hold at a path's launches
 HELD = ("bucket_accumulate", "bucket_combine", "reduction_bind",
-        "reduction_q0", "reduction_tail", "rows_points") + ONEHOT
+        "reduction_q0", "reduction_tail", "rows_points") + ONEHOT + BIND
 
 
 def onehot_state(ws, lay):
@@ -2425,8 +2559,8 @@ def _clone(obj):
 def hold_kernels(results, err: dict, label: str, kernels=HELD,
                  largest: dict | None = None, note=dict, seen=None,
                  defer: list | None = None):
-    """While entered, each of ``kernels`` (kernels 2-7 and the read-check
-    engine's three) is held bit-equal
+    """While entered, each of ``kernels`` (kernels 2-7, the read-check
+    engine's three and the einsum bind) is held bit-equal
     to its plain version (on the card, on the launch's own inputs) at the
     first launch of every shape class the path makes, which is then
     checked: its launch shape as its wrapper records it in telemetry, and
@@ -2440,6 +2574,7 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
     ``defer``: the launch's inputs and result are copied into this list
     instead, to be held after the path (``check_deferred``), so that the
     plain versions stay out of the path's time."""
+    from jolt_atlas_tpu_torch.device import bind as dbind
     from jolt_atlas_tpu_torch.device import msm as dmsm
     from jolt_atlas_tpu_torch.device import onehot as donehot
     from jolt_atlas_tpu_torch.device import reduction as dred
@@ -2450,7 +2585,7 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
             "reduction_tail": dred.tail, "rows_points": drows.points,
             "onehot_prepare": donehot.prepare,
             "onehot_buckets": donehot.buckets,
-            "onehot_round": donehot.round_}
+            "onehot_round": donehot.round_, "einsum_bind": dbind.bind}
     seen = set() if seen is None else seen
 
     def hold(kernel, key, case, got, plain_of, args, fresh=False):
@@ -2561,6 +2696,13 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
             lambda ws, lay, idx: donehot.round_plain(ws, lay, idx, rnd,
                                                      words))
 
+    def bind(A, eq):
+        got = real["einsum_bind"](A, eq)
+        case = bind_case(A)
+        first("einsum_bind", case, case, [torch.from_numpy(got)],
+              lambda a: [dbind.bind_plain(*a).cpu()], (A, eq), A.numel())
+        return got
+
     # (module, name) of each wrapper where its callers find it: the rows
     # engine binds with kernel 4 through its own import
     wrap = {"bucket_accumulate": ([(dmsm, "bucket_accumulate")], accumulate),
@@ -2571,7 +2713,8 @@ def hold_kernels(results, err: dict, label: str, kernels=HELD,
             "rows_points": ([(drows, "points")], points),
             "onehot_prepare": ([(donehot, "prepare")], prepare),
             "onehot_buckets": ([(donehot, "buckets")], buckets),
-            "onehot_round": ([(donehot, "round_")], round_)}
+            "onehot_round": ([(donehot, "round_")], round_),
+            "einsum_bind": ([(dbind, "bind")], bind)}
     for k in kernels:
         for mod, attr in wrap[k][0]:
             setattr(mod, attr, wrap[k][1])
@@ -3556,7 +3699,7 @@ FLAGSHIP_VARS = 24
 FLAGSHIP_HOLD_N = 1 << 20
 FLAGSHIP_HOLD_RUN = 4
 FLAGSHIP_HELD = ("bucket_combine", "reduction_bind", "reduction_q0",
-                 "reduction_tail", "rows_points") + ONEHOT
+                 "reduction_tail", "rows_points") + ONEHOT + BIND
 
 
 @contextlib.contextmanager
@@ -3895,6 +4038,10 @@ KERNELS = (
      "jolt_atlas_tpu/subprotocols/onehot.py:138"),
     ("onehot_round", "jolt_atlas_tpu_torch/csrc/onehot.cu",
      "jolt_atlas_tpu/subprotocols/onehot.py:383"),
+    # the einsum bind engine (device/bind.py): the host's object-dtype
+    # np.einsum of EinsumLayout.bound_operand
+    ("einsum_bind", "jolt_atlas_tpu_torch/csrc/bind.cu",
+     "jolt_atlas_tpu/zkops/ops.py:360"),
 )
 
 
@@ -3954,6 +4101,7 @@ def run_phases() -> int:
     del cap
     phase("rows", phase_rows, dev, results, rows_cap)
     phase("onehot", phase_onehot, dev, results)
+    phase("bind", phase_bind, dev, results)
     phase("mesh", phase_mesh, dev, results)
     phase("exact", phase_exact, dev, results)
     phase("models", phase_models, dev, results)
@@ -4012,6 +4160,9 @@ def run_phases() -> int:
                 if k.startswith(name)}
         if name in ONEHOT:
             row.update({k: r[k] for k in ("share", "products", "bytes")})
+        if name in BIND:  # no TPU kernel: the host's np.einsum
+            row.update({k: r[k] for k in ("share", "imads", "bytes",
+                                          "timed")})
         if name == "onehot_buckets":
             row["also_replaces"] = "jolt_atlas_tpu/subprotocols/onehot.py:336"
         if name == "onehot_round":

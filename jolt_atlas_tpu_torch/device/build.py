@@ -5,7 +5,7 @@ Two kinds of shared library, both loaded with ctypes:
 - the host C++ engines from the repo's ``csrc/`` (``msm.cpp``,
   ``frvec.cpp``), compiled with g++ for the CPU this process runs on;
 - the port's CUDA kernels, ``jolt_atlas_tpu_torch/csrc/*.cu`` (curve,
-  msm, combine, reduction, rows, exact, onehot), compiled
+  msm, combine, reduction, rows, exact, onehot, bind), compiled
   with nvcc for Hopper (``sm_90a``), one nvcc process per source, all
   started together, and linked into one library with a plain C interface.
   ptxas reports each kernel's registers, spills and shared memory
@@ -200,6 +200,7 @@ SIGNATURES = {
     "jolt_onehot_buckets": [_VP] * 4,
     "jolt_onehot_round": [_VP] * 3 + [_I64] + [_U64] * 4 + [_VP, _VP, _I64,
                                                             _VP],
+    "jolt_einsum_bind": [_VP, _I64, _I64, _I64, _VP, _VP, _I64, _VP, _VP],
 }
 
 _CUDA = None

@@ -84,68 +84,21 @@ FIELDS = ("M", "logK", "K", "logT", "T", "D", "N", "S", "wide",
 # the scope
 # ---------------------------------------------------------------------------
 
-_SCOPES: list = [None]  # the entered scope
-
-
-class Scope:
+class Scope(telemetry.EngineScope):
     """While entered, BatchedSumcheck.prove offers its read-check batches to
-    ``try_prove``. Counts the batches offered, engaged and declined (by
-    reason); on exit records decisions["rachecks"], with the engine's
-    one-hot elements (the ``iop_rachecks_card`` counter) and dispatches
-    while it was entered, and, for the declines,
-    decisions["rachecks:declined"]."""
+    ``try_prove`` (telemetry.EngineScope: decisions["rachecks"] and
+    ["rachecks:declined"], the engine's one-hot elements the
+    ``iop_rachecks_card`` counter)."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.offered = self.engaged = 0
-        self.declined: dict[str, int] = {}
-
-    @staticmethod
-    def _work() -> tuple:
-        """(the engine's one-hot elements, its dispatches) so far."""
-        return (telemetry.counters().get("iop_rachecks_card", 0),
-                telemetry.snapshot()["dispatches"].get("rachecks", 0))
-
-    def __enter__(self):
-        self._prev = _SCOPES[0]
-        _SCOPES[0] = self
-        self._start = self._work()
-        return self
-
-    def __exit__(self, *exc):
-        _SCOPES[0] = self._prev
-        telemetry.decide("rachecks", self.summary())
-        if self.declined:
-            telemetry.decide("rachecks:declined", ", ".join(
-                f"{why}: {k}" for why, k in sorted(self.declined.items())))
-        return False
-
-    def decline(self, why: str) -> None:
-        self.declined[why] = self.declined.get(why, 0) + 1
-
-    def summary(self) -> str:
-        if self.engaged:
-            elements, calls = (b - a for a, b in zip(self._start,
-                                                     self._work()))
-            return (f"ENGAGED ({self.engaged} of {self.offered} batches, "
-                    f"{elements} one-hot elements, {calls} dispatches)")
-        return f"none engaged ({self.offered} batches offered)"
+    ENGINE, COUNTER = "rachecks", "iop_rachecks_card"
+    ITEMS, ELEMENTS = "batches", "one-hot elements"
 
 
-def scope(device, forced: bool = False) -> Scope | None:
-    """The scope the prover enters around its IOP loop, or None (the host
-    path, recorded in telemetry): on a CUDA device, or on any device where
-    the IOP's rows gate is forced (device/rows.py ``forced``; the plain
-    versions on a CPU device)."""
-    device = torch.device(device)
-    if device.type != "cuda" and not forced:
-        telemetry.decide("rachecks", f"host path (device={device.type})")
-        return None
-    return Scope(device)
+scope = Scope.for_device
 
 
 def active() -> Scope | None:
-    return _SCOPES[0]
+    return Scope.entered
 
 
 # ---------------------------------------------------------------------------

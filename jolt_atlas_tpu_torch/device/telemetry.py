@@ -16,10 +16,14 @@ x the mean)). ``tally`` counts the host's side of the work beside the
 dispatches: the calls into the host field engine (``host_field_calls``,
 field/frvec.py), the IOP's batched sumcheck rounds, the row elements the
 IOP's Gruen instances bind on the card and on the host; utils/profiling
-keeps each counter's change across a proof.
+keeps each counter's change across a proof. ``EngineScope`` is the scope
+an IOP engine's entry point takes its work under (device/onehot.py,
+device/bind.py), which records the engine's decisions here.
 """
 
 from __future__ import annotations
+
+import torch
 
 _COUNTS: dict[str, int] = {}
 _DECISIONS: dict[str, str] = {}
@@ -98,3 +102,63 @@ def reset() -> None:
     _LAUNCHES.clear()
     _LANES.clear()
     _DECISIONS.clear()
+
+
+class EngineScope:
+    """While entered, an IOP engine's entry point offers it work from the
+    host path. Counts the work offered, engaged and declined (by reason);
+    on exit records decisions[ENGINE], with the engine's elements (the
+    counter COUNTER) and dispatches while it was entered, and, for the
+    declines, decisions[ENGINE + ":declined"]. A subclass names ENGINE,
+    COUNTER and its summary's ITEMS and ELEMENTS; ``entered`` is its
+    entered scope."""
+
+    ENGINE = COUNTER = ITEMS = ELEMENTS = ""
+    entered = None
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.offered = self.engaged = 0
+        self.declined: dict[str, int] = {}
+
+    @classmethod
+    def for_device(cls, device, forced: bool = False, *args):
+        """The scope the prover enters around its IOP loop, or None (the
+        host path, recorded here): on a CUDA device, or on any device where
+        the IOP's rows gate is forced (device/rows.py ``forced``; the plain
+        versions on a CPU device)."""
+        device = torch.device(device)
+        if device.type != "cuda" and not forced:
+            decide(cls.ENGINE, f"host path (device={device.type})")
+            return None
+        return cls(device, *args)
+
+    def _work(self) -> tuple:
+        """(the engine's elements, its dispatches) so far."""
+        return _COUNTERS.get(self.COUNTER, 0), _COUNTS.get(self.ENGINE, 0)
+
+    def __enter__(self):
+        cls = type(self)
+        self._prev, cls.entered = cls.entered, self
+        self._start = self._work()
+        return self
+
+    def __exit__(self, *exc):
+        type(self).entered = self._prev
+        decide(self.ENGINE, self.summary())
+        if self.declined:
+            decide(self.ENGINE + ":declined", ", ".join(
+                f"{why}: {k}" for why, k in sorted(self.declined.items())))
+        return False
+
+    def decline(self, why: str) -> None:
+        self.declined[why] = self.declined.get(why, 0) + 1
+
+    def summary(self) -> str:
+        if self.engaged:
+            elements, calls = (b - a for a, b in zip(self._start,
+                                                     self._work()))
+            return (f"ENGAGED ({self.engaged} of {self.offered} "
+                    f"{self.ITEMS}, {elements} {self.ELEMENTS}, {calls} "
+                    f"dispatches)")
+        return f"none engaged ({self.offered} {self.ITEMS} offered)"

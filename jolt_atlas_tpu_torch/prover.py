@@ -25,6 +25,7 @@ from .subprotocols.eval_reduction import prove_eval_reduction
 from .subprotocols.sumcheck import zk_mode
 from .transcripts import Blake2bTranscript
 from .commitment.hyperkzg import HyperKZG
+from .device import bind as dbind
 from .device import onehot as donehot
 from .device import rows as drows
 from .commitment.kzg import kzg_commit
@@ -117,8 +118,11 @@ class AtlasProver:
         # device: the plain versions).
         # Each node's one-hot read checks (a Booleanity and its address read
         # checks, one batched sumcheck) run on the card's read-check engine
-        # (device/onehot.py) on a CUDA device, and wherever iop_gate is
-        # forced (a CPU device: the plain versions).
+        # (device/onehot.py), and each Einsum operand's bind on the card's
+        # bind engine (device/bind.py), on a CUDA device, and wherever
+        # iop_gate is forced (a CPU device: the plain versions). The bind
+        # engine keeps the graph's constant operands on the card from their
+        # first bind on (bind_residents).
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AtlasProver: no CUDA device; pass "
@@ -135,6 +139,7 @@ class AtlasProver:
         self.msm_gate = msm_gate
         self.reduction_gate = reduction_gate
         self.iop_gate = iop_gate
+        self.bind_residents: dict = {}
 
     def _msm_engine(self):
         """(the device MSM engine or None, the gate that routes the MSMs)."""
@@ -280,11 +285,14 @@ class AtlasProver:
             scope = None
         else:
             scope = drows.iop_scope(self.device, self.iop_gate)
-        # the read-check engine's scope (device/onehot.py), or None
-        rachecks = donehot.scope(
-            self.device, self.iop_gate is not None and self.iop_gate.forced)
+        # the read-check engine's and the einsum bind engine's scopes
+        # (device/onehot.py, device/bind.py), or None
+        forced = self.iop_gate is not None and self.iop_gate.forced
+        rachecks = donehot.scope(self.device, forced)
+        binds = dbind.scope(self.device, forced, self.bind_residents)
         with span("iop"), scope or contextlib.nullcontext(), \
-                rachecks or contextlib.nullcontext():
+                rachecks or contextlib.nullcontext(), \
+                binds or contextlib.nullcontext():
             for node in reversed(model.graph.sorted_nodes()):
                 claims = collect_node_claims(accumulator, node.idx)
                 if isinstance(node.operator, (FOPS.Input, FOPS.Constant)):

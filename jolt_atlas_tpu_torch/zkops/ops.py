@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..device import bind as dbind
 from ..device import telemetry
 from ..field import vec
 from ..field.scalar import Fr
@@ -359,27 +360,38 @@ class EinsumLayout:
         other = self.terms[1] if term == self.terms[0] else self.terms[0]
         return [ch for ch in term if ch in self.out_chars and ch not in other]
 
+    def operand_axes(self, term: str) -> tuple[list[str], list[str]]:
+        """(the term's domain chars in canonical domain order, its exclusive
+        out chars in term order): the axes a bound operand keeps and those
+        it is bound at."""
+        excl = self.exclusive_chars(term)
+        return ([ch for ch in self.domain_chars if ch in term],
+                [ch for ch in term if ch in excl])
+
+    def broadcast_bound(self, bound: np.ndarray, kept: list[str]):
+        """A bound operand (its kept chars' axes, then any trailing axes)
+        broadcast along the domain chars missing from its term (the operand
+        is constant along them), flattened in canonical domain order."""
+        bound = np.asarray(bound)  # a scalar where no char is kept
+        trail = bound.shape[len(kept):]
+        full_shape = tuple(self.sizes[ch] for ch in self.domain_chars)
+        view = bound
+        for ax, ch in enumerate(self.domain_chars):
+            if ch not in kept:
+                view = np.expand_dims(view, ax)
+        view = np.broadcast_to(view, full_shape + trail)
+        return np.ascontiguousarray(view).reshape((-1,) + trail)
+
     def bound_operand(self, arr: np.ndarray, term: str, out_groups: dict):
         """Partial-evaluate at exclusive out chars; flatten remaining axes
         (shared + contract) in canonical domain order (absent chars -> the
         operand is constant along them, broadcast)."""
         obj = arr.astype(object) % vec.R
-        excl = self.exclusive_chars(term)
-        eq_parts = [vec.as_object(eq_evals(out_groups[ch]))
-                    for ch in term if ch in excl]
-        sub = ",".join([term] + [ch for ch in term if ch in excl])
-        kept = [ch for ch in self.domain_chars if ch in term]
-        out_sub = "".join(kept)
-        bound = np.einsum(f"{sub}->{out_sub}", obj, *eq_parts) % vec.R
-        # broadcast along domain chars missing from this term
-        full_shape = tuple(self.sizes[ch] for ch in self.domain_chars)
-        expand = [self.domain_chars.index(ch) for ch in kept]
-        view = bound
-        for ax in range(len(self.domain_chars)):
-            if ax not in expand:
-                view = np.expand_dims(view, ax)
-        view = np.broadcast_to(view, full_shape)
-        return MLPoly(fvec=np.ascontiguousarray(view).reshape(-1))
+        kept, excl = self.operand_axes(term)
+        eq_parts = [vec.as_object(eq_evals(out_groups[ch])) for ch in excl]
+        sub = ",".join([term] + excl)
+        bound = np.einsum(f"{sub}->{''.join(kept)}", obj, *eq_parts) % vec.R
+        return MLPoly(fvec=self.broadcast_bound(bound, kept))
 
     def eq_shared_poly(self, out_groups: dict) -> MLPoly | None:
         if not self.shared_chars:
@@ -886,8 +898,16 @@ def _prove_einsum(node, ctx, r, out_claim):
     bounds = []
     for i, term in zip(node.inputs, layout.terms):
         arr = ctx.trace.node_outputs[i]
+        # the card's bind engine where the prover's scope is entered (a
+        # constant operand stays resident there), else the host
+        resident = i if isinstance(ctx.node(i).operator, FOPS.Constant) \
+            else None
         with profiling.span("einsum_bind"):
-            bounds.append(layout.bound_operand(arr, term, out_groups))
+            bound = dbind.try_bind(layout, arr, term, out_groups, resident)
+            if bound is None:
+                bound = layout.bound_operand(arr, term, out_groups)
+                telemetry.tally("einsum_bind_host", arr.size)
+            bounds.append(bound)
         telemetry.tally("einsum_bind_elements", arr.size)
     cinst = EinsumContractionProver(node, layout, bounds, acc_claim,
                                     out_groups, list(node.inputs))

@@ -909,3 +909,91 @@ def test_onehot_engine_on_gpu_matches_host(gpu):
     assert tele["launches"]["onehot_round"] > 0
     assert tele["counters"]["iop_rachecks_card"] > 0
     assert serde.serialize_proof(got) == serde.serialize_proof(want)
+
+
+# ---------------------------------------------------------------------------
+# the einsum bind engine (device/bind.py, csrc/bind.cu)
+# ---------------------------------------------------------------------------
+
+def _bind_inputs(K, E, dtype, seed, dev):
+    """A (K, E) operand of random values of dtype, its extremes (and 0, -1)
+    first, and E random field elements as an eq table, on dev."""
+    gen = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    A = gen.integers(info.min, info.max, size=(K, E), dtype=np.int64,
+                     endpoint=True).astype(dtype)
+    A.flat[:4] = (info.min, info.max, 0, -1)[:A.size]
+    eq = torch.tensor([[v - (1 << 64) if v >> 63 else v
+                        for v in ((x >> (64 * i)) & ((1 << 64) - 1)
+                                  for i in range(4))]
+                       for x in (int.from_bytes(gen.bytes(32), "little")
+                                 % FR_MODULUS for _ in range(E))],
+                      dtype=torch.int64).reshape(E, 4)
+    return torch.from_numpy(A).to(dev), eq.to(dev)
+
+
+# gpt2-1l's binds: its fc and proj weights, the tied head, their
+# activations, attention's second operand; E = 1; a ragged row
+@pytest.mark.parametrize("K,E", [(1024, 4096), (4096, 1024), (1024, 8192),
+                                 (1024, 16), (256, 64), (64, 1), (3, 1000)])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_einsum_bind_kernel_matches_plain(gpu, K, E, dtype):
+    """The kernel against its plain version on the same card tensors,
+    limb for limb, one launch each."""
+    from jolt_atlas_tpu_torch.device import bind as dbind
+    A, eq = _bind_inputs(K, E, dtype, K + E, gpu)
+    before = telemetry.launches().get("einsum_bind", 0)
+    got = dbind.bind(A, eq)
+    assert telemetry.launches()["einsum_bind"] - before == 1
+    assert np.array_equal(got, dbind.bind_plain(A, eq).cpu().numpy())
+
+
+def test_einsum_bind_engine_lays_out_attention_on_gpu(gpu):
+    """Attention's 16 x 16 x 64 operands, the exclusive axis in the middle
+    of hmk, laid out on the card: the host's bound values."""
+    from jolt_atlas_tpu_torch.device import bind as dbind
+    from jolt_atlas_tpu_torch.field import vec
+    from jolt_atlas_tpu_torch.field.scalar import Fr
+    from jolt_atlas_tpu_torch.zkops.ops import EinsumLayout
+    gen = np.random.default_rng(16)
+    for eqn, dims, out in (("hmk,hnk->hmn", [(16, 16, 64)] * 2,
+                            (16, 16, 16)),
+                           ("hmn,hnk->hmk", [(16, 16, 16), (16, 16, 64)],
+                            (16, 16, 64))):
+        lay = EinsumLayout(eqn, dims, out)
+        groups = lay.split_out_point([
+            Fr(int.from_bytes(gen.bytes(32), "little") % FR_MODULUS)
+            for _ in range(sum(lay.char_vars(c) for c in lay.out_chars))])
+        for term, d in zip(lay.terms, dims):
+            arr = gen.integers(-2 ** 31, 2 ** 31, size=d).astype(np.int32)
+            with dbind.Scope(gpu) as sc:
+                got = dbind.try_bind(lay, arr, term, groups)
+            assert sc.engaged == 1
+            want = lay.bound_operand(arr, term, groups)
+            assert list(vec.as_object(got.fvec)) == list(
+                vec.as_object(want.fvec)), (eqn, term)
+
+
+def test_einsum_bind_engine_on_gpu_matches_host(gpu):
+    """BENCH_SMALL's nanoGPT on the card under the default gates, proved
+    twice by one prover: every bind on the engine, the weights uploaded at
+    the first proof only, the host path's bytes both times."""
+    from jolt_atlas_tpu_torch import serde
+    from jolt_atlas_tpu_torch.prover import AtlasProver
+    pp, toks = _bench_small_pp()
+    prover = AtlasProver(pp, device=gpu)
+    for k, t in enumerate((toks, (toks + 5) % 32)):
+        want, _ = AtlasProver(pp, device="cpu").prove([t])
+        telemetry.reset()
+        got, _ = prover.prove([t])
+        tele = telemetry.snapshot()
+        assert tele["decisions"]["einsum_bind"].startswith("ENGAGED")
+        assert tele["launches"]["einsum_bind"] > 0
+        assert "einsum_bind_host" not in tele["counters"]
+        assert tele["counters"]["einsum_bind_card"] == \
+            tele["counters"]["einsum_bind_elements"]
+        assert serde.serialize_proof(got) == serde.serialize_proof(want)
+        if k == 0:
+            residents = dict(prover.bind_residents)
+    assert residents and all(prover.bind_residents[key] is t
+                             for key, t in residents.items())

@@ -297,7 +297,8 @@ READING = {
                                                                  1]},
     "counters": {"host_field_calls": 60000.0, "iop_rows_bound_card": 3e6,
                  "iop_rows_bound_host": 9e6, "iop_rachecks_card": 1.2e7,
-                 "iop_rachecks_host": 4e5, "einsum_bind_elements": 2.1e7}}
+                 "iop_rachecks_host": 4e5, "einsum_bind_elements": 2.1e7,
+                 "einsum_bind_card": 2.0e7, "einsum_bind_host": 1.0e6}}
 
 
 def _read(name: str, reading: dict):
@@ -317,7 +318,8 @@ def test_every_reader_on_a_synthetic_reading():
         "iop_rows_s": 0.75, "iop_rows_share": 25.0, "iop_host_cores": 4.0,
         "host_field_calls": 60000.0, "reduction_prepare_s": 1.5,
         "iop_rachecks_share": 100 * 1.2e7 / 1.24e7,
-        "iop_einsum_bind_s": 0.75, "einsum_bind_elements": 2.1e7}
+        "iop_einsum_bind_s": 0.75, "einsum_bind_elements": 2.1e7,
+        "iop_einsum_bind_share": 100 * 2.0e7 / 2.1e7}
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         names = [m["name"] for m in json.load(f)["per_layer"]]
     assert sorted(names) == sorted(expected)
@@ -328,7 +330,7 @@ def test_every_reader_on_a_synthetic_reading():
 NEW = ["iop_sumcheck_s", "iop_eval_reduction_s", "iop_rows_s",
        "iop_rows_share", "iop_host_cores", "host_field_calls",
        "reduction_prepare_s", "iop_rachecks_share", "iop_einsum_bind_s",
-       "einsum_bind_elements"]
+       "einsum_bind_elements", "iop_einsum_bind_share"]
 
 
 @pytest.mark.parametrize("name", NEW)
