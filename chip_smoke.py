@@ -1847,7 +1847,7 @@ def span_sums(prefix: str) -> dict:
 
 def rows_run(inst, dev=None, gate=None) -> dict:
     """Every round of one captured instance alone, by the engine (under an
-    IopScope of ``dev`` and ``gate``) or, without ``dev``, by the host
+    rows Scope of ``dev`` and ``gate``) or, without ``dev``, by the host
     GruenInstance, on fresh copies of its rows, at challenges from a fixed
     seed: its ms (host clock; the first two rounds apart), round messages,
     final row values and the engine's steps (ms by span)."""
@@ -1868,7 +1868,7 @@ def rows_run(inst, dev=None, gate=None) -> dict:
     profiling.reset()
     r = RowsInstance()
     t0 = time.perf_counter()
-    with (drows.IopScope(dev, gate) if dev is not None
+    with (drows.Scope(dev, gate) if dev is not None
           else contextlib.nullcontext()):
         r.setup_rows(polys, inst["terms"], inst["degree"], eq_r, pre, post)
     engaged = isinstance(r._gruen, drows.DeviceGruen)
@@ -2473,11 +2473,12 @@ def phase_bind(dev, results) -> None:
              for _ in range(12)]
     groups = lay.split_out_point(point)
     arr = gen.integers(-2 ** 31, 2 ** 31, size=(16, 16, 64)).astype(np.int32)
+    perm, K, E, points, _ = lay.operand_layout("hmk", groups)
+    want = dbind.bind_operand(arr, perm, K, E, points)  # the host's
     with dbind.Scope(dev) as sc:
-        got = dbind.try_bind(lay, arr, "hmk", groups)
-    want = lay.bound_operand(arr, "hmk", groups)
-    if sc.engaged != 1 or list(vec.as_object(got.fvec)) != list(
-            vec.as_object(want.fvec)):
+        got = dbind.bind_operand(arr, perm, K, E, points)
+    if sc.engaged != 1 or list(vec.as_object(got)) != list(
+            vec.as_object(want)):
         raise AssertionError("einsum_bind: attention's hmk bind differs "
                              "from the host's")
     # the bench prove's own launches
@@ -4038,8 +4039,8 @@ KERNELS = (
      "jolt_atlas_tpu/subprotocols/onehot.py:138"),
     ("onehot_round", "jolt_atlas_tpu_torch/csrc/onehot.cu",
      "jolt_atlas_tpu/subprotocols/onehot.py:383"),
-    # the einsum bind engine (device/bind.py): the host's object-dtype
-    # np.einsum of EinsumLayout.bound_operand
+    # the operand bind engine (device/bind.py): the reference's
+    # object-dtype np.einsum of EinsumLayout.bound_operand
     ("einsum_bind", "jolt_atlas_tpu_torch/csrc/bind.cu",
      "jolt_atlas_tpu/zkops/ops.py:360"),
 )

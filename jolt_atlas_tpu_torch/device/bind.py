@@ -1,36 +1,39 @@
-"""The IOP's einsum binds on the card: each Einsum operand partially
-evaluated at its exclusive output variables (EinsumLayout.bound_operand's
-function, zkops/ops.py) by one launch of csrc/bind.cu, with its plain
-version, its wrapper and the engine's entry point ``try_bind``.
+"""The IOP's operand binds: an integer array partially evaluated at some of
+its variables, one entry point ``bind_operand`` for every caller, on the
+card by one launch of csrc/bind.cu (with its plain version and its
+wrapper) under the engine's scope, else on the host.
 
 A bind is out[k] = sum_e A[k, e] eq[e] mod r: A the operand laid out (K,
-E), its domain axes first (the contraction sumcheck's shared and contract
-chars, in domain order) and its exclusive axes last (in term order, so the
-exclusive chars' eq tables joined are one eq table over their points
-concatenated); eq that table in Montgomery form; out K field elements in
-Montgomery form, broadcast along the domain chars the term lacks exactly as
-the host path does. An operand with no exclusive char is the same bind at
-E = 1 against eq = [1]. The result equals the host path's limb for limb, so
-the proof bytes do not change.
+E), the axes it keeps first and those it is bound at last (so the bound
+axes' eq tables joined are one eq table over their points concatenated);
+eq that table in Montgomery form; out K field elements. An operand bound
+at no axis is the same bind at E = 1 against eq = [1]. Its callers lay
+out their own operands (zkops/ops.py: each Einsum operand at its
+exclusive output chars, then broadcast along the domain chars it lacks;
+Sum's input at its kept axes; Gather's and GatherLarge's dictionary rows
+at their entries, GatherLarge's zero-extended to 16^D rows; and
+zkops/softmax_op.py: Softmax's exp sums at their rows). The result equals
+the host path's limb for limb, so the proof bytes do not change.
 
-- Constant operands (the model's weights) stay on the card: each is laid
-  out and uploaded once a prover (its int32 values as int32), at its first
-  bind, so in the benchmark's warm-up proof, and kept in the prover's
-  ``residents`` keyed by (node index, axis order).
-- Every other operand (activations, attention's q, k, v and weights) goes
-  up at each bind as it is (int32, or int64), is laid out on the card by a
-  torch copy, and is bound by the same kernel.
-- One launch a bind; its K results come back in one fetch into pinned
+On the card (under ``Scope``, which the prover enters around its IOP loop,
+AtlasProver._iop_engines; the plain version on a CPU device):
+
+- constant operands (the model's weights and dictionaries) stay on the
+  card: each is laid out and uploaded once a prover (its int32 values as
+  int32), at its first bind, so in the benchmark's warm-up proof, and kept
+  in the prover's ``residents`` keyed by (node index, axis order);
+- every other operand goes up at each bind as it is (int32, or int64), is
+  laid out on the card by a torch copy, and is bound by the same kernel;
+- one launch a bind; its K results come back in one fetch into pinned
   memory. The eq table goes up beside the operand (E x 32 bytes).
 
-Which binds it takes: under a scope (``scope``: the prover enters it
-around its IOP loop on a CUDA device, or on any device where the IOP's
-rows gate is forced, the plain version on a CPU one), each bind outside a
-mesh scope, of a term without a repeated char, where the host field engine
-(field/frvec.py) is loaded. Each decline is counted with its reason in the
-scope, which records them in telemetry.decisions["einsum_bind:declined"] on
-exit; the host path runs those. Counters: ``einsum_bind_card`` (the operand
-elements the engine bound; the host path counts ``einsum_bind_host``).
+Where the host field engine (field/frvec.py) did not load, the scope
+declines (counted in telemetry.decisions["einsum_bind:declined"]). The host
+path is the field engine's ``i64_mat_vec``, and object-dtype np.einsum
+mod r only where that engine did not load. Counters: ``einsum_bind_card``
+(the operand elements the engine bound) and ``einsum_bind_host`` (those
+the host bound), over all callers; ``_prove_einsum`` counts the Einsum
+operands' own elements (``einsum_bind_elements``).
 
 The wrapper dispatches on its tensors' device: CUDA tensors launch the
 kernel, CPU tensors run the plain version, with no fallback from one to the
@@ -58,12 +61,12 @@ PLAIN_CHUNK = 1 << 20  # the plain version's exact float64 sums: E x 2^32
 # ---------------------------------------------------------------------------
 
 class Scope(telemetry.EngineScope):
-    """While entered, _prove_einsum offers each operand's bind to
-    ``try_bind`` (telemetry.EngineScope: decisions["einsum_bind"] and
+    """While entered, ``bind_operand`` binds on the scope's device
+    (telemetry.EngineScope: decisions["einsum_bind"] and
     ["einsum_bind:declined"], the engine's operand elements the
     ``einsum_bind_card`` counter). ``residents``: the prover's constant
-    operands on the card, {(node index, axis order): (K, E) tensor}, kept
-    across its proofs."""
+    operands on the card, {(node index, axis order): tensor}, kept across
+    its proofs."""
 
     ENGINE, COUNTER = "einsum_bind", "einsum_bind_card"
     ITEMS, ELEMENTS = "binds", "operand elements"
@@ -83,14 +86,7 @@ class Scope(telemetry.EngineScope):
         got = self.residents.get(key)
         if got is None:
             got = self.residents[key] = upload(arr, perm, K, E, self.device)
-        return got
-
-
-scope = Scope.for_device
-
-
-def active() -> Scope | None:
-    return Scope.entered
+        return got.view(K, E)
 
 
 def upload(arr: np.ndarray, perm: tuple, K: int, E: int,
@@ -229,43 +225,32 @@ def bind(A: torch.Tensor, eq: torch.Tensor) -> np.ndarray:
 # the engine
 # ---------------------------------------------------------------------------
 
-def try_bind(layout, arr: np.ndarray, term: str, out_groups: dict,
-             resident=None):
-    """The operand arr of ``term`` bound at its exclusive output chars on
-    the scope's device, as layout.bound_operand's MLPoly with the same
-    values, or None (no scope, or declined, the reason counted in the
-    scope: the caller runs the host path). resident: the node index of a
-    constant operand, kept on the card across the prover's proofs."""
+def bind_operand(arr: np.ndarray, perm: tuple, K: int, E: int, points,
+                 resident=None):
+    """out[k] = sum_e A[k, e] eq(points)[e] mod r, A the integer array arr
+    with its axes in the order perm, as (K, E): K field elements, an
+    FrArray (an object array of canonical ints where the host field engine
+    did not load). On the entered scope's device, else on the host.
+    resident: the node index of a constant operand, kept on the card
+    across the prover's proofs."""
     from ..field import frvec
-    from ..parallel import shardedreduction
     from ..poly.eq import eq_evals
-    from ..poly.mlpoly import MLPoly
-    sc = active()
-    if sc is None:
-        return None
-    sc.offered += 1
-    why = None
-    if shardedreduction.active_mesh() is not None:
-        why = "mesh scope"
-    elif len(set(term)) != len(term):
-        why = "a repeated char"
-    elif not frvec.available():
-        why = "no host field engine"
-    if why is not None:
-        sc.decline(why)
-        return None
-    sc.engaged += 1
-    kept, excl = layout.operand_axes(term)
-    perm = tuple(term.index(ch) for ch in kept + excl)
-    shape = tuple(layout.sizes[ch] for ch in kept)
-    K, E = int(np.prod(shape, dtype=np.int64)), int(np.prod(
-        [layout.sizes[ch] for ch in excl], dtype=np.int64))
-    A = sc.operand(arr, perm, K, E, resident)
-    table = eq_evals([x for ch in excl for x in out_groups[ch]])
-    eq = torch.from_numpy(np.ascontiguousarray(table.d).view(np.int64)).to(
-        sc.device)
-    rows = bind(A, eq).view(np.uint64)
-    telemetry.count("einsum_bind")
-    telemetry.tally("einsum_bind_card", int(arr.size))
-    return MLPoly(fvec=frvec.FrArray(layout.broadcast_bound(
-        rows.reshape(shape + (4,)), kept)))
+    eq = eq_evals(list(points))
+    sc = Scope.entered
+    if sc is not None:
+        sc.offered += 1
+        if isinstance(eq, frvec.FrArray):
+            sc.engaged += 1
+            A = sc.operand(arr, perm, K, E, resident)
+            rows = bind(A, torch.from_numpy(np.ascontiguousarray(
+                eq.d).view(np.int64)).to(sc.device))
+            telemetry.count("einsum_bind")
+            telemetry.tally("einsum_bind_card", K * E)
+            return frvec.FrArray(rows.view(np.uint64))
+        sc.decline("no host field engine")
+    telemetry.tally("einsum_bind_host", K * E)
+    a = np.asarray(arr).transpose(perm).reshape(K, E)
+    if isinstance(eq, frvec.FrArray):
+        return frvec.i64_mat_vec(a, eq)
+    return np.einsum("ke,e->k", a.astype(object) % FR_MODULUS,
+                     eq) % FR_MODULUS

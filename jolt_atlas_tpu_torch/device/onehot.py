@@ -35,12 +35,10 @@ field polynomial the host computes (the claims feed the same hints: p(1) =
 claim - p(0) for a read check, es q(1) = (claim - l0 es q(0)) / l1 for the
 Booleanity).
 
-Which batches it takes (``decline``): under a scope (``scope``: the prover
-enters it around its IOP loop on a CUDA device, or on any device where the
-IOP's rows gate is forced, the plain versions on a CPU one), a batch of one
-Booleanity and read checks of its rows, outside zk mode and any mesh scope,
-with no zero coordinate of r_b (the Gruen line's hint has no inverse
-there). Each decline is counted with its reason in the scope, which
+Which batches it takes (``decline``): under its ``Scope`` (the prover
+enters it around its IOP loop, AtlasProver._iop_engines), a batch of one
+Booleanity and read checks of its rows, with no zero coordinate of r_b
+(the Gruen line's hint has no inverse there). Each decline is counted with its reason in the scope, which
 records them in telemetry.decisions["rachecks:declined"] on exit; the host
 path runs those. Counters: ``iop_rachecks_card`` (the engine's D x T a
 batch; the host path counts ``iop_rachecks_host``) and
@@ -92,13 +90,6 @@ class Scope(telemetry.EngineScope):
 
     ENGINE, COUNTER = "rachecks", "iop_rachecks_card"
     ITEMS, ELEMENTS = "batches", "one-hot elements"
-
-
-scope = Scope.for_device
-
-
-def active() -> Scope | None:
-    return Scope.entered
 
 
 # ---------------------------------------------------------------------------
@@ -645,14 +636,8 @@ def decline(instances) -> tuple:
     """(why the engine does not take this batch or None, the Booleanity,
     the read checks). Asked only of a batch that holds a Booleanity or a
     read check."""
-    from ..parallel import shardedreduction
     from ..subprotocols.onehot import (AddressReadCheckProver,
                                        BooleanityProver, table_vec)
-    from ..subprotocols.sumcheck import zk_mode
-    if zk_mode.gens() is not None:
-        return "zk mode", None, None
-    if shardedreduction.active_mesh() is not None:
-        return "mesh scope", None, None
     bs = [i for i in instances if type(i) is BooleanityProver]
     rcs = [i for i in instances if type(i) is AddressReadCheckProver]
     if len(bs) + len(rcs) != len(instances):
@@ -686,7 +671,7 @@ def try_prove(instances, accumulator, transcript):
     from ..subprotocols.onehot import AddressReadCheckProver, BooleanityProver
     from ..subprotocols.sumcheck import SumcheckInstanceProof
     from ..poly.unipoly import CompressedUniPoly
-    sc = active()
+    sc = Scope.entered
     if sc is None or not any(isinstance(i, (BooleanityProver,
                                             AddressReadCheckProver))
                              for i in instances):

@@ -32,10 +32,11 @@ parallel/shardedrows.py's, which builds on this engine. Its switches
 (JOLT_ATLAS_TPU_IOP, the relay link model, JOLT_ATLAS_MESH_MIN_N,
 JOLT_ATLAS_MESH_HEAD_ROUNDS, JOLT_ATLAS_MESH_MAX_P) are one argument, the
 gate (``RowsGate``, ``forced``), given to ``AtlasProver(iop_gate=)``; the
-prover enters ``iop_scope`` around its IOP loop only, so the opening
-reduction's rows never reach this engine. A gate declines an instance
-before any device work and records why; a build or launch failure
-propagates (the reference's ``except Exception: return None`` is gone).
+prover enters the engine's ``Scope`` around its IOP loop only
+(AtlasProver._iop_engines), so the opening reduction's rows never reach
+this engine. A gate declines an instance before any device work and
+records why; a build or launch failure propagates (the reference's
+``except Exception: return None`` is gone).
 
 Each wrapper dispatches on its tensors' device: CUDA tensors launch the
 kernel, CPU tensors run the plain version, with no fallback from one to the
@@ -586,7 +587,7 @@ class DeviceGruen:
     """frvec.GruenInstance's interface with the rows on ``device`` for the
     first ``head_rounds`` rounds (``try_setup`` builds it). ``rows``: each
     an FrArray or a vector of small integers, as the host engine takes
-    them. ``stats`` (the active IopScope) counts its device rounds. The
+    them. ``stats`` (the entered Scope) counts its device rounds. The
     steps are profiling spans (rows_upload, rows_points, rows_bind,
     rows_handoff); each bind counts the row elements it binds (P x n) in
     telemetry, as ``iop_rows_bound_card`` or, once handed to the host,
@@ -654,68 +655,28 @@ class DeviceGruen:
         return self._host.row_value(i)
 
 
-_SCOPES: dict = {}  # the entered scope of each label
-
-
-class IopScope:
+class Scope(telemetry.EngineScope):
     """While entered, RowsInstance.setup_rows offers its eq-weighted
-    instances to the engine of ``label``: "iop", this module's
-    ``try_setup`` (the prover's IOP loop), or "mesh_iop", the mesh rows
-    engine (parallel/shardedrows.py, under its mesh_scope). Counts what
-    was offered (``offer``), engaged and declined and the engine's
-    rounds; on exit records the decision in telemetry: decisions[label]
-    and, for the declines, label + ":declined"."""
+    instances to ``try_setup`` (telemetry.EngineScope: decisions["iop"]
+    and ["iop:declined"], the row elements the card bound the
+    ``iop_rows_bound_card`` counter, kernel 7's and kernel 4's dispatches
+    ``iop_rows``) under ``gate``, and counts the engine's rounds."""
 
-    def __init__(self, device, gate: RowsGate, label: str = "iop",
-                 where: str = "device"):
-        self.device = torch.device(device)
+    ENGINE, COUNTER, DISPATCHES = "iop", "iop_rows_bound_card", "iop_rows"
+    ITEMS, ELEMENTS, WHERE = "instances", "row elements bound", "device"
+
+    def __init__(self, device, gate: RowsGate):
+        super().__init__(device)
         self.gate = gate
-        self.label = label
-        self.where = where
-        self.offered = self.engaged = self.elements = self.rounds = 0
-        self.declined: dict[str, int] = {}
-
-    def __enter__(self):
-        self._prev = _SCOPES.get(self.label)
-        _SCOPES[self.label] = self
-        return self
-
-    def __exit__(self, *exc):
-        _SCOPES[self.label] = self._prev
-        telemetry.decide(self.label, self.summary())
-        if self.declined:
-            telemetry.decide(f"{self.label}:declined", ", ".join(
-                f"{why}: {k}" for why, k in sorted(self.declined.items())))
-        return False
-
-    def decline(self, why: str) -> None:
-        self.declined[why] = self.declined.get(why, 0) + 1
+        self.rounds = 0
 
     def summary(self) -> str:
-        if self.engaged:
-            return (f"ENGAGED ({self.engaged} of {self.offered} instances, "
-                    f"{self.elements} elements, {self.rounds} {self.where} "
-                    f"rounds)")
-        return f"none engaged ({self.offered} instances offered)"
+        s = super().summary()
+        return (f"{s[:-1]}, {self.rounds} {self.WHERE} rounds)"
+                if self.engaged else s)
 
 
-def iop_scope(device, gate: RowsGate | None = None) -> IopScope | None:
-    """The scope the prover enters around its IOP loop, or None (the host
-    path, recorded in telemetry) when the gate does not run the engine on
-    this device: a CUDA device, or any device with a forced gate."""
-    gate = RowsGate() if gate is None else gate
-    device = torch.device(device)
-    if device.type != "cuda" and not gate.forced:
-        telemetry.decide("iop", f"host path (device={device.type})")
-        return None
-    return IopScope(device, gate)
-
-
-def active(label: str = "iop") -> IopScope | None:
-    return _SCOPES.get(label)
-
-
-def offer(sc: IopScope, rows, terms, degree: int,
+def offer(sc: Scope, rows, terms, degree: int,
           why: str | None = None) -> bool:
     """Offer an instance to the scope's engine: True if it takes it
     (counted as engaged), False if ``why`` (the engine's own reason), the
@@ -734,16 +695,15 @@ def offer(sc: IopScope, rows, terms, degree: int,
         sc.decline(why)
         return False
     sc.engaged += 1
-    sc.elements += P * n
     return True
 
 
 def try_setup(rows, terms, degree: int) -> DeviceGruen | None:
-    """A DeviceGruen for this instance under the active scope, or None (no
+    """A DeviceGruen for this instance under the entered scope, or None (no
     scope, or the gate declined: the caller uses the host engine; the
     reason is counted in the scope). ``rows``: as the host GruenInstance
     takes them, each an FrArray or a vector of small integers."""
-    sc = active()
+    sc = Scope.entered
     if sc is None or not rows or not offer(sc, rows, terms, degree):
         return None
     return DeviceGruen(rows, terms, degree, sc.device, sc.gate.head_rounds, sc)

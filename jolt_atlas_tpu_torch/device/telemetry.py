@@ -17,8 +17,9 @@ dispatches: the calls into the host field engine (``host_field_calls``,
 field/frvec.py), the IOP's batched sumcheck rounds, the row elements the
 IOP's Gruen instances bind on the card and on the host; utils/profiling
 keeps each counter's change across a proof. ``EngineScope`` is the scope
-an IOP engine's entry point takes its work under (device/onehot.py,
-device/bind.py), which records the engine's decisions here.
+an IOP engine's entry point takes its work under (device/rows.py,
+device/onehot.py, device/bind.py, parallel/shardedreduction.py), which
+records the engine's decisions here.
 """
 
 from __future__ import annotations
@@ -106,14 +107,16 @@ def reset() -> None:
 
 class EngineScope:
     """While entered, an IOP engine's entry point offers it work from the
-    host path. Counts the work offered, engaged and declined (by reason);
-    on exit records decisions[ENGINE], with the engine's elements (the
-    counter COUNTER) and dispatches while it was entered, and, for the
-    declines, decisions[ENGINE + ":declined"]. A subclass names ENGINE,
-    COUNTER and its summary's ITEMS and ELEMENTS; ``entered`` is its
-    entered scope."""
+    host path (AtlasProver._iop_engines decides which scopes a proof
+    enters). Counts the work offered, engaged and declined (by reason); on
+    exit records decisions[ENGINE], with the engine's elements (the
+    counter COUNTER) and dispatches (DISPATCHES, by default ENGINE) while
+    it was entered, and, for the declines, decisions[ENGINE +
+    ":declined"]. A subclass names ENGINE, COUNTER and its summary's ITEMS
+    and ELEMENTS; ``entered`` is its entered scope."""
 
     ENGINE = COUNTER = ITEMS = ELEMENTS = ""
+    DISPATCHES = None
     entered = None
 
     def __init__(self, device):
@@ -121,21 +124,10 @@ class EngineScope:
         self.offered = self.engaged = 0
         self.declined: dict[str, int] = {}
 
-    @classmethod
-    def for_device(cls, device, forced: bool = False, *args):
-        """The scope the prover enters around its IOP loop, or None (the
-        host path, recorded here): on a CUDA device, or on any device where
-        the IOP's rows gate is forced (device/rows.py ``forced``; the plain
-        versions on a CPU device)."""
-        device = torch.device(device)
-        if device.type != "cuda" and not forced:
-            decide(cls.ENGINE, f"host path (device={device.type})")
-            return None
-        return cls(device, *args)
-
     def _work(self) -> tuple:
         """(the engine's elements, its dispatches) so far."""
-        return _COUNTERS.get(self.COUNTER, 0), _COUNTS.get(self.ENGINE, 0)
+        return (_COUNTERS.get(self.COUNTER, 0),
+                _COUNTS.get(self.DISPATCHES or self.ENGINE, 0))
 
     def __enter__(self):
         cls = type(self)

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..device import telemetry
-from ..device.rows import IopScope, active
+from ..device.rows import Scope
 from ..device.field import FR, NLIMBS, _carry, from_planes, to_planes
 from ..field.scalar import Fr
 from ..utils.profiling import span
@@ -50,24 +50,28 @@ def active_mesh():
 
 
 def active_scope():
-    return active("mesh_iop")
+    return mesh_scope.entered
 
 
-class mesh_scope(IopScope):
+class mesh_scope(Scope):
     """``with mesh_scope(mesh): prover.prove(...)`` runs the opening
     reduction (``try_prove``) and the IOP's dense Gruen instances
     (parallel/shardedrows.py, under ``rows_gate``, by default
     ``shardedrows.mesh_gate(mesh.device)``) on the mesh; it enters as the
-    mesh. As device/rows.IopScope (label "mesh_iop"), it counts what the
+    mesh. As device/rows.Scope (telemetry.EngineScope), it counts what the
     rows engine was offered, took and declined, and records it in
     telemetry on exit: decisions["mesh_iop"] and, for the declines,
     "mesh_iop:declined"."""
 
+    ENGINE, COUNTER, DISPATCHES = ("mesh_iop", "mesh_iop_rows_bound",
+                                   "mesh_iop_rows")
+    WHERE = "mesh"
+    entered = None  # its own, not device/rows.Scope's
+
     def __init__(self, mesh, rows_gate=None):
         from .shardedrows import mesh_gate
         super().__init__(mesh.device, mesh_gate(mesh.device)
-                         if rows_gate is None else rows_gate, "mesh_iop",
-                         "mesh")
+                         if rows_gate is None else rows_gate)
         self.mesh = mesh
 
     def __enter__(self):

@@ -166,6 +166,7 @@ class MeshGruen:
             self.x = bind(self.x, self.x, c, zero, lanes, lanes,
                           (m // 2).bit_length() - 1)
             telemetry.count("mesh_iop_rows")
+        telemetry.tally("mesh_iop_rows_bound", self.P * self.n)
         self.n //= 2
         self._rounds_left -= 1
         if self.n <= self.D or self._rounds_left <= 0:

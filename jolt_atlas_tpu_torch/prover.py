@@ -28,6 +28,7 @@ from .commitment.hyperkzg import HyperKZG
 from .device import bind as dbind
 from .device import onehot as donehot
 from .device import rows as drows
+from .device import telemetry
 from .commitment.kzg import kzg_commit
 from .curve.msm import msm
 from .utils import profiling
@@ -110,19 +111,13 @@ class AtlasProver:
         # rows total the size floor. reduction.forced(tail_rounds=t) runs
         # them on any device at any size (a CPU device: the plain
         # versions), the last t rounds on the host.
-        # iop_gate: which of the IOP's dense Gruen sumchecks run their head
-        # rounds on the device (device/rows.py); None: on a CUDA device,
+        # iop_gate: the IOP's rows gate (device/rows.py RowsGate): which of
+        # its dense Gruen sumchecks run their head rounds on the card; None:
         # rows of >= 2048 elements and a first round of >= 2^20 row values
-        # (rows.work), 2 rounds.
-        # rows.forced(head_rounds=, min_n=) runs them on any device (a CPU
-        # device: the plain versions).
-        # Each node's one-hot read checks (a Booleanity and its address read
-        # checks, one batched sumcheck) run on the card's read-check engine
-        # (device/onehot.py), and each Einsum operand's bind on the card's
-        # bind engine (device/bind.py), on a CUDA device, and wherever
-        # iop_gate is forced (a CPU device: the plain versions). The bind
-        # engine keeps the graph's constant operands on the card from their
-        # first bind on (bind_residents).
+        # (rows.work), 2 rounds. Its ``forced`` flag (rows.forced(
+        # head_rounds=, min_n=)) runs the IOP's card engines on any device
+        # (a CPU device: the plain versions). _iop_engines says which IOP
+        # engines a proof enters.
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AtlasProver: no CUDA device; pass "
@@ -147,6 +142,45 @@ class AtlasProver:
             return None, None
         return (self.pp.srs.device_bases(self.device, self.msm_gate,
                                          c=self.msm_window), self.msm_gate)
+
+    def _iop_engines(self) -> contextlib.ExitStack:
+        """The IOP's card engines for one proof, their scopes entered in
+        one stack (each records what it took in telemetry on exit):
+
+        - the rows engine (device/rows.py), the head rounds of the dense
+          Gruen sumchecks, under iop_gate;
+        - the read-check engine (device/onehot.py), each node's Booleanity
+          and address read checks, one batched sumcheck;
+        - the bind engine (device/bind.py), every operand bind (Einsum's
+          operands, Sum's input, the Gather dictionaries, Softmax's exp
+          sums), the graph's constants resident from their first bind
+          (bind_residents).
+
+        They run on a CUDA device, or on any device where iop_gate is
+        forced. None runs under a mesh scope (parallel/shardedreduction.py:
+        its own engines take the rows and the reduction), and the
+        read-check engine does not run in zk mode (its messages are in the
+        clear). Each engine left to the host path records why in
+        telemetry.decisions."""
+        from .parallel import shardedreduction
+        gate = drows.RowsGate() if self.iop_gate is None else self.iop_gate
+        if shardedreduction.active_mesh() is not None:
+            host = "mesh scope active"
+        elif self.device.type != "cuda" and not gate.forced:
+            host = f"host path (device={self.device.type})"
+        else:
+            host = None
+        zk = zk_mode.gens() is not None
+        stack = contextlib.ExitStack()
+        for scope, args in ((drows.Scope, (gate,)), (donehot.Scope, ()),
+                            (dbind.Scope, (self.bind_residents,))):
+            why = host or ("zk mode" if zk and scope is donehot.Scope
+                           else None)
+            if why is None:
+                stack.enter_context(scope(self.device, *args))
+            else:
+                telemetry.decide(scope.ENGINE, why)
+        return stack
 
     def prove_zk(self, inputs: list[np.ndarray]):
         """Zero-knowledge prove: identical pipeline, but every sumcheck's
@@ -273,26 +307,8 @@ class AtlasProver:
             accumulator.append_virtual(transcript, oid, r_tau, claim)
 
         # --- reverse-topological IOP ---
-        # the rows engine's scope (device/rows.py; the reference's
-        # single-chip mesh scope), or None for the host path: the IOP's
-        # dense Gruen instances run their head rounds on the device. It
-        # steps aside while a mesh scope is active: the mesh engine
-        # (parallel/shardedrows.py) takes them.
-        from .parallel import shardedreduction
-        if shardedreduction.active_mesh() is not None:
-            from .device import telemetry
-            telemetry.decide("iop", "mesh scope active")
-            scope = None
-        else:
-            scope = drows.iop_scope(self.device, self.iop_gate)
-        # the read-check engine's and the einsum bind engine's scopes
-        # (device/onehot.py, device/bind.py), or None
-        forced = self.iop_gate is not None and self.iop_gate.forced
-        rachecks = donehot.scope(self.device, forced)
-        binds = dbind.scope(self.device, forced, self.bind_residents)
-        with span("iop"), scope or contextlib.nullcontext(), \
-                rachecks or contextlib.nullcontext(), \
-                binds or contextlib.nullcontext():
+        # the card engines this proof enters are chosen in _iop_engines
+        with span("iop"), self._iop_engines():
             for node in reversed(model.graph.sorted_nodes()):
                 claims = collect_node_claims(accumulator, node.idx)
                 if isinstance(node.operator, (FOPS.Input, FOPS.Constant)):

@@ -567,8 +567,8 @@ class BatchedSumcheck:
     @_spanned
     def prove(instances: list[SumcheckInstanceProver], accumulator, transcript):
         # a node's one-hot read checks go to the card's engine while its
-        # scope is active (device/onehot.py), which declines what it does
-        # not take: zk mode, a mesh scope, other instances
+        # scope is entered (device/onehot.py), which declines what it does
+        # not take
         got = donehot.try_prove(instances, accumulator, transcript)
         if got is not None:
             return got

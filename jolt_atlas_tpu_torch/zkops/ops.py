@@ -20,6 +20,7 @@ import numpy as np
 from ..device import bind as dbind
 from ..device import telemetry
 from ..field import vec
+from ..field.frvec import FrArray
 from ..field.scalar import Fr
 from ..frontend import ops as FOPS
 from ..ids import CommittedPoly, OpeningId, SumcheckId, VirtualPoly
@@ -312,6 +313,8 @@ class EinsumLayout:
         for ch in self.contract_chars:
             assert all(ch in t for t in self.terms), \
                 f"contraction char {ch} must appear in both operands"
+        assert all(len(set(t)) == len(t) for t in self.terms), \
+            "einsum proofs support operands without a repeated char"
         self.shared_chars = [ch for ch in rhs
                              if all(ch in t for t in self.terms)]
         self.domain_chars = self.shared_chars + self.contract_chars
@@ -368,30 +371,33 @@ class EinsumLayout:
         return ([ch for ch in self.domain_chars if ch in term],
                 [ch for ch in term if ch in excl])
 
-    def broadcast_bound(self, bound: np.ndarray, kept: list[str]):
-        """A bound operand (its kept chars' axes, then any trailing axes)
-        broadcast along the domain chars missing from its term (the operand
-        is constant along them), flattened in canonical domain order."""
-        bound = np.asarray(bound)  # a scalar where no char is kept
-        trail = bound.shape[len(kept):]
-        full_shape = tuple(self.sizes[ch] for ch in self.domain_chars)
-        view = bound
+    def operand_layout(self, term: str, out_groups: dict) -> tuple:
+        """(perm, K, E, points, kept): the bind of ``term``'s operand at its
+        exclusive out chars (device/bind.py ``bind_operand``): its axes in
+        the order perm, the kept chars' K values by the exclusive chars' E,
+        against the eq table of their points concatenated."""
+        kept, excl = self.operand_axes(term)
+        perm = tuple(term.index(ch) for ch in kept + excl)
+        K, E = (int(np.prod([self.sizes[ch] for ch in chars],
+                            dtype=np.int64)) for chars in (kept, excl))
+        return perm, K, E, [x for ch in excl for x in out_groups[ch]], kept
+
+    def broadcast_bound(self, bound, kept: list[str]):
+        """A bound operand's K values (an FrArray or an object array, its
+        kept chars' axes flattened) broadcast along the domain chars
+        missing from its term (the operand is constant along them),
+        flattened in canonical domain order."""
+        native = isinstance(bound, FrArray)
+        flat = bound.d if native else np.asarray(bound)
+        trail = flat.shape[1:]
+        view = flat.reshape(tuple(self.sizes[ch] for ch in kept) + trail)
         for ax, ch in enumerate(self.domain_chars):
             if ch not in kept:
                 view = np.expand_dims(view, ax)
+        full_shape = tuple(self.sizes[ch] for ch in self.domain_chars)
         view = np.broadcast_to(view, full_shape + trail)
-        return np.ascontiguousarray(view).reshape((-1,) + trail)
-
-    def bound_operand(self, arr: np.ndarray, term: str, out_groups: dict):
-        """Partial-evaluate at exclusive out chars; flatten remaining axes
-        (shared + contract) in canonical domain order (absent chars -> the
-        operand is constant along them, broadcast)."""
-        obj = arr.astype(object) % vec.R
-        kept, excl = self.operand_axes(term)
-        eq_parts = [vec.as_object(eq_evals(out_groups[ch])) for ch in excl]
-        sub = ",".join([term] + excl)
-        bound = np.einsum(f"{sub}->{''.join(kept)}", obj, *eq_parts) % vec.R
-        return MLPoly(fvec=self.broadcast_bound(bound, kept))
+        out = np.ascontiguousarray(view).reshape((-1,) + trail)
+        return FrArray(out) if native else out
 
     def eq_shared_poly(self, out_groups: dict) -> MLPoly | None:
         if not self.shared_chars:
@@ -898,16 +904,11 @@ def _prove_einsum(node, ctx, r, out_claim):
     bounds = []
     for i, term in zip(node.inputs, layout.terms):
         arr = ctx.trace.node_outputs[i]
-        # the card's bind engine where the prover's scope is entered (a
-        # constant operand stays resident there), else the host
-        resident = i if isinstance(ctx.node(i).operator, FOPS.Constant) \
-            else None
+        perm, K, E, points, kept = layout.operand_layout(term, out_groups)
         with profiling.span("einsum_bind"):
-            bound = dbind.try_bind(layout, arr, term, out_groups, resident)
-            if bound is None:
-                bound = layout.bound_operand(arr, term, out_groups)
-                telemetry.tally("einsum_bind_host", arr.size)
-            bounds.append(bound)
+            bound = dbind.bind_operand(arr, perm, K, E, points,
+                                       _resident(ctx, i))
+            bounds.append(MLPoly(fvec=layout.broadcast_bound(bound, kept)))
         telemetry.tally("einsum_bind_elements", arr.size)
     cinst = EinsumContractionProver(node, layout, bounds, acc_claim,
                                     out_groups, list(node.inputs))
@@ -1047,6 +1048,18 @@ def _sum_axes_setup(node, ctx, r_sc):
     return info, rounds, out_groups
 
 
+def _sum_bound(x: np.ndarray, info):
+    """Sum's input bound at the r groups of its kept axes, its summed axes
+    flattened in order: the one operand bind (device/bind.py) of x laid
+    out (summed, kept)."""
+    summed = [ax for ax, (s, _) in enumerate(info) if s]
+    kept = [ax for ax, (s, _) in enumerate(info) if not s]
+    K, E = (int(np.prod([x.shape[ax] for ax in axes], dtype=np.int64))
+            for axes in (summed, kept))
+    return dbind.bind_operand(x, tuple(summed + kept), K, E,
+                              [p for ax in kept for p in info[ax][1]])
+
+
 def _prove_sum(node, ctx, r, out_claim):
     op = node.operator
     gamma = ctx.transcript.challenge_scalar()
@@ -1070,15 +1083,7 @@ def _prove_sum(node, ctx, r, out_claim):
 
     info, rounds, out_groups = _sum_axes_setup(node, ctx, r_sc)
     acc_claim = ctx.accumulator.get_opening(acc_opening_id(node.idx))[1]
-    # bind kept axes of the input at r groups; flatten summed axes
-    obj = x.astype(object) % vec.R
-    term = "".join(chr(ord("a") + i) for i in range(x.ndim))
-    eq_parts = [vec.as_object(eq_evals(payload))
-                for (s, payload) in info if not s]
-    sub = ",".join([term] + [term[ax] for ax, (s, _) in enumerate(info) if not s])
-    out_sub = "".join(term[ax] for ax, (s, _) in enumerate(info) if s)
-    bound = np.einsum(f"{sub}->{out_sub}", obj, *eq_parts) % vec.R
-    cinst = SumAxisContractionProver(node, MLPoly(fvec=bound.reshape(-1)),
+    cinst = SumAxisContractionProver(node, MLPoly(fvec=_sum_bound(x, info)),
                                      acc_claim, info, node.inputs[0])
     cproof, _ = Sumcheck.prove(cinst, ctx.accumulator, ctx.transcript)
     ctx.proofs[(node.idx, "SumReduction")] = cproof
@@ -1262,6 +1267,27 @@ class GatherLargeReadRafVerifier(GatherReadRafVerifier):
         return ra_claim * (prefix * dict_claim + self.gamma * ident)
 
 
+def _resident(ctx, i: int):
+    """i where node i is a constant (its operand binds stay on the card,
+    device/bind.py), else None."""
+    return i if isinstance(ctx.node(i).operator, FOPS.Constant) else None
+
+
+def _dict_bound(dict_in: np.ndarray, r_e, rows: int, resident=None):
+    """Gather's dictionary, each of its V rows bound at r_e over its
+    entries by the one operand bind (device/bind.py), zero-extended to
+    ``rows`` values."""
+    V = dict_in.shape[0]
+    E = dict_in.size // V
+    bound = dbind.bind_operand(dict_in.reshape(V, E), (0, 1), V, E, r_e,
+                               resident)
+    if rows == V:
+        return bound
+    out = vec.zeros(rows)
+    out[:V] = bound
+    return out
+
+
 def _prove_gather_large(node, ctx, r, out_claim):
     dict_in = ctx.trace.node_outputs[node.inputs[0]]
     idx_in = padded_flat(ctx.trace.node_outputs[node.inputs[1]]).astype(np.int64)
@@ -1280,16 +1306,8 @@ def _prove_gather_large(node, ctx, r, out_claim):
 
     eq_i = eq_evals(r_i)
     G = onehot.compute_G(idx_in, eq_i, K=Vp)
-    eq_e = eq_evals(r_e)
-    E = max(1, int(np.prod(dict_in.shape[1:])))
-    dict_flat = np.zeros((Vp, E), dtype=np.int64)
-    dict_flat[:V] = dict_in.reshape(V, E)
-    from ..field import frvec
-    if vec.native_available() and isinstance(eq_e, frvec.FrArray):
-        dict_bound = frvec.i64_mat_vec(dict_flat, eq_e)
-    else:
-        dobj = dict_flat.astype(object) % vec.R
-        dict_bound = np.einsum("ve,e->v", dobj, vec.as_object(eq_e)) % vec.R
+    dict_bound = _dict_bound(dict_in, r_e, Vp,
+                             _resident(ctx, node.inputs[0]))
     identf = vec.from_ints(np.arange(Vp, dtype=np.int64))
     val = vec.vadd(dict_bound, vec.vscale(identf, gamma))
 
@@ -1372,12 +1390,10 @@ def _prove_gather(node, ctx, r, out_claim):
 
     eq_i = eq_evals(r_i)
     G = onehot.compute_G(idx_in.astype(np.int64), eq_i, K=V)
-    eq_e = vec.as_object(eq_evals(r_e))
-    dict_flat = dict_in.reshape(V, -1)
-    dobj = dict_flat.astype(object) % vec.R
-    dict_bound = np.einsum("ve,e->v", dobj, eq_e) % vec.R
-    ident = np.arange(V, dtype=object)
-    val = (dict_bound + gamma.v * ident) % vec.R
+    dict_bound = _dict_bound(dict_in, r_e, V,
+                             _resident(ctx, node.inputs[0]))
+    val = vec.vadd(dict_bound, vec.vscale(
+        vec.from_ints(np.arange(V, dtype=np.int64)), gamma))
 
     inst = GatherReadRafProver(node, MLPoly(fvec=G.copy()),
                                MLPoly(fvec=val),

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..device import bind as dbind
 from ..field.scalar import Fr
 from ..frontend import ops as FOPS
 from ..ids import CommittedPoly, OpeningId, SumcheckId, VirtualPoly
@@ -244,17 +245,10 @@ class MaxCheckVerifier(SumcheckInstanceVerifier):
 
 
 def _expsum_bound(exp_q, F_n: int, N: int, r_k):
-    """bound[n] = sum_k exp_q[k, n] * eq(r_k, k), natively when possible
-    (the object-int einsum was ~0.1 s/prove at bench scale)."""
-    from ..field import frvec, vec as _vec
-    eq_k = eq_evals(r_k)
-    if isinstance(eq_k, frvec.FrArray):
-        m = np.ascontiguousarray(
-            exp_q.astype(np.int64).reshape(F_n, N).T)
-        return frvec.i64_mat_vec(m, eq_k)
-    eq_o = _vec.as_object(eq_k)
-    eobj = exp_q.astype(object).reshape(F_n, N) % _vec.R
-    return np.einsum("kn,k->n", eobj, eq_o) % _vec.R
+    """bound[n] = sum_k exp_q[k, n] * eq(r_k, k): the one operand bind
+    (device/bind.py) of exp_q laid out (N, F_n)."""
+    return dbind.bind_operand(np.asarray(exp_q).reshape(F_n, N), (1, 0), N,
+                              F_n, r_k)
 
 
 def _argmax_ppub(argmax_k, F_n: int, N: int, r_k2):

@@ -118,7 +118,7 @@ def prove(rec, dev) -> tuple:
     t = Blake2bTranscript(b"rachecks bench")
     acc = ProverOpeningAccumulator()
     insts = instances(rec)
-    sc = donehot.scope(dev) if dev is not None else None
+    sc = donehot.Scope(dev) if dev is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with sc or contextlib.nullcontext():

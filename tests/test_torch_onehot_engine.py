@@ -1,6 +1,6 @@
 """The one-hot read-check engine (jolt_atlas_tpu_torch/device/onehot.py)
 against the host path and the reference, on the CPU, where every kernel
-wrapper runs its plain version (the engine's scope forced, as the prover
+wrapper runs its plain version (the engine's scope entered, as the prover
 enters it where the rows gate is forced).
 
 - one batch of each class of the benchmark's nanoGPT and of Gather, (K, D,
@@ -14,8 +14,10 @@ enters it where the rows gate is forced).
 - the BENCH_SMALL nanoGPT and a small MLP proved with the engine engaged
   (telemetry shows it): the reference package's proof bytes, and both
   verifiers accept;
-- each decline (a mixed batch, zk mode, a mesh scope, a zero coordinate of
-  r_b) is counted with its reason and gives the host path's bytes;
+- each decline (a mixed batch, a zero coordinate of r_b) is counted with
+  its reason and gives the host path's bytes; in zk mode or under a mesh
+  scope the prover enters no read-check scope (nor, under a mesh, the
+  rows and bind engines'), records why, and gives the host path's bytes;
 - the plain kernels' state against a direct computation: the bucket sums
   and the eq tables.
 
@@ -45,8 +47,8 @@ from jolt_atlas_tpu_torch.ids import CommittedPoly, SumcheckId
 from jolt_atlas_tpu_torch.poly.eq import eq_evals
 from jolt_atlas_tpu_torch.poly.opening import ProverOpeningAccumulator
 from jolt_atlas_tpu_torch.prover import AtlasProver
-from jolt_atlas_tpu_torch.subprotocols import onehot, zk_sumcheck
-from jolt_atlas_tpu_torch.subprotocols.sumcheck import BatchedSumcheck, zk_mode
+from jolt_atlas_tpu_torch.subprotocols import onehot
+from jolt_atlas_tpu_torch.subprotocols.sumcheck import BatchedSumcheck
 from jolt_atlas_tpu_torch.transcripts import Blake2bTranscript
 from jolt_atlas_tpu_torch.verifier import AtlasVerifier
 from test_torch_srs import port_pp, reference_native
@@ -123,7 +125,7 @@ def _prove(instances_of, engine: bool):
     t = Blake2bTranscript(b"rachecks")
     acc = ProverOpeningAccumulator()
     instances = instances_of(t)
-    sc = O.scope("cpu", forced=True) if engine else None
+    sc = O.Scope("cpu") if engine else None
     with sc or contextlib.nullcontext():
         proof, r = BatchedSumcheck.prove(instances, acc, t)
     openings = {k: ([x.v for x in pt], c.v)
@@ -166,51 +168,64 @@ def _mixed(t):
     return insts + [rc]
 
 
-class _Mesh:
-    mesh = object()
-
-
-@pytest.mark.parametrize("why", ["mixed batch", "zk mode", "mesh scope",
-                                 "zero coordinate of r_b"])
-def test_decline_gives_host_path_bytes(why, monkeypatch):
+@pytest.mark.parametrize("why", ["mixed batch", "zero coordinate of r_b"])
+def test_decline_gives_host_path_bytes(why):
     make = {"mixed batch": _mixed,
             "zero coordinate of r_b":
-                lambda t: _batch(16, 4, 16, 7, t, zero_at=5)}.get(
-        why, lambda t: _batch(16, 4, 16, 9, t))
-    ctx = contextlib.nullcontext
-    if why == "zk mode":  # the same blinds on both sides
-        from jolt_atlas_tpu_torch.commitment.kzg import KZGSRS
-        from jolt_atlas_tpu_torch.commitment.pedersen import \
-            PedersenGenerators
-        gens = PedersenGenerators.from_srs(KZGSRS.setup(15), 16)
-        ctx = lambda: zk_mode(gens)
-    if why == "mesh scope":
-        from jolt_atlas_tpu_torch.parallel import shardedreduction
-        monkeypatch.setattr(shardedreduction, "active_scope", _Mesh)
-    with ctx():
-        monkeypatch.setattr(zk_sumcheck, "_rand_fr", _counter_rand())
-        host = _prove(make, False)
-        monkeypatch.setattr(zk_sumcheck, "_rand_fr", _counter_rand())
-        telemetry.reset()
-        got = _prove(make, True)
+                lambda t: _batch(16, 4, 16, 7, t, zero_at=5)}[why]
+    host = _prove(make, False)
+    telemetry.reset()
+    got = _prove(make, True)
     assert got[:4] == host[:4]
     sc = got[4]
     assert (sc.offered, sc.engaged, sc.declined) == (1, 0, {why: 1})
 
 
-def _counter_rand():
-    seq = iter(range(1, 1 << 20))
-    return lambda: Fr(next(seq))
+@pytest.mark.parametrize("why", ["zk mode", "mesh scope"])
+def test_prover_enters_no_card_scope_under_zk_or_a_mesh(why, monkeypatch):
+    """A prover whose rows gate is forced (every IOP card engine would run
+    on the CPU) in zk mode or under a mesh scope: it enters none of the
+    scopes that rules out (zk mode: the read-check engine's; a mesh: all
+    three), records why once for each, and gives the host path's bytes
+    (zk proofs under one seeded blinding stream)."""
+    from jolt_atlas_tpu_torch.examples.nanogpt_style import seeded_blinding
+    from jolt_atlas_tpu_torch.parallel import make_mesh, mesh_scope
+    model, inputs = _mlp()
+    pp = port_pp(model, RefPP.preprocess(model))
+    entered = []
+    real = telemetry.EngineScope.__enter__
+    monkeypatch.setattr(telemetry.EngineScope, "__enter__",
+                        lambda self: entered.append(self.ENGINE)
+                        or real(self))
+
+    def prove(prover):
+        del entered[:]
+        telemetry.reset()
+        if why == "zk mode":
+            with seeded_blinding(7):
+                return serde.serialize_proof(prover.prove_zk(inputs)[0])
+        with mesh_scope(make_mesh(2, device="cpu")):
+            return serde.serialize_proof(prover.prove(inputs)[0])
+    host = prove(AtlasProver(pp, device="cpu"))
+    got = prove(AtlasProver(pp, device="cpu", iop_gate=drows.forced()))
+    d = telemetry.snapshot()["decisions"]
+    if why == "zk mode":
+        out, reason = ["rachecks"], "zk mode"
+        assert {"iop", "einsum_bind"} <= set(entered)
+    else:
+        out, reason = ["iop", "rachecks", "einsum_bind"], "mesh scope active"
+        assert entered == ["mesh_iop"]
+    assert not set(out) & set(entered)
+    assert all(d[engine] == reason for engine in out)
+    assert got == host
 
 
 def test_scope_records_its_decisions():
     telemetry.reset()
-    assert O.scope("cpu") is None
-    assert telemetry.snapshot()["decisions"]["rachecks"] == \
-        "host path (device=cpu)"
-    assert O.scope("cuda").device.type == "cuda"  # no card needed
+    assert O.Scope("cuda").device.type == "cuda"  # no card needed
     telemetry.tally("iop_rachecks_card", 11)  # before the scope: not its
-    with O.scope("cpu", forced=True) as sc:
+    with O.Scope("cpu") as sc:
+        assert O.Scope.entered is sc
         sc.offered, sc.engaged = 3, 2
         telemetry.tally("iop_rachecks_card", 5)
         telemetry.count("rachecks", 7)
@@ -219,14 +234,14 @@ def test_scope_records_its_decisions():
     assert d["rachecks"] == ("ENGAGED (2 of 3 batches, 5 one-hot "
                              "elements, 7 dispatches)")
     assert d["rachecks:declined"] == "mixed batch: 1"
-    assert O.active() is None
+    assert O.Scope.entered is None
 
 
 def test_other_batches_are_not_offered():
     """A batch of no read-check class never reaches the engine."""
     t = Blake2bTranscript(b"x")
     insts = _mixed(t)[-1:]
-    with O.scope("cpu", forced=True) as sc:
+    with O.Scope("cpu") as sc:
         assert O.try_prove(insts, ProverOpeningAccumulator(), t) is None
     assert sc.offered == 0
 

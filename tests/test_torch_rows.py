@@ -33,6 +33,8 @@ version.
 Tolerance: exact everywhere.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -47,6 +49,8 @@ from jolt_atlas_tpu.preprocessing import AtlasPreprocessing as RefPP
 from jolt_atlas_tpu.prover import AtlasProver as RefProver
 from jolt_atlas_tpu_torch import serde
 from jolt_atlas_tpu_torch.curve.points import g1_generator
+from jolt_atlas_tpu_torch.device import bind as B
+from jolt_atlas_tpu_torch.device import onehot as O
 from jolt_atlas_tpu_torch.device import rows as R
 from jolt_atlas_tpu_torch.device import split, telemetry
 from jolt_atlas_tpu_torch.device.field import tensor_to_ints
@@ -640,7 +644,7 @@ def test_gate_declines_with_its_reason(P, n, gate, why):
     gen = np.random.default_rng(P + n)
     rows = [gen.integers(-50, 50, size=n) for _ in range(P)]
     telemetry.reset()
-    with R.IopScope(torch.device("cpu"), gate) as sc:
+    with R.Scope(torch.device("cpu"), gate) as sc:
         assert R.try_setup(rows, [(Fr.one(), [0, 1])], 3) is None
     assert (sc.offered, sc.engaged, sc.declined) == (1, 0, {why: 1})
     tele = telemetry.snapshot()["decisions"]
@@ -656,7 +660,7 @@ def test_declined_instance_runs_on_host():
     polys = _polys(2, 4096, gen)
     eq_r = [Fr(3 + k) for k in range(12)]
     a, b = _Rows(), _Rows()
-    with R.IopScope(torch.device("cpu"), R.RowsGate(forced=True)) as sc:
+    with R.Scope(torch.device("cpu"), R.RowsGate(forced=True)) as sc:
         a.setup_rows(polys, [(Fr.one(), [0, 1])], 3, eq_r=eq_r)
     b.setup_rows(polys, [(Fr.one(), [0, 1])], 3, eq_r=eq_r)
     assert isinstance(a._gruen, GruenInstance)
@@ -672,13 +676,13 @@ def test_gate_engages_on_eq_rows_only():
     """Inside a scope an instance with eq_r engages; one without eq_r
     is never offered; outside any scope nothing engages."""
     gen = np.random.default_rng(9)
-    with R.IopScope(torch.device("cpu"), R.forced()) as sc:
+    with R.Scope(torch.device("cpu"), R.forced()) as sc:
         a, b = _Rows(), _Rows()
         a.setup_rows(_polys(2, 16, gen), [(Fr.one(), [0, 1])], 3,
                      eq_r=[Fr(3)] * 4)
         b.setup_rows(_polys(2, 16, gen), [(Fr.one(), [0, 1])], 2)
     assert isinstance(a._gruen, R.DeviceGruen) and b._gruen is None
-    assert (sc.offered, sc.engaged, sc.elements) == (1, 1, 32)
+    assert (sc.offered, sc.engaged, a._gruen.P * a._gruen.n) == (1, 1, 32)
     c = _Rows()
     c.setup_rows(_polys(2, 16, gen), [(Fr.one(), [0, 1])], 3,
                  eq_r=[Fr(3)] * 4)
@@ -686,19 +690,36 @@ def test_gate_engages_on_eq_rows_only():
 
 
 def test_default_gate_per_device():
-    """None: the host path on a CPU device (with its reason), a scope on a
-    CUDA device (no card needed to build it), default caps."""
+    """The prover's choice of the IOP's scopes: none on a CPU device (each
+    engine's reason recorded), the three on a CUDA device (no card needed
+    to enter them) under the default caps; the rows scope's summary with
+    its rounds."""
+    prover = lambda device, gate=None: types.SimpleNamespace(
+        device=torch.device(device), iop_gate=gate, bind_residents={})
     telemetry.reset()
-    assert R.iop_scope("cpu") is None
-    assert telemetry.snapshot()["decisions"]["iop"] == \
-        "host path (device=cpu)"
-    sc = R.iop_scope("cuda")
+    with AtlasProver._iop_engines(prover("cpu")):
+        assert R.Scope.entered is None
+    d = telemetry.snapshot()["decisions"]
+    assert [d[e] for e in ("iop", "rachecks", "einsum_bind")] == \
+        ["host path (device=cpu)"] * 3
+    with AtlasProver._iop_engines(prover("cuda")):
+        sc = R.Scope.entered
+        assert (O.Scope.entered.device.type, B.Scope.entered.device.type) \
+            == ("cuda", "cuda")
     assert (sc.gate.head_rounds, sc.gate.min_n, sc.gate.min_work,
             sc.gate.forced) == (2, 2048, 1 << 20, False)
     # work: 1,024 pairs x factors x 20 points against 2^20
     assert sc.gate.decline(96, 2048, 20, 52) is None
     assert sc.gate.decline(96, 2048, 20, 51) == "work < 1048576"
     assert (R.forced().head_rounds, R.forced().min_work) == (2, 0)
+    with AtlasProver._iop_engines(prover("cpu", R.forced())):
+        sc = R.Scope.entered
+        sc.offered, sc.engaged, sc.rounds = 3, 1, 2
+        telemetry.tally("iop_rows_bound_card", 64)
+        telemetry.count("iop_rows", 4)
+    assert telemetry.snapshot()["decisions"]["iop"] == (
+        "ENGAGED (1 of 3 instances, 64 row elements bound, 4 dispatches, "
+        "2 device rounds)")
 
 
 def test_opening_reduction_rows_never_engage(monkeypatch):
@@ -716,7 +737,7 @@ def test_opening_reduction_rows_never_engage(monkeypatch):
     real = opening._GroupReductionProver.setup_sumcheck
 
     def spy(self):
-        seen.append(R.active())
+        seen.append(R.Scope.entered)
         return real(self)
     monkeypatch.setattr(opening._GroupReductionProver, "setup_sumcheck", spy)
     xs = rng.integers(-100, 100, size=(1, 16)).astype(np.int32)
